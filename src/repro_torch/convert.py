@@ -1,0 +1,42 @@
+"""Carry state across from the JAX reference, from numpy only.
+
+The reference's objects never enter the port: a caller turns them into
+plain values (``dataclasses.asdict`` of a config, ``jax.random.key_data``
+of keys, ``np.asarray`` of state arrays) and these functions build the
+port's counterparts.  The parity tests use them to start the port from a
+reference state in the middle of a run.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from . import as_tensor
+from .core.annealing import SAConfig, SAState
+
+
+def sa_config_from_reference(fields: Mapping) -> SAConfig:
+    """An :class:`SAConfig` from the reference config's fields (a dict,
+    e.g. ``dataclasses.asdict(cfg)``)."""
+    return SAConfig(**dict(fields))
+
+
+def keys_from_reference(words: np.ndarray, device="cpu") -> torch.Tensor:
+    """Keys from ``(..., 2)`` uint32 words (``jax.random.key_data``)."""
+    words = np.asarray(words)
+    if words.shape[-1:] != (2,):
+        raise ValueError(f"key words must end in a dim of 2, got {words.shape}")
+    return as_tensor(words.astype(np.uint32), torch.int64, device)
+
+
+def sa_state_from_reference(state: Mapping[str, np.ndarray],
+                            device="cpu") -> SAState:
+    """An :class:`SAState` from the reference state's arrays by field
+    name (``p``, ``f``, ``best_p``, ``best_f``, ``temp``)."""
+    return SAState(p=as_tensor(state["p"], torch.int32, device),
+                   f=as_tensor(state["f"], torch.float32, device),
+                   best_p=as_tensor(state["best_p"], torch.int32, device),
+                   best_f=as_tensor(state["best_f"], torch.float32, device),
+                   temp=as_tensor(state["temp"], torch.float32, device))

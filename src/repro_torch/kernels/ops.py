@@ -1,0 +1,84 @@
+"""Dense kernel dispatch: a CUDA tensor goes to the kernel, a CPU tensor
+to the plain PyTorch version.  Nothing else: there is no fallback from a
+CUDA tensor to the plain version, and a kernel that cannot launch raises.
+
+Call sites in ``repro_torch.core`` go through these wrappers only.  Each
+kernel launch adds one to its count (:func:`launch_counts`), so a run can
+show that its work went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import build
+from .qap_delta import qap_delta_cuda, qap_delta_plain
+from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
+
+LANE = 128
+# The fused step's order cap, kept equal to the reference's
+# (repro/kernels/qap_objective.py MAX_KERNEL_N) so that the SA loop
+# resolves to the same realisation at every order.
+MAX_FUSED_N = 768
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {name: build.LAUNCHES[name] for name in build.KERNELS}
+
+
+def reset_launch_counts() -> None:
+    build.LAUNCHES.clear()
+
+
+def transposes(C: torch.Tensor, M: torch.Tensor
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(C^T, M^T)`` contiguous, as the kernels read them: made once per
+    solve on the card; ``(None, None)`` for the plain path."""
+    if not _route(C):
+        return None, None
+    return C.transpose(-2, -1).contiguous(), M.transpose(-2, -1).contiguous()
+
+
+def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
+              pairs: torch.Tensor, CT: Optional[torch.Tensor] = None,
+              MT: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Swap deltas ``p (B, N)`` x ``pairs (B, K, 2)`` -> ``(B, K)``.
+
+    ``C``/``M`` shared ``(N, N)`` or instance-batched ``(B0, N, N)``;
+    ``CT``/``MT`` (their transposes) are used by the kernel only.
+    """
+    if _route(p):
+        return qap_delta_cuda(C, M, p, pairs, CT, MT)
+    return qap_delta_plain(C, M, p, pairs)
+
+
+def fused_step_fits(n: int) -> bool:
+    """Does the fused SA step take order ``n``?  (The reference's cap.)"""
+    return ((max(n, LANE) + LANE - 1) // LANE) * LANE <= MAX_FUSED_N
+
+
+def qap_sa_step(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
+                max_neighbors: int, max_success: int,
+                CT: Optional[torch.Tensor] = None,
+                MT: Optional[torch.Tensor] = None):
+    """One whole SA temperature step for ``B`` chains: ``(p, f, best_p,
+    best_f)``; candidates and uniforms come from each chain's key words.
+    Callers guard orders with :func:`fused_step_fits`."""
+    if _route(p):
+        return qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys,
+                                n_valid, max_neighbors=max_neighbors,
+                                max_success=max_success, CT=CT, MT=MT)
+    return qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid,
+                             max_neighbors=max_neighbors,
+                             max_success=max_success)

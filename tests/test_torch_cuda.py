@@ -1,0 +1,107 @@
+"""The CUDA kernels against their plain PyTorch versions, and the engine
+on the card against the engine on the CPU.  Every test needs a CUDA
+device and skips without one.  The file imports neither JAX nor the
+reference package, so it runs on a machine that has only the port's
+dependencies:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import annealing, instances
+from repro_torch.kernels import ops
+from repro_torch.kernels.qap_delta import qap_delta_plain
+from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
+from repro_torch.serve import MappingEngine, MapRequest
+
+pytestmark = pytest.mark.gpu
+
+B0, RPT, K = 4, 8, 25
+CASES = [(16, 16, True), (16, 11, False), (40, 29, True), (128, 125, False)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _inputs(n, nv, shared, seed, device):
+    """Integer instances zero-padded past ``nv``; B0 * RPT chains whose
+    permutations keep the padded tail on itself, with candidate pairs,
+    objectives, temperatures, key words and valid orders."""
+    rng = np.random.default_rng(seed)
+    b0 = 1 if shared else B0
+    Cs = np.zeros((b0, n, n), np.float32)
+    Ms = np.zeros((b0, n, n), np.float32)
+    for i in range(b0):
+        C = rng.integers(0, 10, (nv, nv)).astype(np.float32)
+        M = rng.integers(1, 10, (nv, nv)).astype(np.float32)
+        Cs[i, :nv, :nv], Ms[i, :nv, :nv] = C + C.T, M + M.T
+    B = B0 * RPT
+    ps = np.tile(np.arange(n, dtype=np.int32), (B, 1))
+    for r in range(B):
+        ps[r, :nv] = rng.permutation(nv)
+    pairs = np.sort(np.stack([rng.choice(nv, 2, replace=False)
+                              for _ in range(B * K)]), axis=1)
+    inst = np.arange(B) // RPT if not shared else np.zeros(B, int)
+    fs = np.array([(Cs[i] * Ms[i][np.ix_(p, p)]).sum()
+                   for i, p in zip(inst, ps)], np.float32)
+    temps = np.linspace(5.0, 500.0, B).astype(np.float32)
+    keys = rng.integers(0, 2 ** 32, (B, 2), dtype=np.uint64).astype(np.int64)
+    if shared:
+        Cs, Ms = Cs[0], Ms[0]
+    t = lambda x: torch.as_tensor(x, device=device)
+    return (t(Cs), t(Ms), t(ps), t(pairs.reshape(B, K, 2).astype(np.int32)),
+            t(fs), t(temps), t(keys), t(np.full(B, nv, np.int32)))
+
+
+@pytest.mark.parametrize("n,nv,shared", CASES)
+def test_qap_delta_kernel_matches_plain(cuda, n, nv, shared):
+    C, M, p, pairs, *_ = _inputs(n, nv, shared, n + nv, cuda)
+    before = ops.launch_counts()["qap_delta"]
+    got = ops.qap_delta(C, M, p, pairs)
+    assert ops.launch_counts()["qap_delta"] == before + 1
+    assert torch.equal(got, qap_delta_plain(C, M, p, pairs))
+
+
+@pytest.mark.parametrize("n,nv,shared", CASES)
+def test_qap_sa_step_kernel_matches_plain(cuda, n, nv, shared):
+    C, M, p, _, f, temp, keys, nv_t = _inputs(n, nv, shared, 2 * n + nv, cuda)
+    args = (C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t)
+    kw = dict(max_neighbors=K, max_success=6)
+    before = ops.launch_counts()["qap_sa_step"]
+    got = ops.qap_sa_step(*args, **kw)
+    assert ops.launch_counts()["qap_sa_step"] == before + 1
+    want = qap_sa_step_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    C, M, p, pairs, *_ = _inputs(16, 16, True, 0, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.qap_delta(C, M, p.long(), pairs)
+    with pytest.raises(ValueError, match="divide"):
+        ops.qap_delta(torch.stack([C] * 3), torch.stack([M] * 3), p, pairs)
+
+
+@pytest.mark.parametrize("loop", ["event", "fused"])
+def test_engine_on_card_matches_engine_on_cpu(cuda, loop):
+    cfg = annealing.SAConfig(max_neighbors=25, iters_per_exchange=10,
+                             num_exchanges=4, solvers=4, loop=loop)
+    reqs = [MapRequest(job_id=f"n{n}-v{v}", C=inst.C, M=inst.M, seed=v)
+            for n in (27, 45) for v in (1, 2)
+            for inst in [instances.make_taie(n, version=v)]]
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = MappingEngine(sa_cfg=cfg, polish_rounds=50, device=device)
+        futs = [engine.submit(r) for r in reqs]
+        engine.flush()
+        out[device] = [f.result() for f in futs]
+    for g, c in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(g.perm, c.perm)
+        assert g.objective == c.objective

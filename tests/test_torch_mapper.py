@@ -1,0 +1,169 @@
+"""The port's MappingEngine against ``repro.serve.MappingEngine``: the
+same requests give the same permutations and objectives, bit for bit."""
+import numpy as np
+import pytest
+
+from repro.core import annealing as jann
+from repro.core import mapping as jmapping
+from repro.serve.mapper import MappingEngine as RefEngine
+from repro.serve.mapper import MapRequest as RefRequest
+from repro_torch.core import annealing, instances, mapping
+from repro_torch.serve import (ClusterState, MapCancelled, MappingEngine,
+                               MapRequest, QueueFull)
+
+from _fixtures import instance
+
+SA_KW = dict(max_neighbors=8, iters_per_exchange=6, num_exchanges=3,
+             solvers=3)
+ENGINE_KW = dict(buckets=(8, 16), polish_rounds=20)
+
+
+def _requests(cls):
+    """Mixed orders (one above every bucket: the exact-size path), a
+    tight-deadline request, then a warm start (same M as j4, new C)."""
+    first = []
+    for i, n in enumerate([5, 8, 12, 16, 16, 20]):
+        C, M = instance(n, 40 + i)
+        first.append(cls(job_id=f"j{i}", C=C, M=M, seed=i + 3,
+                         deadline_ms=100.0 if i == 1 else None))
+    _, M = instance(16, 44)
+    C2, _ = instance(16, 99)
+    return first, cls(job_id="warm", C=C2, M=M, seed=11)
+
+
+def _drive(engine, cls):
+    first, warm = _requests(cls)
+    futs = [engine.submit(r) for r in first]
+    engine.flush()
+    wf = engine.submit(warm)
+    engine.flush()
+    hit = engine.map_one(first[2].C, first[2].M, seed=123)
+    return [f.result() for f in futs] + [wf.result(), hit]
+
+
+def _same(want, got):
+    for w, g in zip(want, got, strict=True):
+        assert g.job_id == w.job_id
+        np.testing.assert_array_equal(g.perm, w.perm)
+        assert g.objective == w.objective
+        assert (g.baseline, g.bucket, g.tier, g.warm_start, g.cached) == \
+            (w.baseline, w.bucket, w.tier, w.warm_start, w.cached)
+
+
+def test_engine_matches_reference_engine():
+    ref = RefEngine(sa_cfg=jann.SAConfig(**SA_KW), **ENGINE_KW)
+    port = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                         **ENGINE_KW)
+    want, got = _drive(ref, RefRequest), _drive(port, MapRequest)
+    _same(want, got)
+    assert [r.tier for r in got[:2]] == ["default", "tight"]
+    assert got[-2].warm_start and got[-1].cached
+    assert got[5].bucket is None                       # exact-size path
+    assert port.stats.cache_hits == ref.stats.cache_hits == 1
+    assert port.stats.warm_starts == ref.stats.warm_starts == 1
+
+
+def test_fused_engine_matches_reference_engine():
+    """The fused loop on one wave of each bucket."""
+    cfg = dict(SA_KW, loop="fused")
+    ref = RefEngine(sa_cfg=jann.SAConfig(**cfg), **ENGINE_KW)
+    port = MappingEngine(sa_cfg=annealing.SAConfig(**cfg), device="cpu",
+                         **ENGINE_KW)
+    outs = []
+    for engine, cls in ((ref, RefRequest), (port, MapRequest)):
+        reqs = [r for r in _requests(cls)[0] if r.job_id in ("j0", "j2", "j3")]
+        futs = [engine.submit(r) for r in reqs]
+        engine.flush()
+        outs.append([f.result() for f in futs])
+    _same(*outs)
+
+
+def test_cache_hit_serves_the_solved_permutation():
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                           **ENGINE_KW)
+    C, M = instance(12, 5)
+    first = engine.map_one(C, M, seed=1)
+    again = engine.map_one(C, M, seed=2)
+    assert not first.cached and again.cached and again.batch_size == 0
+    np.testing.assert_array_equal(first.perm, again.perm)
+    assert first.objective == again.objective
+    assert engine.stats.solver_calls == 1 and engine.stats.cache_hits == 1
+
+
+@pytest.mark.parametrize("algorithm,deadline", [("pga", None), ("pca", None),
+                                                ("auto", 5000.0)])
+def test_unported_algorithms_fail_their_future(algorithm, deadline):
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                           **ENGINE_KW)
+    C, M = instance(8, 2)
+    fut = engine.submit(MapRequest(job_id="x", C=C, M=M, algorithm=algorithm,
+                                   deadline_ms=deadline))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.flush()
+    assert isinstance(fut.exception(timeout=1), NotImplementedError)
+
+
+def test_max_pending_and_cancel():
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                           max_pending=1, **ENGINE_KW)
+    C, M = instance(8, 3)
+    first = engine.submit(MapRequest(job_id="a", C=C, M=M))
+    refused = engine.submit(MapRequest(job_id="b", C=C, M=M))
+    assert isinstance(refused.exception(timeout=1), QueueFull)
+    assert first.cancel() and not first.cancel()
+    assert engine.flush() == {}
+    with pytest.raises(MapCancelled):
+        first.result(timeout=1)
+    assert (engine.stats.rejected, engine.stats.cancelled,
+            engine.stats.solver_calls) == (1, 1, 0)
+
+
+def test_large_bucket_orders_fail_their_future():
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                           multilevel_min_n=20, **ENGINE_KW)
+    C, M = instance(24, 2)
+    fut = engine.submit(MapRequest(job_id="big", C=C, M=M))
+    with pytest.raises(NotImplementedError, match="multilevel"):
+        engine.flush()
+    assert fut.done()
+
+
+def test_flusher_thread_and_allocate_map_release_loop():
+    """The README's loop on the port: allocate a compact slice of a grid
+    machine, map the job's flows onto it with the background flusher,
+    translate to physical nodes, release."""
+    cluster = ClusterState(instances.grid_distance_matrix((2, 3, 4)))
+    with MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                       flush_deadline_ms=1.0, **ENGINE_KW) as engine:
+        futs = {}
+        for j, size in enumerate([6, 8, 5]):
+            alloc = cluster.allocate(f"job{j}", size)
+            C, _ = instance(size, j)
+            futs[alloc.job_id] = (alloc, engine.submit(MapRequest(
+                job_id=alloc.job_id, C=C, M=alloc.M_sub, seed=j)))
+        assert cluster.num_free == 24 - 19
+        for job_id, (alloc, fut) in futs.items():
+            resp = fut.result(timeout=60)
+            nodes = alloc.physical(resp.perm)
+            assert sorted(nodes.tolist()) == sorted(alloc.nodes.tolist())
+            assert resp.objective <= resp.baseline
+            cluster.release(job_id)
+    assert cluster.num_free == 24
+
+
+def test_find_mapping_matches_reference():
+    import jax
+    C, M = instance(10, 77)
+    cfg = jann.SAConfig(**SA_KW)
+    want = jmapping.find_mapping(C, M, "psa", key=jax.random.PRNGKey(5),
+                                 num_processes=2, sa_cfg=cfg, polish_rounds=15)
+    got = mapping.find_mapping(C, M, "psa", key=np.asarray(jax.random.PRNGKey(5)),
+                               num_processes=2, sa_cfg=annealing.SAConfig(**SA_KW),
+                               polish_rounds=15, device="cpu")
+    np.testing.assert_array_equal(got.perm, np.asarray(want.perm))
+    assert got.objective == want.objective and got.baseline == want.baseline
+    np.testing.assert_array_equal(got.history, want.history)
+    ident = mapping.find_mapping(C, M, "identity", device="cpu")
+    assert ident.objective == ident.baseline == want.baseline
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mapping.find_mapping(C, M, "pga", device="cpu")
