@@ -9,14 +9,16 @@ Phases, each of which must pass:
 
 1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc;
 2. print the card's name and power limit;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the engine gives it (bitwise: the instances are integer-valued),
-   and time both;
+3. hold each kernel (K1 ``qap_delta``, K4 ``qap_sa_step``, K2
+   ``qap_objective``, K5 ``qap_ga_step``) against its plain PyTorch
+   version on the card, at the shapes the engine gives it (bitwise: the
+   instances are integer-valued), and time both;
 4. drive the port's ``MappingEngine`` on the card through one full wave
    of the 128 bucket (32 requests of order 125) plus waves of the 64 and
-   32 buckets, once with ``loop="event"`` (kernel K1) and once with
-   ``loop="fused"`` (kernel K4), with the launch counts set to 0 just
-   before each and read just after;
+   32 buckets, on five routes: PSA with ``loop="event"`` (kernel K1) and
+   ``loop="fused"`` (K4), PGA with ``eval="wide"`` (K2) and
+   ``eval="fused"`` (K5), and PCA (K1, then K2); the launch counts are
+   set to 0 just before each wave and read just after;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket against the same
@@ -41,8 +43,20 @@ H100_F32_PER_S = 67e12           # f32 outside the tensor cores
 ORDER, BUCKET, WAVE = 125, 128, 32
 SA_KW = dict(max_neighbors=25, iters_per_exchange=30, num_exchanges=20,
              solvers=8)
+GA_KW = dict(generations=80, pop_size=32)     # the engine's default GA
 NUM_PROCESSES = 2
 POLISH_K = 256
+ISLANDS = WAVE * NUM_PROCESSES
+N_OFF = GA_KW["pop_size"] // 2
+
+# route -> (algorithm, SAConfig changes, GAConfig changes)
+ROUTES = {
+    "psa-event": ("psa", dict(loop="event"), {}),
+    "psa-fused": ("psa", dict(loop="fused"), {}),
+    "pga-wide": ("pga", {}, dict(eval="wide")),
+    "pga-fused": ("pga", {}, dict(eval="fused")),
+    "pca": ("pca", {}, {}),
+}
 
 
 def require(cond, msg):
@@ -195,6 +209,94 @@ def check_qap_sa_step(device):
     return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
 
 
+def island_populations(device, pop):
+    """``ISLANDS`` populations of ``pop`` random order-125 permutations in
+    the 128 bucket (identity tail), over the wave's masked instances."""
+    import torch
+    from repro_torch.core import keys, qap
+    Cs, Ms = wave_instances(device)
+    Cs = qap.mask_flows(Cs, torch.full((WAVE,), ORDER, device=device))
+    ck = keys.split(keys.prng_key(pop, device), ISLANDS)
+    pops = qap.masked_random_permutations(ck, pop, BUCKET, ORDER).contiguous()
+    return Cs, Ms, pops
+
+
+def check_qap_objective(device):
+    """K2 against its plain version at the GA's shapes: one generation's
+    children (64 islands x 16) and the initial populations (64 x 32), per
+    instance and shared."""
+    import torch
+    from repro_torch.kernels.qap_objective import (qap_objective_cuda,
+                                                   qap_objective_plain)
+    out = {}
+    for label, pop in (("generation", N_OFF), ("init", GA_KW["pop_size"])):
+        Cs, Ms, pops = island_populations(device, pop)
+        for mats, (C, M) in (("batched", (Cs, Ms)),
+                             ("shared", (Cs[0].contiguous(), Ms[0].contiguous()))):
+            got = qap_objective_cuda(C, M, pops)
+            want = qap_objective_plain(C, M, pops)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(torch.equal(got, want),
+                    f"qap_objective {label}/{mats}: kernel != plain, max err {err}")
+            ms = cuda_ms(lambda: qap_objective_cuda(C, M, pops), 200)
+            plain = cuda_ms(lambda: qap_objective_plain(C, M, pops), 20)
+            b0 = C.shape[0] if C.dim() == 3 else 1
+            count = ISLANDS * pop
+            nbytes = 4 * (2 * b0 * BUCKET * BUCKET + count * BUCKET + count)
+            bound, by = bound_ms(nbytes, 2 * BUCKET * BUCKET * count)
+            out[(label, mats)] = dict(err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bound, bound_by=by)
+            print(f"qap_objective {label:10s} {mats:7s} {ISLANDS}x{pop}: "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), max err {err}", flush=True)
+    return out
+
+
+def check_qap_ga_step(device):
+    """K5 against its plain version: 64 islands of 32, order 125 in the
+    128 bucket, at the engine's GA settings (16 children, binary
+    tournaments, OX, p_mutation 0.001) and at a wider setting (32
+    children: every member replaced, the elitism guard; OXS, p_mutation
+    0.3)."""
+    import torch
+    from repro_torch.core import keys
+    from repro_torch.kernels.qap_ga_step import (qap_ga_step_cuda,
+                                                 qap_ga_step_plain)
+    from repro_torch.kernels.qap_objective import qap_objective_plain
+    pop = GA_KW["pop_size"]
+    Cs, Ms, pops = island_populations(device, pop)
+    fits = qap_objective_plain(Cs, Ms, pops)
+    step_keys = keys.split(keys.prng_key(5, device), ISLANDS)
+    nv = torch.full((ISLANDS,), ORDER, dtype=torch.int32, device=device)
+    engine_kw = dict(n_off=N_OFF, tournament=2, p_crossover=1.0,
+                     p_mutation=0.001, crossover="ox")
+    wide_kw = dict(n_off=pop, tournament=3, p_crossover=0.7, p_mutation=0.3,
+                   crossover="oxs")
+    args = (Cs, Ms, pops, fits, step_keys, nv)
+    err = 0.0
+    for kw in (engine_kw, wide_kw):
+        got = qap_ga_step_cuda(*args, **kw)
+        want = qap_ga_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("pop", "fit"), got, want):
+            e = float((g.float() - w.float()).abs().max())
+            err = max(err, e)
+            require(torch.equal(g, w), f"qap_ga_step {name} {kw}: kernel != "
+                    f"plain (max err {e})")
+    ms = cuda_ms(lambda: qap_ga_step_cuda(*args, **engine_kw), 100)
+    plain = cuda_ms(lambda: qap_ga_step_plain(*args, **engine_kw), 10)
+    nbytes = (4 * 2 * WAVE * BUCKET * BUCKET          # C, M
+              + 2 * 4 * ISLANDS * pop * BUCKET        # populations in and out
+              + 2 * 4 * ISLANDS * pop                 # fitness in and out
+              + ISLANDS * (8 + 4))                    # key words, n_valid
+    bound, by = bound_ms(nbytes, 2 * BUCKET * BUCKET * ISLANDS * N_OFF)
+    print(f"qap_ga_step {ISLANDS} islands x {pop}, {N_OFF} children, "
+          f"N={BUCKET}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), max err {err}", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+
+
 def requests():
     """A full 128-bucket wave of order-125 requests, three each of orders
     45 and 27; returns the requests and each instance's known optimum."""
@@ -226,21 +328,35 @@ def check_response(req, resp, optimum):
             f"F(identity) {resp.baseline}]")
 
 
-def drive_engine(loop):
+def engine_for(route, device):
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.genetic import GAConfig
+    from repro_torch.serve import MappingEngine
+    _, sa, ga = ROUTES[route]
+    return MappingEngine(sa_cfg=SAConfig(**SA_KW, **sa),
+                         ga_cfg=GAConfig(**GA_KW, **ga),
+                         num_processes=NUM_PROCESSES, device=device)
+
+
+def route_requests(route):
+    import dataclasses
+    reqs, optima = requests()
+    algorithm = ROUTES[route][0]
+    return [dataclasses.replace(r, algorithm=algorithm) for r in reqs], optima
+
+
+def drive_engine(route):
     """Submit and flush each bucket's wave on the card, the launch counts
     set to 0 just before each wave and read just after; returns the
     requests, the responses and the launch counts summed over the waves."""
     import torch
-    from repro_torch.core.annealing import SAConfig
     from repro_torch.kernels import ops
-    from repro_torch.serve import MappingEngine
-    reqs, optima = requests()
-    engine = MappingEngine(sa_cfg=SAConfig(loop=loop, **SA_KW),
-                           num_processes=NUM_PROCESSES, device="cuda")
+    reqs, optima = route_requests(route)
+    engine = engine_for(route, "cuda")
     t = time.perf_counter()
-    engine.warmup()
+    engine.warmup(algorithms=(ROUTES[route][0],))
     torch.cuda.synchronize()
-    print(f"[{loop}] warmup {time.perf_counter() - t:.3f} s", flush=True)
+    print(f"[{route}] warmup {time.perf_counter() - t:.3f} s", flush=True)
     resps, total = {}, {}
     for order in (ORDER, 45, 27):
         wave = [r for r in reqs if r.C.shape[0] == order]
@@ -257,28 +373,25 @@ def drive_engine(loop):
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         ratio = sum(resps[r.job_id].objective / optima[r.job_id]
                     for r in wave) / len(wave)
-        print(f"[{loop}] bucket {resps[wave[0].job_id].bucket}: {len(wave)} "
+        print(f"[{route}] bucket {resps[wave[0].job_id].bucket}: {len(wave)} "
               f"requests of order {order}, wave wall {wall:.4f} s, launches "
               f"{counts}, mean F/F0 {ratio:.4f}", flush=True)
     return reqs, resps, total
 
 
-def check_against_cpu(loop, reqs, resps):
+def check_against_cpu(route, reqs, resps):
     """The same engine on the CPU, one request per bucket."""
-    from repro_torch.core.annealing import SAConfig
-    from repro_torch.serve import MappingEngine
     picks = [reqs[0], reqs[WAVE], reqs[WAVE + 3]]
-    engine = MappingEngine(sa_cfg=SAConfig(loop=loop, **SA_KW),
-                           num_processes=NUM_PROCESSES, device="cpu")
+    engine = engine_for(route, "cpu")
     t = time.perf_counter()
     futs = [engine.submit(r) for r in picks]
     engine.flush()
     for r, fut in zip(picks, futs):
         cpu, gpu = fut.result(), resps[r.job_id]
         require((cpu.perm == gpu.perm).all() and cpu.objective == gpu.objective,
-                f"[{loop}] {r.job_id}: card F={gpu.objective} != cpu "
+                f"[{route}] {r.job_id}: card F={gpu.objective} != cpu "
                 f"F={cpu.objective}")
-    print(f"[{loop}] card == cpu on {[r.job_id for r in picks]} "
+    print(f"[{route}] card == cpu on {[r.job_id for r in picks]} "
           f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
 
 
@@ -311,31 +424,49 @@ def main():
     device = torch.device("cuda")
     delta = check_qap_delta(device)
     sa = check_qap_sa_step(device)
+    obj = check_qap_objective(device)
+    ga = check_qap_ga_step(device)
 
     runs = {}
-    for loop in ("event", "fused"):
-        reqs, resps, counts = drive_engine(loop)
-        runs[loop] = counts
-        check_against_cpu(loop, reqs, resps)
-    require(runs["event"]["qap_delta"] > 0, "event path launched no qap_delta")
-    require(runs["fused"]["qap_sa_step"] > 0, "fused path launched no qap_sa_step")
-    require(runs["fused"]["qap_delta"] > 0, "fused path's polish launched no qap_delta")
+    for route in ROUTES:
+        reqs, resps, counts = drive_engine(route)
+        runs[route] = counts
+        check_against_cpu(route, reqs, resps)
+    for route, kernel in (("psa-event", "qap_delta"), ("psa-fused", "qap_sa_step"),
+                          ("psa-fused", "qap_delta"), ("pga-wide", "qap_objective"),
+                          ("pga-wide", "qap_delta"), ("pga-fused", "qap_ga_step"),
+                          ("pca", "qap_objective"), ("pca", "qap_delta")):
+        require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
 
     d = delta[("event", "batched")]
+    o = obj[("generation", "batched")]
     kernels = [
         dict(name="qap_delta", route="cuda",
              source="src/repro_torch/csrc/qap_delta.cu",
              replaces="src/repro/kernels/qap_delta.py:95",
-             launches=runs["event"]["qap_delta"], max_abs_err=max(
+             launches=runs["psa-event"]["qap_delta"], max_abs_err=max(
                  v["err"] for v in delta.values()),
              ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
              bound_by=d["bound_by"], library_ms=None),
         dict(name="qap_sa_step", route="cuda",
              source="src/repro_torch/csrc/qap_sa_step.cu",
              replaces="src/repro/kernels/qap_sa_step.py:122",
-             launches=runs["fused"]["qap_sa_step"], max_abs_err=sa["err"],
+             launches=runs["psa-fused"]["qap_sa_step"], max_abs_err=sa["err"],
              ms=sa["ms"], plain_ms=sa["plain_ms"], bound_ms=sa["bound_ms"],
              bound_by=sa["bound_by"], library_ms=None),
+        dict(name="qap_objective", route="cuda",
+             source="src/repro_torch/csrc/qap_objective.cu",
+             replaces="src/repro/kernels/qap_objective.py:65",
+             launches=runs["pga-wide"]["qap_objective"], max_abs_err=max(
+                 v["err"] for v in obj.values()),
+             ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=o["bound_ms"],
+             bound_by=o["bound_by"], library_ms=None),
+        dict(name="qap_ga_step", route="cuda",
+             source="src/repro_torch/csrc/qap_ga_step.cu",
+             replaces="src/repro/kernels/qap_ga_step.py:134",
+             launches=runs["pga-fused"]["qap_ga_step"], max_abs_err=ga["err"],
+             ms=ga["ms"], plain_ms=ga["plain_ms"], bound_ms=ga["bound_ms"],
+             bound_by=ga["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -15,12 +15,26 @@ import torch
 
 from . import as_tensor
 from .core.annealing import SAConfig, SAState
+from .core.composite import CompositeConfig
+from .core.genetic import GAConfig, GAState
 
 
 def sa_config_from_reference(fields: Mapping) -> SAConfig:
     """An :class:`SAConfig` from the reference config's fields (a dict,
     e.g. ``dataclasses.asdict(cfg)``)."""
     return SAConfig(**dict(fields))
+
+
+def ga_config_from_reference(fields: Mapping) -> GAConfig:
+    """A :class:`GAConfig` from the reference config's fields."""
+    return GAConfig(**dict(fields))
+
+
+def composite_config_from_reference(fields: Mapping) -> CompositeConfig:
+    """A :class:`CompositeConfig` from the reference's nested fields
+    (``{"sa": {...}, "ga": {...}}``, as ``dataclasses.asdict`` gives)."""
+    return CompositeConfig(sa=sa_config_from_reference(fields["sa"]),
+                           ga=ga_config_from_reference(fields["ga"]))
 
 
 def keys_from_reference(words: np.ndarray, device="cpu") -> torch.Tensor:
@@ -40,3 +54,16 @@ def sa_state_from_reference(state: Mapping[str, np.ndarray],
                    best_p=as_tensor(state["best_p"], torch.int32, device),
                    best_f=as_tensor(state["best_f"], torch.float32, device),
                    temp=as_tensor(state["temp"], torch.float32, device))
+
+
+def ga_state_from_reference(state: Mapping[str, np.ndarray],
+                            device="cpu") -> GAState:
+    """A :class:`GAState` from the reference state's arrays by field name
+    (``pop (..., P, N)``, ``fit (..., P)``); leading dims are flattened
+    into the port's one island axis."""
+    pop = np.asarray(state["pop"])
+    fit = np.asarray(state["fit"])
+    return GAState(pop=as_tensor(pop.reshape((-1,) + pop.shape[-2:]),
+                                 torch.int32, device),
+                   fit=as_tensor(fit.reshape((-1, fit.shape[-1])),
+                                 torch.float32, device))

@@ -252,18 +252,28 @@ def _seed_chain0(C, M, state: SAState, perm, use, cfg: SAConfig,
     return SAState(*out)
 
 
-def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
-              cfg: SAConfig, num_processes: int, exchange: bool,
-              n_valid: Optional[torch.Tensor],
-              init_perm: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """PSA over a wave of ``B0`` instances, ``C``/``M`` ``(B0, N, N)``."""
+def anneal_chains(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
+                  cfg: SAConfig, num_processes: int, exchange: bool,
+                  n_valid: Optional[torch.Tensor] = None,
+                  init_perm: Optional[torch.Tensor] = None,
+                  seed_identity: bool = False
+                  ) -> Tuple[SAState, torch.Tensor]:
+    """Every chain of a wave of ``B0`` instances through ``num_exchanges``
+    rounds of ``iters_per_exchange`` temperature steps: PSA's body, and
+    with ``exchange=False`` the composite algorithm's first stage.
+
+    ``C`` (already masked past ``n_valid``) and ``M`` are ``(B0, N, N)``,
+    ``key (B0, 2)``.  Chain 0 of every process starts from the identity
+    with ``seed_identity``, then from ``init_perm`` where its first entry
+    is not negative.  With ``exchange`` every chain adopts its instance's
+    best after each round.  Returns the chains' state, ``(B0 * R, ...)``
+    with ``R = num_processes * cfg.solvers`` chains per instance, and each
+    instance's best after each round, ``(B0, num_exchanges)``.
+    """
     _check(cfg)
     b0, n = C.shape[0], C.shape[-1]
     r = num_processes * cfg.solvers
     dev = C.device
-    if n_valid is not None:
-        C = qap.mask_flows(C, n_valid)
     ks = keys.split(key, 3)
     kinit, kbeta, krun = ks[:, 0], ks[:, 1], ks[:, 2]
     beta = make_beta(C, M, kbeta, cfg, n_valid)
@@ -276,7 +286,7 @@ def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
     f = qap.objective(C, M, p)
     state = SAState(p, f, p, f, initial_temperature(f, cfg.mu, cfg.phi))
     ident = torch.arange(n, dtype=torch.int32, device=dev).expand(b0, n)
-    if cfg.seed_with == "identity":
+    if seed_identity:
         state = _seed_chain0(C, M, state, ident,
                              torch.ones(b0, dtype=torch.bool, device=dev),
                              cfg, num_processes)
@@ -311,13 +321,31 @@ def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
                                    best_p).reshape(b0 * r, n),
                 best_f=torch.minimum(gbest_f[:, None], best_f).reshape(-1),
                 temp=flat.temp)
-    best_f = flat.best_f.view(b0, r)
+    return flat, torch.stack(history, dim=1)
+
+
+def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
+              cfg: SAConfig, num_processes: int, exchange: bool,
+              n_valid: Optional[torch.Tensor],
+              init_perm: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """PSA over a wave of ``B0`` instances, ``C``/``M`` ``(B0, N, N)``."""
+    if n_valid is not None:
+        C = qap.mask_flows(C, n_valid)
+    flat, history = anneal_chains(C, M, key, cfg, num_processes, exchange,
+                                  n_valid, init_perm,
+                                  cfg.seed_with == "identity")
+    b0, n = C.shape[0], C.shape[-1]
+    best_f = flat.best_f.view(b0, -1)
     i = qap.first_argmin(best_f)
-    return (flat.best_p.view(b0, r, n)[rows, i], best_f[rows, i],
-            torch.stack(history, dim=1))
+    rows = torch.arange(b0, device=C.device)
+    return flat.best_p.view(b0, -1, n)[rows, i], best_f[rows, i], history
 
 
-def _wave(Cs, Ms, key, n_valid, init_perm, device):
+def wave_inputs(Cs, Ms, key, n_valid=None, init_perm=None, device=None):
+    """A solver wave's inputs as tensors on the entry point's device
+    (``cuda`` unless ``device`` says otherwise): ``(C, M, key, n_valid,
+    init_perm)``."""
     dev = resolve_device(device)
     return (as_tensor(Cs, torch.float32, dev), as_tensor(Ms, torch.float32, dev),
             as_tensor(key, torch.int64, dev),
@@ -334,7 +362,7 @@ def run_psa_batch(Cs, Ms, key, cfg: SAConfig, num_processes: int = 4,
     leaves that instance cold).  Returns ``(best_perms (B, N), best_fs
     (B,), history (B, num_exchanges))``; entry b equals ``run_psa`` on
     instance b.  Runs on ``cuda`` unless ``device`` says otherwise."""
-    C, M, k, nv, ip = _wave(Cs, Ms, key, n_valid, init_perm, device)
+    C, M, k, nv, ip = wave_inputs(Cs, Ms, key, n_valid, init_perm, device)
     return _psa_impl(C, M, k, cfg, num_processes, exchange, nv, ip)
 
 
@@ -342,7 +370,7 @@ def run_psa(C, M, key, cfg: SAConfig, num_processes: int = 4,
             exchange: bool = True, n_valid=None, init_perm=None,
             device=None):
     """Parallel SA on one instance: ``(best_perm, best_f, history)``."""
-    C, M, k, nv, ip = _wave(C, M, key, n_valid, init_perm, device)
+    C, M, k, nv, ip = wave_inputs(C, M, key, n_valid, init_perm, device)
     p, f, hist = _psa_impl(C[None], M[None], k[None], cfg, num_processes,
                            exchange, None if nv is None else nv.reshape(1),
                            None if ip is None else ip[None])

@@ -3,8 +3,8 @@ polish the serving engine applies to every wave.
 
 ``find_mapping`` gives the permutation ``p`` (process -> node) that
 minimises the paper's functional for a program graph ``C`` and a system
-graph ``M``.  The port runs ``"psa"`` and ``"identity"``; PGA and PCA are
-the next slice of the port.
+graph ``M`` with any of the paper's three algorithms (``"psa"``,
+``"pga"``, ``"pca"``) or the trivial ``"identity"``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from .. import as_tensor, resolve_device
 from ..kernels import ops
-from . import annealing, keys, qap
+from . import annealing, composite, genetic, keys, qap
 
 ALGORITHMS = ("psa", "pga", "pca", "identity")
 POLISH_CANDIDATES = 256
@@ -95,15 +95,13 @@ class MappingResult:
 def find_mapping(C, M, algorithm: str = "psa", *, key=None,
                  num_processes: int = 4,
                  sa_cfg: Optional[annealing.SAConfig] = None,
+                 ga_cfg: Optional[genetic.GAConfig] = None,
                  polish_rounds: int = 200, device=None) -> MappingResult:
-    """Solve the mapping problem with the selected algorithm ("psa" or
-    "identity"), then polish; never worse than the identity placement.
-    Runs on ``cuda`` unless ``device`` says otherwise."""
+    """Solve the mapping problem with the selected algorithm, then polish;
+    never worse than the identity placement.  Runs on ``cuda`` unless
+    ``device`` says otherwise."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}")
-    if algorithm in ("pga", "pca"):
-        raise NotImplementedError(
-            f"{algorithm!r} is not ported yet (ROADMAP.md module steps 4-5)")
     dev = resolve_device(device)
     C = as_tensor(C, torch.float32, dev)
     M = as_tensor(M, torch.float32, dev)
@@ -118,8 +116,20 @@ def find_mapping(C, M, algorithm: str = "psa", *, key=None,
     if algorithm == "identity":
         perm, f = ident, baseline
     else:
-        perm, f, hist = annealing.run_psa(C, M, key, sa_cfg or annealing.SAConfig(),
-                                          num_processes, device=dev)
+        if algorithm == "psa":
+            perm, f, hist = annealing.run_psa(
+                C, M, key, sa_cfg or annealing.SAConfig(), num_processes,
+                device=dev)
+        elif algorithm == "pga":
+            perm, f, hist = genetic.run_pga(
+                C, M, key, ga_cfg or genetic.GAConfig(), num_processes,
+                device=dev)
+        else:
+            cfg = composite.CompositeConfig(
+                sa=sa_cfg or annealing.SAConfig(num_exchanges=10, solvers=0),
+                ga=ga_cfg or genetic.GAConfig())
+            perm, f, hist = composite.run_pca(C, M, key, cfg, num_processes,
+                                              device=dev)
         if polish_rounds > 0:
             perm, f = polish(C, M, perm, keys.fold_in(key, 7), polish_rounds,
                              device=dev)

@@ -79,6 +79,23 @@ def random_permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     return permutation(key, n)
 
 
+def masked_random_permutations(key: torch.Tensor, batch: int, n: int,
+                               n_valid) -> torch.Tensor:
+    """``(..., 2)`` keys -> ``(..., batch, n)``: each key split ``batch``
+    ways, one :func:`masked_random_permutation` per subkey (``n_valid``
+    broadcast against ``(...)``)."""
+    from .keys import split
+    nv = torch.as_tensor(n_valid, device=key.device)
+    return masked_random_permutation(split(key, batch), n, nv[..., None])
+
+
+def random_permutations(key: torch.Tensor, batch: int, n: int
+                        ) -> torch.Tensor:
+    """``(..., 2)`` keys -> ``(..., batch, n)`` uniform permutations."""
+    from .keys import split
+    return random_permutation(split(key, batch), n)
+
+
 def swap_positions(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                    ) -> torch.Tensor:
     """``p`` with entries at positions ``a`` and ``b`` exchanged, per row:
@@ -112,11 +129,24 @@ def first_argmin(x: torch.Tensor) -> torch.Tensor:
                        x.shape[-1]).amin(-1)
 
 
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along the last dim (``jnp.argmax``'s and
+    ``lax.top_k(x, 1)``'s tie rule)."""
+    idx = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(x == x.amax(-1, keepdim=True), idx,
+                       x.shape[-1]).amin(-1)
+
+
 def is_permutation(p: torch.Tensor) -> torch.Tensor:
     """True iff each row of ``p`` is a permutation of 0..N-1."""
     n = p.shape[-1]
     ref = torch.arange(n, device=p.device)
     return (torch.sort(p, dim=-1).values == ref).all(dim=-1)
+
+
+def compose(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``(p o q)[..., k] = p[..., q[..., k]]``."""
+    return torch.gather(p, -1, q.long())
 
 
 def invert(p: torch.Tensor) -> torch.Tensor:

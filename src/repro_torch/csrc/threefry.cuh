@@ -1,17 +1,19 @@
 // Threefry-2x32-20 counter stream as CUDA device functions (kernel K3).
 //
 // Replaces the in-kernel draws of the TPU package, repro/kernels/prng.py
-// (threefry2x32 :57, uniform32 :93, sa_draws :109).  Those are not a
-// pallas_call of their own: they run inside the fused step kernels, and
-// here they run inside csrc/qap_sa_step.cu.  Bit for bit the same stream
-// as repro_torch/kernels/prng.py:
+// (threefry2x32 :57, uniform32 :93, sa_draws :109, ga_draws :157).  Those
+// are not a pallas_call of their own: they run inside the fused step
+// kernels, and here they run inside csrc/qap_sa_step.cu (SA half) and
+// csrc/qap_ga_step.cu (GA half).  Bit for bit the same stream as
+// repro_torch/kernels/prng.py:
 //
 //     draw(j) = threefry2x32(k0, k1, stream_tag, j)
 //
 // on native uint32_t, where the plain PyTorch form holds the words in
 // masked int64.  A draw costs 20 rounds of add/rotate/xor, some 100
-// integer operations; the fused step makes two per candidate, far below
-// the memory traffic of the candidate's O(N) delta.
+// integer operations; the fused SA step makes two per candidate, far
+// below the memory traffic of the candidate's O(N) delta, and the fused GA
+// step 2 * tournament + 10 per child, against the child's O(N^2) F.
 #pragma once
 
 #include <cstdint>
@@ -20,6 +22,11 @@ namespace repro_torch {
 
 constexpr uint32_t kStreamSaPair = 1;  // SA candidate swap pairs
 constexpr uint32_t kStreamSaAcc = 2;   // SA Metropolis acceptance uniforms
+constexpr uint32_t kStreamGaSel = 3;   // GA tournament member indices
+constexpr uint32_t kStreamGaCut = 4;   // GA order-crossover cut points
+constexpr uint32_t kStreamGaXgate = 5; // GA crossover gate uniforms
+constexpr uint32_t kStreamGaMut = 6;   // GA mutation position pairs
+constexpr uint32_t kStreamGaMgate = 7; // GA mutation gate uniforms
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -92,6 +99,50 @@ __device__ __forceinline__ void sa_draw(uint32_t k0, uint32_t k1, uint32_t j,
     b = 0;
   }
   threefry2x32(k0, k1, kStreamSaAcc, j, w0, w1);
+  u = uniform32(w0);
+}
+
+// The GA half (repro/kernels/prng.py ga_draws), one draw per call, for
+// child o of a generation; nv = max(n_valid, 1).
+// Tournament candidate c of parent s (0 or 1): a member index in [0, pop).
+__device__ __forceinline__ int ga_draw_sel(uint32_t k0, uint32_t k1, int o,
+                                           int s, int c, int tournament,
+                                           int pop) {
+  uint32_t w0, w1;
+  threefry2x32(k0, k1, kStreamGaSel,
+               static_cast<uint32_t>((o * 2 + s) * tournament + c), w0, w1);
+  return static_cast<int>(w0 % static_cast<uint32_t>(pop));
+}
+
+// The OX cut points, ordered: c1 <= c2 in [0, nv).
+__device__ __forceinline__ void ga_draw_cuts(uint32_t k0, uint32_t k1, int o,
+                                             int nv, int& c1, int& c2) {
+  uint32_t w0, w1;
+  threefry2x32(k0, k1, kStreamGaCut, static_cast<uint32_t>(o), w0, w1);
+  const int a = static_cast<int>(w0 % static_cast<uint32_t>(nv));
+  const int b = static_cast<int>(w1 % static_cast<uint32_t>(nv));
+  c1 = min(a, b);
+  c2 = max(a, b);
+}
+
+// The crossover gate uniform.
+__device__ __forceinline__ float ga_draw_xu(uint32_t k0, uint32_t k1, int o) {
+  uint32_t w0, w1;
+  threefry2x32(k0, k1, kStreamGaXgate, static_cast<uint32_t>(o), w0, w1);
+  return uniform32(w0);
+}
+
+// Mutation candidate t of max_mut: positions i, j in [0, nv) and its gate
+// uniform.
+__device__ __forceinline__ void ga_draw_mut(uint32_t k0, uint32_t k1, int o,
+                                            int t, int max_mut, int nv,
+                                            int& i, int& j, float& u) {
+  const uint32_t idx = static_cast<uint32_t>(o * max_mut + t);
+  uint32_t w0, w1;
+  threefry2x32(k0, k1, kStreamGaMut, idx, w0, w1);
+  i = static_cast<int>(w0 % static_cast<uint32_t>(nv));
+  j = static_cast<int>(w1 % static_cast<uint32_t>(nv));
+  threefry2x32(k0, k1, kStreamGaMgate, idx, w0, w1);
   u = uniform32(w0);
 }
 

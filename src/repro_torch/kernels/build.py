@@ -14,7 +14,9 @@ the integer-valued instances as well.  ``-Xptxas -v`` leaves each
 kernel's register and shared-memory use in the build log.
 
 Every launch also adds one to ``LAUNCHES[name]``: the count a run reads
-to show that its work went through the kernel.
+to show that its work went through the kernel.  The wrappers validate
+what they hand a kernel with :func:`check_mats` and :func:`check_args`
+before any pointer leaves Python.
 """
 from __future__ import annotations
 
@@ -28,9 +30,11 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("qap_delta", "qap_sa_step")
+KERNELS = ("qap_delta", "qap_objective", "qap_sa_step", "qap_ga_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -105,3 +109,40 @@ def check(err: int, name: str) -> None:
     """Raise on the ``cudaGetLastError()`` a launch function returned."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def check_mats(B: int, n: int, **mats: torch.Tensor) -> int:
+    """Validate the matrices a kernel reads, the first one ``C``: each
+    contiguous float32 of C's shape and device, ``(n, n)`` shared or
+    ``(B0, n, n)`` with ``B0`` dividing the batch ``B``.  Returns ``B0``
+    (1 when shared)."""
+    C = next(iter(mats.values()))
+    for name, X in mats.items():
+        if X.dtype != torch.float32 or not X.is_contiguous() \
+                or X.shape != C.shape or X.device != C.device:
+            raise ValueError(f"{name} must be contiguous float32 of C's "
+                             f"shape on C's device")
+    if C.dim() not in (2, 3) or tuple(C.shape[-2:]) != (n, n):
+        raise ValueError(f"C must be ({n}, {n}) or (B0, {n}, {n}), "
+                         f"got {tuple(C.shape)}")
+    b0 = C.shape[0] if C.dim() == 3 else 1
+    if B % b0 != 0:
+        raise ValueError(f"batched C/M leading dim {b0} must divide B={B}")
+    return b0
+
+
+def check_args(device: torch.device, *specs) -> None:
+    """Validate ``(name, tensor, dtype, shape)`` specs: each tensor
+    contiguous, of that dtype and shape, on ``device``."""
+    for name, X, dt, shape in specs:
+        if X.dtype != dt or tuple(X.shape) != tuple(shape) \
+                or not X.is_contiguous() or X.device != device:
+            raise ValueError(f"{name} must be contiguous {dt} {tuple(shape)} "
+                             f"on C's device, got {X.dtype} "
+                             f"{tuple(X.shape)}")
+
+
+def key_words(keys: torch.Tensor) -> torch.Tensor:
+    """uint32 key words held in int64 as the int32 bit pattern the kernels
+    read."""
+    return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)

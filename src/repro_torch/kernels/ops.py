@@ -14,12 +14,14 @@ import torch
 
 from . import build
 from .qap_delta import qap_delta_cuda, qap_delta_plain
+from .qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
+from .qap_objective import qap_objective_cuda, qap_objective_plain
 from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
 
 LANE = 128
-# The fused step's order cap, kept equal to the reference's
-# (repro/kernels/qap_objective.py MAX_KERNEL_N) so that the SA loop
-# resolves to the same realisation at every order.
+# The fused steps' order cap, kept equal to the reference's
+# (repro/kernels/qap_objective.py MAX_KERNEL_N) so that the SA loop and
+# the GA generation resolve to the same realisation at every order.
 MAX_FUSED_N = 768
 
 
@@ -63,8 +65,19 @@ def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     return qap_delta_plain(C, M, p, pairs)
 
 
+def qap_objective(C: torch.Tensor, M: torch.Tensor, perms: torch.Tensor
+                  ) -> torch.Tensor:
+    """F for ``perms (B, P, N)`` -> ``(B, P)``: every island's offspring
+    of a wave in one call.  ``C``/``M`` shared ``(N, N)`` or
+    instance-batched ``(B0, N, N)`` with ``B0`` dividing ``B``."""
+    if _route(perms):
+        return qap_objective_cuda(C, M, perms)
+    return qap_objective_plain(C, M, perms)
+
+
 def fused_step_fits(n: int) -> bool:
-    """Does the fused SA step take order ``n``?  (The reference's cap.)"""
+    """Do the fused SA and GA steps take order ``n``?  (The reference's
+    cap.)"""
     return ((max(n, LANE) + LANE - 1) // LANE) * LANE <= MAX_FUSED_N
 
 
@@ -82,3 +95,15 @@ def qap_sa_step(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
     return qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid,
                              max_neighbors=max_neighbors,
                              max_success=max_success)
+
+
+def qap_ga_step(C, M, pop, fit, keys, n_valid, *, n_off: int, tournament: int,
+                p_crossover: float, p_mutation: float, crossover: str = "ox"):
+    """One whole GA generation for ``B`` islands: ``(pop, fit)``; every
+    operator draw comes from each island's key words.  Callers guard
+    orders with :func:`fused_step_fits`."""
+    kw = dict(n_off=n_off, tournament=tournament, p_crossover=p_crossover,
+              p_mutation=p_mutation, crossover=crossover)
+    if _route(pop):
+        return qap_ga_step_cuda(C, M, pop, fit, keys, n_valid, **kw)
+    return qap_ga_step_plain(C, M, pop, fit, keys, n_valid, **kw)

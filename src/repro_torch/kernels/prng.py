@@ -18,6 +18,8 @@ Uniforms keep the top 24 bits (``(w >> 8) * 2**-24``), exact in f32.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..core import qap
@@ -105,3 +107,52 @@ def sa_step_draws(key: torch.Tensor, max_neighbors: int, n_valid):
     mode."""
     a, b, us = sa_draws(key[..., 0], key[..., 1], max_neighbors, n_valid)
     return torch.stack([a, b], dim=-1), us
+
+
+class GADraws(NamedTuple):
+    """One island generation's operator draws, leading dims ``(..., n_off)``."""
+    sel: torch.Tensor     # (..., n_off, 2, tournament) int32 member indices
+    cut1: torch.Tensor    # (..., n_off) int32 OX cut points, cut1 <= cut2
+    cut2: torch.Tensor    # (..., n_off) int32
+    xu: torch.Tensor      # (..., n_off) f32 crossover gate uniforms
+    mut_i: torch.Tensor   # (..., n_off, max_mut) int32 mutation positions
+    mut_j: torch.Tensor   # (..., n_off, max_mut) int32
+    mut_u: torch.Tensor   # (..., n_off, max_mut) f32 mutation gate uniforms
+
+
+def ga_draws(k0, k1, n_off: int, tournament: int, max_mut: int, pop: int,
+             n_valid) -> GADraws:
+    """One island generation's draw set from raw key words, one stream tag
+    per operator; ``k0``/``k1``/``n_valid`` broadcast over leading dims
+    ``(...)``.  Cut points and mutation positions lie in the valid prefix
+    ``[0, max(n_valid, 1))``.  The fused GA kernel (``csrc/qap_ga_step.cu``)
+    makes the same draws on the card (``csrc/threefry.cuh`` ga_draw_*)."""
+    k0, k1, nv = _words(k0, k1, n_valid)
+    k0, k1, nv = k0[..., None], k1[..., None], nv[..., None].clamp_min(1)
+    lead = k0.shape[:-1]
+    dev = k0.device
+
+    def idx(m):
+        return torch.arange(m, dtype=torch.int64, device=dev)
+
+    w0, _ = threefry2x32(k0, k1, STREAM_GA_SEL, idx(n_off * 2 * tournament))
+    sel = (w0 % pop).to(torch.int32).reshape(lead + (n_off, 2, tournament))
+    w0, w1 = threefry2x32(k0, k1, STREAM_GA_CUT, idx(n_off))
+    c1, c2 = (w0 % nv).to(torch.int32), (w1 % nv).to(torch.int32)
+    w0, _ = threefry2x32(k0, k1, STREAM_GA_XGATE, idx(n_off))
+    xu = uniform32(w0)
+    w0, w1 = threefry2x32(k0, k1, STREAM_GA_MUT, idx(n_off * max_mut))
+    mut_i = (w0 % nv).to(torch.int32).reshape(lead + (n_off, max_mut))
+    mut_j = (w1 % nv).to(torch.int32).reshape(lead + (n_off, max_mut))
+    w0, _ = threefry2x32(k0, k1, STREAM_GA_MGATE, idx(n_off * max_mut))
+    mut_u = uniform32(w0).reshape(lead + (n_off, max_mut))
+    return GADraws(sel, torch.minimum(c1, c2), torch.maximum(c1, c2), xu,
+                   mut_i, mut_j, mut_u)
+
+
+def ga_step_draws(key: torch.Tensor, n_off: int, tournament: int,
+                  max_mut: int, pop: int, n_valid) -> GADraws:
+    """Host form over ``(..., 2)`` key words (``genetic._offspring_counter``
+    and the plain version of the fused GA step)."""
+    return ga_draws(key[..., 0], key[..., 1], n_off, tournament, max_mut,
+                    pop, n_valid)

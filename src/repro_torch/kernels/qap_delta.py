@@ -69,20 +69,6 @@ def qap_delta_plain(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     return col + row + corner
 
 
-def _check_mats(C, M, CT, MT, B):
-    for name, X in (("C", C), ("M", M), ("C^T", CT), ("M^T", MT)):
-        if X.dtype != torch.float32 or not X.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-        if X.shape != C.shape or X.device != C.device:
-            raise ValueError(f"{name} must match C's shape and device")
-    if C.dim() not in (2, 3) or C.shape[-1] != C.shape[-2]:
-        raise ValueError(f"C must be (N, N) or (B0, N, N), got {tuple(C.shape)}")
-    b0 = C.shape[0] if C.dim() == 3 else 1
-    if B % b0 != 0:
-        raise ValueError(f"batched C/M leading dim {b0} must divide B={B}")
-    return b0
-
-
 def qap_delta_cuda(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
                    pairs: torch.Tensor, CT: Optional[torch.Tensor] = None,
                    MT: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -92,16 +78,12 @@ def qap_delta_cuda(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     CT = C.transpose(-2, -1).contiguous() if CT is None else CT
     MT = M.transpose(-2, -1).contiguous() if MT is None else MT
     B, n = p.shape
-    if pairs.dim() != 3 or pairs.shape[0] != B or pairs.shape[2] != 2:
+    if pairs.dim() != 3:
         raise ValueError(f"pairs must be (B, K, 2), got {tuple(pairs.shape)}")
-    b0 = _check_mats(C, M, CT, MT, B)
-    if C.shape[-1] != n:
-        raise ValueError("C/M order differs from the permutations'")
-    for name, X in (("p", p), ("pairs", pairs)):
-        if X.dtype != torch.int32 or not X.is_contiguous() \
-                or X.device != C.device:
-            raise ValueError(f"{name} must be contiguous int32 on C's device")
     k = pairs.shape[1]
+    b0 = build.check_mats(B, n, C=C, M=M, CT=CT, MT=MT)
+    build.check_args(C.device, ("p", p, torch.int32, (B, n)),
+                     ("pairs", pairs, torch.int32, (B, k, 2)))
     out = torch.empty((B, k), dtype=torch.float32, device=p.device)
     if B * k == 0:
         return out

@@ -25,7 +25,7 @@ import torch
 
 from ..core import qap
 from . import build, prng
-from .qap_delta import _check_mats, qap_delta_plain
+from .qap_delta import qap_delta_plain
 
 # The kernel's dynamic shared memory stays under the default 48 KB limit.
 _SMEM_LIMIT = 48 * 1024
@@ -89,25 +89,19 @@ def qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
     CT = C.transpose(-2, -1).contiguous() if CT is None else CT
     MT = M.transpose(-2, -1).contiguous() if MT is None else MT
     B, n = p.shape
-    b0 = _check_mats(C, M, CT, MT, B)
-    if C.shape[-1] != n:
-        raise ValueError("C/M order differs from the permutations'")
-    for name, X, dt, shape in (
-            ("p", p, torch.int32, (B, n)), ("best_p", best_p, torch.int32, (B, n)),
-            ("f", f, torch.float32, (B,)), ("best_f", best_f, torch.float32, (B,)),
-            ("temp", temp, torch.float32, (B,)), ("keys", keys, torch.int64, (B, 2)),
-            ("n_valid", n_valid, torch.int32, (B,))):
-        if X.dtype != dt or tuple(X.shape) != shape or not X.is_contiguous() \
-                or X.device != C.device:
-            raise ValueError(f"{name} must be contiguous {dt} {shape} on "
-                             f"C's device")
+    b0 = build.check_mats(B, n, C=C, M=M, CT=CT, MT=MT)
+    build.check_args(
+        C.device, ("p", p, torch.int32, (B, n)),
+        ("best_p", best_p, torch.int32, (B, n)), ("f", f, torch.float32, (B,)),
+        ("best_f", best_f, torch.float32, (B,)),
+        ("temp", temp, torch.float32, (B,)), ("keys", keys, torch.int64, (B, 2)),
+        ("n_valid", n_valid, torch.int32, (B,)))
     lib = build.library("qap_sa_step")
     smem = lib.qap_sa_step_smem_bytes(n, max_neighbors)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"order {n} x {max_neighbors} candidates needs "
                          f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
-    # uint32 key words as the int32 bit pattern the kernel reads.
-    kw = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)
+    kw = build.key_words(keys)
     p_out, bp_out = torch.empty_like(p), torch.empty_like(best_p)
     f_out, bf_out = torch.empty_like(f), torch.empty_like(best_f)
     if B == 0:

@@ -11,18 +11,19 @@ allocation's distance graph ``M`` and gets back a permutation:
      ``flush_deadline_ms``; ``flush()`` runs the same code synchronously.
   2. A :class:`DeadlinePolicy` picks algorithm and budget tier per request.
   3. Each instance is padded to the smallest bucket (32/64/128), the wave
-     padded to a power of two, and solved by one
-     ``annealing.run_psa_batch`` call on the engine's device, then refined
-     by ``mapping.polish_batch``.  Padding is exact: flows touching padded
-     slots are zeroed and the solvers keep real processes on real nodes.
+     padded to a power of two, and solved by one batched call on the
+     engine's device -- ``annealing.run_psa_batch``,
+     ``genetic.run_pga_batch`` or ``composite.run_pca_batch`` -- then
+     refined by ``mapping.polish_batch``.  Padding is exact: flows touching
+     padded slots are zeroed and the solvers keep real processes on real
+     nodes.
   4. An exact-digest LRU serves repeats; a shape-tier (order + system
      graph) near miss warm-starts the solve from the cached permutation.
 
 The same request gives the same permutation as the reference engine: the
-solvers replay its random streams and arithmetic bit for bit.  Requests
-the port cannot solve yet -- ``"pga"``/``"pca"``, and orders routed to the
-large buckets of the multilevel path -- fail their future with
-``NotImplementedError``.
+solvers replay its random streams and arithmetic bit for bit.  Orders
+routed to the large buckets of the multilevel path are not ported yet and
+fail their future with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import annealing, keys, mapping as mapping_lib
+from ..core import annealing, composite, genetic, keys, mapping as mapping_lib
 from ..kernels import build
 
 DEFAULT_BUCKETS = (32, 64, 128)
@@ -235,12 +236,10 @@ def _tighten_sa(cfg: annealing.SAConfig) -> annealing.SAConfig:
                    solvers=max(1, cfg.solvers // 2))
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP[what]})")
-
-
-_ROADMAP = {"pga": "ROADMAP.md module step 4", "pca": "ROADMAP.md module step 5",
-            "multilevel": "ROADMAP.md module step 7"}
+def _tighten_ga(cfg: genetic.GAConfig) -> genetic.GAConfig:
+    """Reduced-budget GA for the tight deadline tier (half the
+    generations)."""
+    return replace(cfg, generations=max(1, cfg.generations // 2))
 
 
 class MappingEngine:
@@ -254,6 +253,7 @@ class MappingEngine:
     def __init__(self, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  cache_size: int = 256, num_processes: int = 2,
                  sa_cfg: Optional[annealing.SAConfig] = None,
+                 ga_cfg: Optional[genetic.GAConfig] = None,
                  polish_rounds: int = 200,
                  flush_deadline_ms: float = 20.0,
                  max_batch: int = 32,
@@ -285,8 +285,11 @@ class MappingEngine:
         self.sa_cfg = sa_cfg or annealing.SAConfig(
             max_neighbors=25, iters_per_exchange=30, num_exchanges=20,
             solvers=8)
-        self._tier_cfgs = {"default": self.sa_cfg,
-                           "tight": _tighten_sa(self.sa_cfg)}
+        self.ga_cfg = ga_cfg or genetic.GAConfig(generations=80, pop_size=32)
+        self._tier_cfgs = {
+            "default": (self.sa_cfg, self.ga_cfg),
+            "tight": (_tighten_sa(self.sa_cfg), _tighten_ga(self.ga_cfg)),
+        }
         self._queue: List[_Pending] = []
         # Exact tier: full-instance digest -> (perm, objective).
         self._cache: "OrderedDict[str, Tuple[np.ndarray, float]]" = OrderedDict()
@@ -326,12 +329,13 @@ class MappingEngine:
         """Exact-tier cache key: the instance and everything that shapes
         its solution; the seed only with ``cache_seed``."""
         algorithm = algorithm or req.algorithm
+        sa_cfg, ga_cfg = self._tier_cfgs[tier]
         h = hashlib.sha1()
         C = np.ascontiguousarray(req.C, dtype=np.float32)
         M = np.ascontiguousarray(req.M, dtype=np.float32)
         seed_part = f"|s{req.seed}" if req.cache_seed else ""
         h.update(f"{C.shape[0]}|{algorithm}|{tier}|{self.num_processes}|"
-                 f"{self.polish_rounds}|{self._tier_cfgs[tier]}"
+                 f"{self.polish_rounds}|{sa_cfg}|{ga_cfg}"
                  f"{seed_part}".encode())
         h.update(C.tobytes())
         h.update(M.tobytes())
@@ -370,16 +374,21 @@ class MappingEngine:
         return self._shape_cache.get(self.shape_digest(req))
 
     # --------------------------------------------------------------- warmup
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> int:
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               algorithms: Sequence[str] = ("psa",)) -> int:
         """Build the kernels (on the card) and run one dummy wave through
-        the solver and the polish of every bucket, so the first real wave
-        pays neither the build nor first-use costs.  Returns the number of
-        dummy waves run (also in ``stats.warmup_programs``)."""
+        each algorithm's solver and the polish of every bucket, so the
+        first real wave pays neither the build nor first-use costs.
+        Returns the number of dummy waves run (also in
+        ``stats.warmup_programs``)."""
         buckets = self.buckets if buckets is None else tuple(
             sorted(int(b) for b in buckets))
         for b in buckets:
             if b not in self.buckets:
                 raise ValueError(f"unknown bucket {b}; have {self.buckets}")
+        for a in algorithms:
+            if a not in ALGORITHMS:
+                raise ValueError(f"algorithm must be one of {ALGORITHMS}")
         if self.device.type == "cuda":
             build.build_all()
         rng = np.random.RandomState(0)
@@ -390,17 +399,17 @@ class MappingEngine:
             C = torch.as_tensor(A, device=self.device)[None]
             key = keys.prng_key(0, self.device)[None]
             nv = torch.full((1,), bucket, dtype=torch.int64, device=self.device)
-            p, _, _ = annealing.run_psa_batch(C, C, key, self.sa_cfg,
-                                              self.num_processes, n_valid=nv,
-                                              device=self.device)
-            if self.polish_rounds > 0:
-                mapping_lib.polish_batch(C, C, p, key, self.polish_rounds, nv,
-                                         device=self.device)
+            for algorithm in algorithms:
+                p, _ = self._dispatch(algorithm, "default", C, C, key, nv, None)
+                if self.polish_rounds > 0:
+                    mapping_lib.polish_batch(C, C, p, key, self.polish_rounds,
+                                             nv, device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        count = len(buckets) * len(algorithms)
         with self._lock:
-            self.stats.warmup_programs += len(buckets)
-        return len(buckets)
+            self.stats.warmup_programs += count
+        return count
 
     # ------------------------------------------------------------------ API
     def submit(self, req: MapRequest) -> MapFuture:
@@ -586,16 +595,17 @@ class MappingEngine:
                     t0 = time.perf_counter()
                     with self._lock:
                         warms = [self._warm_perm(p.req) for p in heads]
-                    if algorithm != "psa":
-                        raise _not_ported(algorithm)
                     if bucket is None:
-                        solved = [self._solve_exact(p.req, tier, w)
+                        solved = [self._solve_exact(p.req, algorithm, tier, w)
                                   for p, w in zip(heads, warms)]
                     elif bucket in self._large_set:
-                        raise _not_ported("multilevel")
+                        raise NotImplementedError(
+                            "multilevel is not ported yet (ROADMAP.md "
+                            "module step 7)")
                     else:
                         solved = self._solve_bucket(
-                            bucket, tier, [p.req for p in heads], warms)
+                            bucket, algorithm, tier, [p.req for p in heads],
+                            warms)
                     seconds = time.perf_counter() - t0
                 except Exception as e:       # fail this group's futures only
                     for ps in by_digest.values():
@@ -641,7 +651,25 @@ class MappingEngine:
                            batch_size=batch_size, tier=p.tier,
                            warm_start=warm_start)
 
-    def _solve_bucket(self, bucket: int, tier: str, reqs: List[MapRequest],
+    def _dispatch(self, algorithm: str, tier: str, C, M, key, nv, ips):
+        """One batched solve (a padded wave, or one unpadded instance as a
+        batch of one): ``(perms, fs)``."""
+        sa_cfg, ga_cfg = self._tier_cfgs[tier]
+        kw = dict(n_valid=nv, init_perm=ips, device=self.device)
+        if algorithm == "psa":
+            p, f, _ = annealing.run_psa_batch(C, M, key, sa_cfg,
+                                              self.num_processes, **kw)
+        elif algorithm == "pga":
+            p, f, _ = genetic.run_pga_batch(C, M, key, ga_cfg,
+                                            self.num_processes, **kw)
+        else:
+            p, f, _ = composite.run_pca_batch(
+                C, M, key, composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg),
+                self.num_processes, **kw)
+        return p, f
+
+    def _solve_bucket(self, bucket: int, algorithm: str, tier: str,
+                      reqs: List[MapRequest],
                       warms: List[Optional[np.ndarray]]
                       ) -> List[Tuple[np.ndarray, float]]:
         """Pad every request to ``bucket`` and solve the wave in one
@@ -652,7 +680,7 @@ class MappingEngine:
             out = []
             for i in range(0, len(reqs), self.max_batch):
                 out.extend(self._solve_bucket(
-                    bucket, tier, reqs[i:i + self.max_batch],
+                    bucket, algorithm, tier, reqs[i:i + self.max_batch],
                     warms[i:i + self.max_batch]))
             return out
         B = len(reqs)
@@ -682,9 +710,7 @@ class MappingEngine:
                     n = req.C.shape[0]
                     ips[i, :n] = w
                     ips[i, n:] = np.arange(n, bucket, dtype=np.int32)
-        perms, fs, _ = annealing.run_psa_batch(
-            C_t, M_t, key, self._tier_cfgs[tier], self.num_processes,
-            n_valid=nv_t, init_perm=ips, device=dev)
+        perms, fs = self._dispatch(algorithm, tier, C_t, M_t, key, nv_t, ips)
         if self.polish_rounds > 0:
             perms, fs = mapping_lib.polish_batch(
                 C_t, M_t, perms, keys.fold_in(key, 7), self.polish_rounds,
@@ -705,7 +731,7 @@ class MappingEngine:
             out.append((perms[i, :n].astype(np.int32), float(fs[i])))
         return out
 
-    def _solve_exact(self, req: MapRequest, tier: str,
+    def _solve_exact(self, req: MapRequest, algorithm: str, tier: str,
                      warm: Optional[np.ndarray] = None
                      ) -> Tuple[np.ndarray, float]:
         """Orders above every bucket (and below the multilevel threshold)
@@ -714,9 +740,9 @@ class MappingEngine:
         C = torch.as_tensor(np.asarray(req.C, np.float32), device=dev)
         M = torch.as_tensor(np.asarray(req.M, np.float32), device=dev)
         key = keys.prng_key(req.seed, dev)
-        p, f, _ = annealing.run_psa(C, M, key, self._tier_cfgs[tier],
-                                    self.num_processes, init_perm=warm,
-                                    device=dev)
+        p, f = self._dispatch(algorithm, tier, C[None], M[None], key[None],
+                              None, None if warm is None else warm[None])
+        p, f = p[0], f[0]
         if self.polish_rounds > 0:
             p, f = mapping_lib.polish(C, M, p, keys.fold_in(key, 7),
                                       self.polish_rounds, device=dev)

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import annealing, instances
+from repro_torch.core import annealing, genetic, instances
 from repro_torch.kernels import ops
 from repro_torch.kernels.qap_delta import qap_delta_plain
+from repro_torch.kernels.qap_ga_step import qap_ga_step_plain
+from repro_torch.kernels.qap_objective import qap_objective_plain
 from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
 from repro_torch.serve import MappingEngine, MapRequest
 
@@ -81,12 +83,61 @@ def test_qap_sa_step_kernel_matches_plain(cuda, n, nv, shared):
         assert torch.equal(g, w)
 
 
+def _islands(n, nv, shared, seed, device, pop=32):
+    """B0 * RPT islands of ``pop`` members over integer instances, with
+    duplicated members (fitness ties), exact F, key words, valid orders."""
+    C, M, *_ = _inputs(n, nv, shared, seed, device)
+    rng = np.random.default_rng(seed)
+    B = B0 * RPT
+    pops = np.tile(np.arange(n, dtype=np.int32), (B, pop, 1))
+    for r in range(B):
+        for j in range(pop):
+            pops[r, j, :nv] = rng.permutation(nv)
+    pops[:, 1] = pops[:, 0]
+    pops = torch.as_tensor(pops, device=device)
+    fits = qap_objective_plain(C, M, pops)
+    keys = rng.integers(0, 2 ** 32, (B, 2), dtype=np.uint64).astype(np.int64)
+    return (C, M, pops, fits, torch.as_tensor(keys, device=device),
+            torch.full((B,), nv, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("n,nv,shared", CASES)
+def test_qap_objective_kernel_matches_plain(cuda, n, nv, shared):
+    C, M, pops, *_ = _islands(n, nv, shared, 3 * n + nv, cuda)
+    before = ops.launch_counts()["qap_objective"]
+    got = ops.qap_objective(C, M, pops)
+    assert ops.launch_counts()["qap_objective"] == before + 1
+    assert torch.equal(got, qap_objective_plain(C, M, pops))
+
+
+@pytest.mark.parametrize("crossover", ["ox", "oxs"])
+@pytest.mark.parametrize("n,nv,shared", CASES)
+def test_qap_ga_step_kernel_matches_plain(cuda, n, nv, shared, crossover):
+    C, M, pops, fits, keys, nvs = _islands(n, nv, shared, 5 * n + nv, cuda)
+    for kw in (dict(n_off=16, tournament=2, p_crossover=1.0, p_mutation=0.001),
+               dict(n_off=32, tournament=3, p_crossover=0.7, p_mutation=0.3)):
+        before = ops.launch_counts()["qap_ga_step"]
+        got = ops.qap_ga_step(C, M, pops, fits, keys, nvs, crossover=crossover,
+                              **kw)
+        assert ops.launch_counts()["qap_ga_step"] == before + 1
+        want = qap_ga_step_plain(C, M, pops, fits, keys, nvs,
+                                 crossover=crossover, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     C, M, p, pairs, *_ = _inputs(16, 16, True, 0, cuda)
     with pytest.raises(ValueError, match="int32"):
         ops.qap_delta(C, M, p.long(), pairs)
     with pytest.raises(ValueError, match="divide"):
         ops.qap_delta(torch.stack([C] * 3), torch.stack([M] * 3), p, pairs)
+    C, M, pops, fits, keys, nvs = _islands(16, 16, True, 0, cuda, pop=4)
+    with pytest.raises(ValueError, match="int32"):
+        ops.qap_objective(C, M, pops.long())
+    with pytest.raises(ValueError, match="n_off"):
+        ops.qap_ga_step(C, M, pops, fits, keys, nvs, n_off=5, tournament=2,
+                        p_crossover=1.0, p_mutation=0.1)
 
 
 @pytest.mark.parametrize("loop", ["event", "fused"])
@@ -99,6 +150,28 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, loop):
     out = {}
     for device in ("cuda", "cpu"):
         engine = MappingEngine(sa_cfg=cfg, polish_rounds=50, device=device)
+        futs = [engine.submit(r) for r in reqs]
+        engine.flush()
+        out[device] = [f.result() for f in futs]
+    for g, c in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(g.perm, c.perm)
+        assert g.objective == c.objective
+
+
+@pytest.mark.parametrize("algorithm,ga_eval", [("pga", "wide"), ("pga", "fused"),
+                                               ("pca", "wide")])
+def test_ga_engine_on_card_matches_engine_on_cpu(cuda, algorithm, ga_eval):
+    sa = annealing.SAConfig(max_neighbors=25, iters_per_exchange=10,
+                            num_exchanges=4, solvers=8)
+    ga = genetic.GAConfig(generations=20, pop_size=32, eval=ga_eval)
+    reqs = [MapRequest(job_id=f"n{n}-v{v}", C=inst.C, M=inst.M, seed=v,
+                       algorithm=algorithm)
+            for n in (27, 45) for v in (1, 2)
+            for inst in [instances.make_taie(n, version=v)]]
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = MappingEngine(sa_cfg=sa, ga_cfg=ga, polish_rounds=50,
+                               device=device)
         futs = [engine.submit(r) for r in reqs]
         engine.flush()
         out[device] = [f.result() for f in futs]

@@ -1,7 +1,8 @@
-"""Kernels K1 (qap_delta) and K4 (qap_sa_step): the plain PyTorch versions
-against the reference's oracles and its Pallas kernels in interpret mode,
-bit for bit on integer-valued instances.  The CUDA kernels against the
-plain versions on the card: ``tests/test_torch_cuda.py``."""
+"""Kernels K1 (qap_delta), K2 (qap_objective), K4 (qap_sa_step) and K5
+(qap_ga_step): the plain PyTorch versions against the reference's oracles
+and its Pallas kernels in interpret mode, bit for bit on integer-valued
+instances.  The CUDA kernels against the plain versions on the card:
+``tests/test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -9,10 +10,15 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.qap_delta import qap_delta_pallas_batch
+from repro.kernels.qap_ga_step import qap_ga_step_pallas_batch
+from repro.kernels.qap_objective import qap_objective_pallas_batch
 from repro.kernels.qap_sa_step import qap_sa_step_pallas_batch
-from repro_torch.kernels import ops
-from repro_torch.kernels.qap_delta import qap_delta_plain
-from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
+from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
+from repro_torch.kernels.qap_objective import (qap_objective_cuda,
+                                               qap_objective_plain)
+from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
 
 from _fixtures import instance
 
@@ -104,6 +110,83 @@ def test_qap_sa_step_plain_matches_ref_and_pallas(n, nv, shared):
     np.testing.assert_array_equal(got[0][:, nv:].numpy(), ps[:, nv:])
 
 
+def _islands(n, nv, shared, seed, pop=8):
+    """B0 * RPT islands of ``pop`` members (permutations with the padded
+    tail on itself) over integer instances, their exact F with many ties,
+    key words and valid orders."""
+    Cs, Ms, _, _ = _wave(n, nv, shared, seed)
+    rng = np.random.default_rng(seed + 2)
+    B = B0 * RPT
+    pops = np.tile(np.arange(n, dtype=np.int32), (B, pop, 1))
+    for r in range(B):
+        for j in range(pop):
+            pops[r, j, :nv] = rng.permutation(nv)
+    pops[:, 1] = pops[:, 0]                              # equal members
+    Cb = np.broadcast_to(Cs, (B0, n, n)) if shared else Cs
+    Mb = np.broadcast_to(Ms, (B0, n, n)) if shared else Ms
+    fits = np.array([[(Cb[r // RPT] * Mb[r // RPT][np.ix_(p, p)]).sum()
+                      for p in pops[r]] for r in range(B)], np.float32)
+    keys = rng.integers(0, 2 ** 32, (B, 2), dtype=np.uint64).astype(np.uint32)
+    return Cs, Ms, pops, fits, keys, np.full(B, nv, np.int32)
+
+
+@pytest.mark.parametrize("n,nv,shared", CASES)
+def test_qap_objective_plain_matches_ref_and_pallas(n, nv, shared):
+    Cs, Ms, pops, *_ = _islands(n, nv, shared, seed=3 * n + nv)
+    got = qap_objective_plain(_t(Cs), _t(Ms), _t(pops)).numpy()
+    if shared:
+        pallas = qap_objective_pallas_batch(jnp.asarray(Cs), jnp.asarray(Ms),
+                                            jnp.asarray(pops), interpret=True)
+    else:       # the Pallas kernel wants one instance per leading row
+        pallas = qap_objective_pallas_batch(
+            jnp.asarray(np.repeat(Cs, RPT, 0)), jnp.asarray(np.repeat(Ms, RPT, 0)),
+            jnp.asarray(pops), interpret=True)
+    assert got.tobytes() == np.asarray(pallas).tobytes()
+    for r in range(B0 * RPT):
+        C, M = (Cs, Ms) if shared else (Cs[r // RPT], Ms[r // RPT])
+        want = ref.qap_objective_ref(jnp.asarray(C), jnp.asarray(M),
+                                     jnp.asarray(pops[r]))
+        assert got[r].tobytes() == np.asarray(want).tobytes()
+
+
+def test_qap_objective_plain_tolerance_on_real_values():
+    """Off the integers the sums may round in another order: relative
+    1e-6 against the reference."""
+    rng = np.random.default_rng(9)
+    C = rng.random((B0, 24, 24)).astype(np.float32) * 7.3
+    M = rng.random((B0, 24, 24)).astype(np.float32) * 3.1
+    pops = np.stack([np.stack([rng.permutation(24) for _ in range(5)])
+                     for _ in range(B0 * RPT)]).astype(np.int32)
+    got = qap_objective_plain(_t(C), _t(M), _t(pops)).numpy()
+    want = np.stack([np.asarray(ref.qap_objective_ref(
+        jnp.asarray(C[r // RPT]), jnp.asarray(M[r // RPT]), jnp.asarray(pops[r])))
+        for r in range(B0 * RPT)])
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("crossover", ["ox", "oxs"])
+@pytest.mark.parametrize("n,nv,shared", [(16, 16, True), (16, 13, False)])
+def test_qap_ga_step_plain_matches_ref_and_pallas(n, nv, shared, crossover):
+    Cs, Ms, pops, fits, keys, nvs = _islands(n, nv, shared, seed=n + nv)
+    kw = dict(n_off=4, tournament=3, p_crossover=0.9, p_mutation=0.3,
+              crossover=crossover)
+    got = qap_ga_step_plain(_t(Cs), _t(Ms), _t(pops), _t(fits),
+                            _t(keys.astype(np.int64)), _t(nvs), **kw)
+    pallas = qap_ga_step_pallas_batch(
+        jnp.asarray(Cs), jnp.asarray(Ms), jnp.asarray(pops), jnp.asarray(fits),
+        jnp.asarray(keys), jnp.asarray(nvs), interpret=True, **kw)
+    for g, w in zip(got, pallas):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
+    for r in range(B0 * RPT):
+        C, M = (Cs, Ms) if shared else (Cs[r // RPT], Ms[r // RPT])
+        want = ref.qap_ga_step_ref(
+            jnp.asarray(C), jnp.asarray(M), jnp.asarray(pops[r]),
+            jnp.asarray(fits[r]), jnp.asarray(keys[r]), jnp.int32(nv), **kw)
+        for g, w in zip(got, want):
+            assert g[r].numpy().tobytes() == np.asarray(w).tobytes()
+    np.testing.assert_array_equal(got[0][..., nv:].numpy(), pops[..., nv:])
+
+
 def test_ops_take_the_plain_path_on_cpu_tensors():
     ops.reset_launch_counts()
     Cs, Ms, ps, pairs = _wave(16, 12, False, seed=5)
@@ -116,10 +199,72 @@ def test_ops_take_the_plain_path_on_cpu_tensors():
     got = ops.qap_sa_step(*args, max_neighbors=K, max_success=4)
     want = qap_sa_step_plain(*args, max_neighbors=K, max_success=4)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert ops.launch_counts() == {"qap_delta": 0, "qap_sa_step": 0}
+    Cs, Ms, pops, fits, keys, nvs = _islands(16, 12, False, seed=7)
+    assert torch.equal(ops.qap_objective(_t(Cs), _t(Ms), _t(pops)),
+                       qap_objective_plain(_t(Cs), _t(Ms), _t(pops)))
+    args = (_t(Cs), _t(Ms), _t(pops), _t(fits), _t(keys.astype(np.int64)),
+            _t(nvs))
+    kw = dict(n_off=3, tournament=2, p_crossover=1.0, p_mutation=0.2)
+    got = ops.qap_ga_step(*args, **kw)
+    want = qap_ga_step_plain(*args, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.launch_counts() == {"qap_delta": 0, "qap_objective": 0,
+                                   "qap_sa_step": 0, "qap_ga_step": 0}
 
 
 def test_fused_step_fits_keeps_the_reference_cap():
     from repro.kernels import ops as jops
     for n in (8, 127, 128, 129, 640, 768, 769, 1024, 4096):
         assert ops.fused_step_fits(n) == jops.fused_step_fits(n)
+
+
+def _malformed_calls():
+    """One call per way a kernel's wrapper must refuse its input, each
+    with the words of the refusal.  The checks run before any library is
+    built or pointer leaves Python, so they run on CPU tensors here."""
+    Cs, Ms, ps, pairs = (_t(x) for x in _wave(16, 12, False, seed=5))
+    _, _, sps, fs, temps, keys, nvs = (_t(x) for x in
+                                       _sa_inputs(16, 12, False, seed=6))
+    keys = keys.long()
+    sa = (Cs, Ms, sps, fs, sps, fs, temps, keys, nvs)
+    sa_kw = dict(max_neighbors=K, max_success=4)
+    iC, iM, pops, fits, ikeys, invs = (_t(x) for x in
+                                       _islands(16, 12, False, seed=7))
+    ga = (iC, iM, pops, fits, ikeys.long(), invs)
+    ga_kw = dict(n_off=3, tournament=2, p_crossover=1.0, p_mutation=0.2)
+    return {
+        "delta-p-int64": (lambda: qap_delta_cuda(Cs, Ms, ps.long(), pairs),
+                          "int32"),
+        "delta-b0-divides": (lambda: qap_delta_cuda(
+            torch.cat([Cs, Cs[:1]]), torch.cat([Ms, Ms[:1]]), ps, pairs),
+            "divide"),
+        "delta-pairs-shape": (lambda: qap_delta_cuda(Cs, Ms, ps, pairs[:, :, :1]),
+                              "pairs"),
+        "sa-keys-int32": (lambda: qap_sa_step_cuda(*sa[:7], keys.int(), nvs,
+                                                   **sa_kw), "keys"),
+        "objective-perms-int64": (lambda: qap_objective_cuda(iC, iM, pops.long()),
+                                  "int32"),
+        "objective-C-strided": (lambda: qap_objective_cuda(
+            iC.transpose(1, 2), iM, pops), "contiguous float32"),
+        "objective-order": (lambda: qap_objective_cuda(iC[..., :8, :8],
+                                                       iM[..., :8, :8], pops),
+                            "C must be"),
+        "ga-fit-f64": (lambda: qap_ga_step_cuda(iC, iM, pops, fits.double(),
+                                                *ga[4:], **ga_kw), "fit"),
+        "ga-n_off": (lambda: qap_ga_step_cuda(*ga, **dict(ga_kw, n_off=99)),
+                     "n_off"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_malformed_calls()))
+def test_kernel_wrappers_refuse_malformed_input_before_launch(case):
+    call, words = _malformed_calls()[case]
+    with pytest.raises(ValueError, match=words):
+        call()
+
+
+def test_key_words_are_the_int32_bit_pattern():
+    words = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1], np.uint32)
+    got = build.key_words(torch.as_tensor(words.astype(np.int64)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), words.view(np.int32))

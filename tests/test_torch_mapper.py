@@ -1,13 +1,16 @@
 """The port's MappingEngine against ``repro.serve.MappingEngine``: the
 same requests give the same permutations and objectives, bit for bit."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 from repro.core import annealing as jann
+from repro.core import genetic as jgen
 from repro.core import mapping as jmapping
 from repro.serve.mapper import MappingEngine as RefEngine
 from repro.serve.mapper import MapRequest as RefRequest
-from repro_torch.core import annealing, instances, mapping
+from repro_torch.core import annealing, genetic, instances, mapping
 from repro_torch.serve import (ClusterState, MapCancelled, MappingEngine,
                                MapRequest, QueueFull)
 
@@ -15,6 +18,7 @@ from _fixtures import instance
 
 SA_KW = dict(max_neighbors=8, iters_per_exchange=6, num_exchanges=3,
              solvers=3)
+GA_KW = dict(generations=4, pop_size=8, p_mutation=0.2)
 ENGINE_KW = dict(buckets=(8, 16), polish_rounds=20)
 
 
@@ -92,15 +96,44 @@ def test_cache_hit_serves_the_solved_permutation():
 
 @pytest.mark.parametrize("algorithm,deadline", [("pga", None), ("pca", None),
                                                 ("auto", 5000.0)])
-def test_unported_algorithms_fail_their_future(algorithm, deadline):
-    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
-                           **ENGINE_KW)
-    C, M = instance(8, 2)
-    fut = engine.submit(MapRequest(job_id="x", C=C, M=M, algorithm=algorithm,
-                                   deadline_ms=deadline))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_ga_routes_match_reference_engine(algorithm, deadline):
+    """PGA, PCA and ``auto`` with a slack deadline (which resolves to PCA)
+    through both engines: every bucket, the exact-size path, a warm start
+    and a cache hit give the same responses."""
+    def drive(engine, cls):
+        first, warm = _requests(cls)
+        first = [dataclasses.replace(r, algorithm=algorithm,
+                                     deadline_ms=deadline) for r in first]
+        futs = [engine.submit(r) for r in first]
         engine.flush()
-    assert isinstance(fut.exception(timeout=1), NotImplementedError)
+        wf = engine.submit(dataclasses.replace(warm, algorithm=algorithm,
+                                               deadline_ms=deadline))
+        engine.flush()
+        hit = engine.map_one(first[2].C, first[2].M, algorithm=algorithm,
+                             seed=123, deadline_ms=deadline)
+        return [f.result() for f in futs] + [wf.result(), hit]
+
+    ref = RefEngine(sa_cfg=jann.SAConfig(**SA_KW),
+                    ga_cfg=jgen.GAConfig(**GA_KW), **ENGINE_KW)
+    port = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW),
+                         ga_cfg=genetic.GAConfig(**GA_KW),
+                         device="cpu", **ENGINE_KW)
+    want, got = drive(ref, RefRequest), drive(port, MapRequest)
+    _same(want, got)
+    resolved = "pca" if algorithm == "auto" else algorithm
+    assert {r.algorithm for r in got} == {resolved}
+    assert got[-2].warm_start and got[-1].cached
+    assert got[5].bucket is None                       # exact-size path
+
+
+def test_warmup_runs_each_algorithm():
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW),
+                           ga_cfg=genetic.GAConfig(**GA_KW), device="cpu",
+                           **ENGINE_KW)
+    assert engine.warmup(buckets=(8,), algorithms=("psa", "pga", "pca")) == 3
+    assert engine.stats.warmup_programs == 3
+    with pytest.raises(ValueError, match="algorithm"):
+        engine.warmup(algorithms=("bogus",))
 
 
 def test_max_pending_and_cancel():
@@ -165,5 +198,15 @@ def test_find_mapping_matches_reference():
     np.testing.assert_array_equal(got.history, want.history)
     ident = mapping.find_mapping(C, M, "identity", device="cpu")
     assert ident.objective == ident.baseline == want.baseline
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapping.find_mapping(C, M, "pga", device="cpu")
+    for algorithm in ("pga", "pca"):
+        want = jmapping.find_mapping(
+            C, M, algorithm, key=jax.random.PRNGKey(5), num_processes=2,
+            sa_cfg=jann.SAConfig(**dict(SA_KW, solvers=0)),
+            ga_cfg=jgen.GAConfig(**GA_KW), polish_rounds=15)
+        got = mapping.find_mapping(
+            C, M, algorithm, key=np.asarray(jax.random.PRNGKey(5)),
+            num_processes=2, sa_cfg=annealing.SAConfig(**dict(SA_KW, solvers=0)),
+            ga_cfg=genetic.GAConfig(**GA_KW), polish_rounds=15, device="cpu")
+        np.testing.assert_array_equal(got.perm, np.asarray(want.perm))
+        assert got.objective == want.objective
+        np.testing.assert_array_equal(got.history, want.history)

@@ -133,3 +133,30 @@ def test_is_permutation_and_invert():
     for p in ps[[0, 2]]:
         np.testing.assert_array_equal(np.asarray(jqap.invert(jnp.asarray(p))),
                                       qap.invert(_t(p)).numpy())
+
+
+@pytest.mark.parametrize("n_valid", [None, 1, 7, 12])
+def test_batched_random_permutations(n_valid):
+    """The GA's initial populations: one key split ``batch`` ways."""
+    for seed in range(3):
+        jk, tk = _key(seed)
+        if n_valid is None:
+            want = jqap.random_permutations(jk, 5, 12)
+            got = qap.random_permutations(tk, 5, 12)
+        else:
+            want = jqap.masked_random_permutations(jk, 5, 12, n_valid)
+            got = qap.masked_random_permutations(tk, 5, 12, n_valid)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def test_compose_and_first_argmax():
+    rng = np.random.default_rng(0)
+    p, q = rng.permutation(9).astype(np.int32), rng.permutation(9).astype(np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jqap.compose(jnp.asarray(p), jnp.asarray(q))),
+        qap.compose(_t(p), _t(q)).numpy())
+    np.testing.assert_array_equal(qap.compose(_t(p), qap.invert(_t(p))).numpy(),
+                                  np.arange(9))
+    x = np.array([[1, 5, 5, 2], [3, 3, 3, 3], [0, 1, 2, 9]], np.float32)
+    np.testing.assert_array_equal(np.asarray(jnp.argmax(jnp.asarray(x), -1)),
+                                  qap.first_argmax(_t(x)).numpy())
