@@ -10,25 +10,31 @@ Phases, each of which must pass:
 1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc;
 2. print the card's name and power limit;
 3. hold each kernel (K1 ``qap_delta``, K4 ``qap_sa_step``, K2
-   ``qap_objective``, K5 ``qap_ga_step``) against its plain PyTorch
-   version on the card, at the shapes the engine gives it (bitwise: the
-   instances are integer-valued), and time both;
+   ``qap_objective``, K5 ``qap_ga_step``, K6 ``qap_objective_sparse``,
+   K7 ``qap_delta_sparse``) against its plain PyTorch version on the
+   card, at the shapes the engine gives it (bitwise: the instances are
+   integer-valued), and time both;
 4. drive the port's ``MappingEngine`` on the card through one full wave
    of the 128 bucket (32 requests of order 125) plus waves of the 64 and
    32 buckets, on five routes: PSA with ``loop="event"`` (kernel K1) and
    ``loop="fused"`` (K4), PGA with ``eval="wide"`` (K2) and
-   ``eval="fused"`` (K5), and PCA (K1, then K2); the launch counts are
-   set to 0 just before each wave and read just after;
+   ``eval="fused"`` (K5), and PCA (K1, then K2); then a sixth route,
+   ``multilevel``: requests of orders 512, 1024 and 4096 (known-optimum
+   tori) through the large buckets (K1 for the coarse solve, K6 and K7
+   on the refinement levels and in the final polish); the launch counts
+   are set to 0 just before each wave or request and read just after;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
-   known optimum) and check one request per bucket against the same
-   engine on the CPU, bit for bit.
+   known optimum) and check one request per bucket (the 1024 and 4096
+   requests on the multilevel route) against the same engine on the
+   CPU, bit for bit.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device or no ``src/repro_torch`` beside
 it.  It imports nothing of JAX or of the reference package.
 """
+import functools
 import json
 import os
 import subprocess
@@ -48,6 +54,13 @@ NUM_PROCESSES = 2
 POLISH_K = 256
 ISLANDS = WAVE * NUM_PROCESSES
 N_OFF = GA_KW["pop_size"] // 2
+
+# The multilevel route: known-optimum tori of orders 512, 1024 and 4096,
+# served at the engine's default MultilevelConfig.  Refinement scores 4
+# chains (2 processes x 2 solvers) x 16 candidates per K7 launch, the
+# polish 1 x 256; the chain start scores 4 permutations per K6 launch.
+ML_TORI = ((8, 8, 8), (32, 32), (16, 16, 16))
+ML_CHAINS, ML_K = 4, 16
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -74,6 +87,28 @@ def cuda_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds per call: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host work sits between the launches
+    (``cuda_ms`` of a small kernel measures how fast the host issues it)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -297,6 +332,197 @@ def check_qap_ga_step(device):
     return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
 
 
+@functools.lru_cache(maxsize=None)
+def torus(dims):
+    from repro_torch.core import exact
+    return exact.make_torus(dims)
+
+
+@functools.lru_cache(maxsize=None)
+def torus_levels():
+    """The 4096 torus's level stack at the default MultilevelConfig:
+    ``[(C, M, flow_pairs, sys_pairs), ...]``, finest first."""
+    from repro_torch.core import multilevel
+    inst = torus(ML_TORI[-1])
+    stack, _ = multilevel.coarsen_levels(inst.C, inst.M,
+                                         multilevel.MultilevelConfig())
+    return stack
+
+
+def second_instance(C, M, seed):
+    """Another instance of the same order and ELL width: C and M
+    relabelled by two random permutations."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s, t = rng.permutation(C.shape[0]), rng.permutation(C.shape[0])
+    return C[np.ix_(s, s)], M[np.ix_(t, t)]
+
+
+def flows_pair(C, M, b0, device):
+    """Shared ``(S, M)`` for ``b0 == 0``, else ``b0`` instances (the level
+    and relabelled copies) with batched leaves."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sparse
+    if b0 == 0:
+        return (sparse.from_dense(C, device=device),
+                torch.as_tensor(M, device=device))
+    mats = [(C, M)] + [second_instance(C, M, i) for i in range(1, b0)]
+    Cs = np.stack([c for c, _ in mats])
+    Ms = np.stack([m for _, m in mats])
+    return (sparse.from_dense(Cs, device=device),
+            torch.as_tensor(Ms, device=device))
+
+
+def _unique(idx):
+    import torch
+    return int(torch.unique(torch.cat([i.reshape(-1) for i in idx])).numel())
+
+
+def objective_sparse_work(S, M, perms):
+    """(bytes, f32 ops) that K6's inputs need: each stored nonzero of the
+    flows (column id and value) once per instance, every permutation,
+    each distinct M entry the nonzeros select, the outputs."""
+    import torch
+    B, P, n = perms.shape
+    b0 = M.shape[0] if M.dim() == 3 else 1
+    d = S.max_degree
+    cols = S.cols.long().reshape(b0, n, d)
+    nz = S.vals.reshape(b0, n, d) != 0
+    q = B * P // b0
+    pl = perms.long().reshape(b0, q, n)
+    pc = torch.gather(pl, 2, cols.reshape(b0, 1, n * d).expand(b0, q, n * d))
+    inst = torch.arange(b0, device=perms.device).view(b0, 1, 1, 1)
+    lin = inst * n * n + pl[..., None] * n + pc.reshape(b0, q, n, d)
+    m_entries = _unique([lin[nz[:, None].expand_as(lin)]])
+    nnz = int(nz.sum())
+    return (8 * nnz + 4 * B * P * n + 4 * m_entries + 4 * B * P,
+            2 * nnz * q)
+
+
+def delta_sparse_work(S, M, p, pairs):
+    """(bytes, f32 ops) that K7's inputs need: the ELL rows a and b of C
+    and C^T (their stored nonzeros), each distinct entry of p and of M
+    the unmasked nonzeros and the corners select, the pairs, the
+    outputs."""
+    import torch
+    B, n = p.shape
+    K = pairs.shape[1]
+    b0 = M.shape[0] if M.dim() == 3 else 1
+    d = S.max_degree
+    inst = (torch.arange(B, device=p.device) // (B // b0))[:, None].expand(B, K)
+    pl = p.long()
+    a, b = pairs[..., 0].long(), pairs[..., 1].long()
+    u, v = torch.gather(pl, 1, a), torch.gather(pl, 1, b)
+    row = torch.arange(B, device=p.device)[:, None].expand(B, K)
+    m_idx = [inst * n * n + x * n + y for x, y in ((u, u), (v, v), (u, v),
+                                                   (v, u))]
+    p_idx = [row * n + a, row * n + b]
+    ops = 13 * B * K
+    ell_rows = [inst * n + a, inst * n + b]
+    for cols, vals, transposed in ((S.cols, S.vals, False),
+                                   (S.cols_t, S.vals_t, True)):
+        cols = cols.long().reshape(b0, n, d)
+        vals = vals.reshape(b0, n, d)
+        for r in (a, b):
+            ks, ws = cols[inst, r], vals[inst, r]               # (B, K, D)
+            keep = (ws != 0) & (ks != a[..., None]) & (ks != b[..., None])
+            pk = torch.gather(pl, 1, ks.reshape(B, -1)).reshape(ks.shape)
+            base = inst[..., None] * n * n
+            for x in (u, v):
+                xi = x[..., None]
+                lin = base + (pk * n + xi if transposed else xi * n + pk)
+                m_idx.append(lin[keep])
+            p_idx.append((row[..., None] * n + ks)[keep])
+            ops += 3 * int(keep.sum())
+    deg = torch.stack([S.deg.reshape(b0, n), S.deg_t.reshape(b0, n)])
+    rows = torch.unique(torch.cat([r.reshape(-1) for r in ell_rows]))
+    ell_bytes = 8 * int(deg.reshape(2, -1)[:, rows].sum())
+    return (ell_bytes + 4 * _unique(m_idx) + 4 * _unique(p_idx)
+            + 12 * B * K, ops)
+
+
+def check_qap_delta_sparse(device):
+    """K7 against its plain version on the 4096 torus's finest (n=4096,
+    D=6) and coarsest (n=128, D=46) refinement levels, at the refinement
+    shape (4 chains x 16 candidates, shared leaves and two instances)
+    and the polish shape (1 x 256, shared and the engine's one-instance
+    batch)."""
+    import torch
+    from repro_torch.core import keys, qap
+    from repro_torch.kernels.qap_sparse import (qap_delta_sparse_cuda,
+                                                qap_delta_sparse_plain)
+    stack = torus_levels()
+    out = {}
+    for level, (C, M, _, _) in (("finest", stack[0]), ("coarsest", stack[-1])):
+        n = C.shape[0]
+        for label, chains, k in (("refine", ML_CHAINS, ML_K),
+                                 ("polish", 1, POLISH_K)):
+            ck = keys.split(keys.prng_key(n + k, device), chains)
+            p = qap.random_permutation(ck, n)
+            pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n)
+            for mats, b0 in (("shared", 0), ("batched", min(2, chains))):
+                S, Mt = flows_pair(C, M, b0, device)
+                MT = Mt.transpose(-2, -1).contiguous()
+                got = qap_delta_sparse_cuda(S, Mt, p, pairs, MT)
+                want = qap_delta_sparse_plain(S, Mt, p, pairs)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                require(torch.equal(got, want), f"qap_delta_sparse {level}/"
+                        f"{label}/{mats}: kernel != plain, max err {err}")
+                launch = lambda: qap_delta_sparse_cuda(S, Mt, p, pairs, MT)
+                ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
+                plain = cuda_ms(lambda: qap_delta_sparse_plain(S, Mt, p,
+                                                               pairs), 20)
+                bound, by = bound_ms(*delta_sparse_work(S, Mt, p, pairs))
+                out[(level, label, mats)] = dict(
+                    err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=by)
+                print(f"qap_delta_sparse {level:8s} N={n} D={S.max_degree} "
+                      f"{label:6s} {mats:7s} B={chains} K={k}: kernel "
+                      f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain "
+                      f"{plain:.4f} ms, bound {bound:.6f} ms ({by}), max err "
+                      f"{err}", flush=True)
+    return out
+
+
+def check_qap_objective_sparse(device):
+    """K6 against its plain version on the 4096 torus (D=6): the chain
+    start's shape (1 x 4 permutations, shared leaves and the engine's
+    one-instance batch) and a wider 64 x 4 batch (shared, two
+    instances)."""
+    import torch
+    from repro_torch.core import keys, qap
+    from repro_torch.kernels.qap_sparse import (qap_objective_sparse_cuda,
+                                                qap_objective_sparse_plain)
+    C, M, _, _ = torus_levels()[0]
+    n = C.shape[0]
+    out = {}
+    for label, rows, per in (("init", 1, ML_CHAINS), ("wide", 64, ML_CHAINS)):
+        pk = keys.split(keys.prng_key(rows, device), rows * per)
+        perms = qap.random_permutation(pk, n).reshape(rows, per, n)
+        for mats, b0 in (("shared", 0), ("batched", min(2, rows))):
+            S, Mt = flows_pair(C, M, b0, device)
+            got = qap_objective_sparse_cuda(S, Mt, perms)
+            want = qap_objective_sparse_plain(S, Mt, perms)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(torch.equal(got, want), f"qap_objective_sparse {label}/"
+                    f"{mats}: kernel != plain, max err {err}")
+            launch = lambda: qap_objective_sparse_cuda(S, Mt, perms)
+            ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
+            plain = cuda_ms(lambda: qap_objective_sparse_plain(S, Mt, perms),
+                            20)
+            bound, by = bound_ms(*objective_sparse_work(S, Mt, perms))
+            out[(label, mats)] = dict(err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=bound, bound_by=by)
+            print(f"qap_objective_sparse {label:4s} {mats:7s} N={n} "
+                  f"D={S.max_degree} {rows}x{per}: kernel {ms:.4f} ms "
+                  f"({dev_ms:.4f} ms in a graph), plain {plain:.4f} ms, bound "
+                  f"{bound:.6f} ms ({by}), max err {err}", flush=True)
+    return out
+
+
 def requests():
     """A full 128-bucket wave of order-125 requests, three each of orders
     45 and 27; returns the requests and each instance's known optimum."""
@@ -395,6 +621,87 @@ def check_against_cpu(route, reqs, resps):
           f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
 
 
+def ml_requests():
+    from repro_torch.serve import MapRequest
+    out = []
+    for i, dims in enumerate(ML_TORI):
+        inst = torus(dims)
+        out.append((MapRequest(job_id=f"torus{inst.C.shape[0]}", C=inst.C,
+                               M=inst.M, seed=50 + i), inst.optimum))
+    return out
+
+
+def ml_engine(device):
+    from repro_torch.core.multilevel import MultilevelConfig
+    from repro_torch.serve import MappingEngine
+    return MappingEngine(multilevel_min_n=256,
+                         multilevel_cfg=MultilevelConfig(), device=device)
+
+
+def drive_multilevel():
+    """Serve the three tori on the card through the large buckets, one
+    request at a time: the launch counts set to 0 just before each and
+    read just after.  The level trace of each solve is read from
+    ``solve_multilevel``'s result as the engine calls it."""
+    import torch
+    from repro_torch.core import multilevel
+    from repro_torch.kernels import ops
+    results = []
+    solve = multilevel.solve_multilevel
+
+    def traced(*args, **kw):
+        res = solve(*args, **kw)
+        results.append(res)
+        return res
+
+    multilevel.solve_multilevel = traced
+    engine = ml_engine("cuda")
+    resps, total = {}, {}
+    try:
+        for req, optimum in ml_requests():
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            fut = engine.submit(req)
+            engine.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = ops.launch_counts()
+            resp = resps[req.job_id] = fut.result()
+            check_response(req, resp, optimum)
+            for kernel in ("qap_delta", "qap_objective_sparse",
+                           "qap_delta_sparse"):
+                require(counts[kernel] > 0,
+                        f"[multilevel] {req.job_id} launched no {kernel}")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            res = results[-1]
+            levels = [dict(n=lv.n, nnz=lv.nnz, f_prolonged=lv.f_prolonged,
+                           f_refined=lv.f_refined) for lv in res.levels]
+            print(f"[multilevel] bucket {resp.bucket}: order "
+                  f"{req.C.shape[0]}, wall {wall:.4f} s (solve "
+                  f"{res.seconds:.4f} s), launches {counts}, F/F0 "
+                  f"{resp.objective / optimum:.4f}, coarse F "
+                  f"{res.coarse_objective}, levels {levels}", flush=True)
+    finally:
+        multilevel.solve_multilevel = solve
+    return resps, total
+
+
+def check_multilevel_against_cpu(resps):
+    """The same engine on the CPU on the 1024 and 4096 requests."""
+    engine = ml_engine("cpu")
+    picks = [r for r, _ in ml_requests()][1:]
+    t = time.perf_counter()
+    futs = [engine.submit(r) for r in picks]
+    engine.flush()
+    for r, fut in zip(picks, futs):
+        cpu, gpu = fut.result(), resps[r.job_id]
+        require((cpu.perm == gpu.perm).all() and cpu.objective == gpu.objective,
+                f"[multilevel] {r.job_id}: card F={gpu.objective} != cpu "
+                f"F={cpu.objective}")
+    print(f"[multilevel] card == cpu on {[r.job_id for r in picks]} "
+          f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -426,6 +733,8 @@ def main():
     sa = check_qap_sa_step(device)
     obj = check_qap_objective(device)
     ga = check_qap_ga_step(device)
+    dsp = check_qap_delta_sparse(device)
+    osp = check_qap_objective_sparse(device)
 
     runs = {}
     for route in ROUTES:
@@ -437,6 +746,8 @@ def main():
                           ("pga-wide", "qap_delta"), ("pga-fused", "qap_ga_step"),
                           ("pca", "qap_objective"), ("pca", "qap_delta")):
         require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
+    ml_resps, runs["multilevel"] = drive_multilevel()
+    check_multilevel_against_cpu(ml_resps)
 
     d = delta[("event", "batched")]
     o = obj[("generation", "batched")]
@@ -467,6 +778,22 @@ def main():
              launches=runs["pga-fused"]["qap_ga_step"], max_abs_err=ga["err"],
              ms=ga["ms"], plain_ms=ga["plain_ms"], bound_ms=ga["bound_ms"],
              bound_by=ga["bound_by"], library_ms=None),
+        dict(name="qap_objective_sparse", route="cuda",
+             source="src/repro_torch/csrc/qap_objective_sparse.cu",
+             replaces="src/repro/kernels/qap_sparse.py:78",
+             launches=runs["multilevel"]["qap_objective_sparse"],
+             max_abs_err=max(v["err"] for v in osp.values()),
+             **{k: osp[("init", "batched")][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
+        dict(name="qap_delta_sparse", route="cuda",
+             source="src/repro_torch/csrc/qap_delta_sparse.cu",
+             replaces="src/repro/kernels/qap_sparse.py:192",
+             launches=runs["multilevel"]["qap_delta_sparse"],
+             max_abs_err=max(v["err"] for v in dsp.values()),
+             **{k: dsp[("finest", "refine", "batched")][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,7 +8,7 @@ reference state in the middle of a run.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +17,8 @@ from . import as_tensor
 from .core.annealing import SAConfig, SAState
 from .core.composite import CompositeConfig
 from .core.genetic import GAConfig, GAState
+from .core.multilevel import MultilevelConfig
+from .core.sparse import SparseFlows
 
 
 def sa_config_from_reference(fields: Mapping) -> SAConfig:
@@ -35,6 +37,30 @@ def composite_config_from_reference(fields: Mapping) -> CompositeConfig:
     (``{"sa": {...}, "ga": {...}}``, as ``dataclasses.asdict`` gives)."""
     return CompositeConfig(sa=sa_config_from_reference(fields["sa"]),
                            ga=ga_config_from_reference(fields["ga"]))
+
+
+def multilevel_config_from_reference(fields: Mapping) -> MultilevelConfig:
+    """A :class:`MultilevelConfig` from the reference's nested fields
+    (``coarse_sa``, ``coarse_ga`` and ``refine_sa`` as dicts, as
+    ``dataclasses.asdict`` gives)."""
+    f = dict(fields)
+    return MultilevelConfig(**dict(
+        f, coarse_sa=sa_config_from_reference(f["coarse_sa"]),
+        coarse_ga=ga_config_from_reference(f["coarse_ga"]),
+        refine_sa=sa_config_from_reference(f["refine_sa"])))
+
+
+def sparse_flows_from_reference(leaves: Sequence, device="cpu") -> SparseFlows:
+    """A :class:`SparseFlows` from the reference's leaves as numpy arrays,
+    in field order (``cols``, ``vals``, ``cols_t``, ``vals_t``, ``deg``,
+    ``deg_t``: ``[np.asarray(x) for x in S]``)."""
+    if len(leaves) != len(SparseFlows._fields):
+        raise ValueError(f"need the {len(SparseFlows._fields)} leaves "
+                         f"{SparseFlows._fields}")
+    return SparseFlows(*(
+        as_tensor(x, torch.float32 if name.startswith("vals") else torch.int32,
+                  device)
+        for name, x in zip(SparseFlows._fields, leaves)))
 
 
 def keys_from_reference(words: np.ndarray, device="cpu") -> torch.Tensor:

@@ -18,6 +18,9 @@ accepts at most ``max_success`` of them.  ``SAConfig.loop`` picks how:
 All three give the same states.  ``SAConfig.rng`` picks the draws:
 ``"host"`` replays the reference's ``jax.random`` calls (``core.keys``),
 ``"counter"`` (implied by ``"fused"``) the Threefry counter stream.
+``SAConfig.flows="sparse"`` takes ``C`` as a ``core.sparse.SparseFlows``:
+every objective and delta then runs the O(nnz) path (kernels K6/K7 on
+the card), and ``"fused"`` runs as ``"event"``.
 
 Three formulas are computed in the form XLA compiles them to on the
 reference side, so that temperatures -- which feed every Metropolis
@@ -43,7 +46,9 @@ from .. import as_tensor, resolve_device
 from ..kernels import ops, prng
 from ..kernels.qap_delta import qap_delta_plain
 from ..kernels.qap_sa_step import event_loop
+from ..kernels.qap_sparse import qap_delta_sparse_plain
 from . import keys, qap
+from .sparse import SparseFlows
 
 
 @dataclass(frozen=True)
@@ -66,7 +71,9 @@ class SAConfig:
                                      # candidates scored per event round in
                                      # the reference; the port always scores
                                      # all of them (results never depend on it)
-    flows: str = "dense"             # "dense" only in the port so far
+    flows: str = "dense"             # "dense" | "sparse": C as a
+                                     # core.sparse.SparseFlows (convert once,
+                                     # host-side, via sparse.prepare_flows)
 
 
 class SAState(NamedTuple):
@@ -122,10 +129,12 @@ def make_beta(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
 
 def resolved_loop(cfg: SAConfig, n: Optional[int] = None) -> str:
     """The hot-loop realisation that runs at order ``n``: ``"fused"``
-    degrades to the equivalent ``"event"`` above the fused step's cap."""
+    degrades to the equivalent ``"event"`` above the fused step's cap and
+    for sparse flows, which the fused kernel does not read."""
     if cfg.loop not in ("event", "scan", "fused"):
         raise ValueError(f"unknown hot-loop realisation {cfg.loop!r}")
-    if cfg.loop == "fused" and n is not None and not ops.fused_step_fits(n):
+    if cfg.loop == "fused" and (cfg.flows == "sparse" or (
+            n is not None and not ops.fused_step_fits(n))):
         return "event"
     return cfg.loop
 
@@ -133,9 +142,8 @@ def resolved_loop(cfg: SAConfig, n: Optional[int] = None) -> str:
 def _check(cfg: SAConfig) -> None:
     if cfg.rng not in ("host", "counter"):
         raise ValueError(f"unknown rng regime {cfg.rng!r}")
-    if cfg.flows != "dense":
-        raise NotImplementedError(
-            "sparse flows are not ported yet (ROADMAP.md module step 7)")
+    if cfg.flows not in ("dense", "sparse"):
+        raise ValueError(f"flows must be 'dense' or 'sparse', got {cfg.flows!r}")
 
 
 def _draws(key: torch.Tensor, cfg: SAConfig, n: int, n_valid):
@@ -155,9 +163,11 @@ def _candidate_scan(C, M, state: SAState, pairs, us, cfg: SAConfig):
     p, f, best_p, best_f = state.p, state.f, state.best_p, state.best_f
     tsafe = state.temp.clamp_min(1e-9)
     successes = torch.zeros_like(f, dtype=torch.long)
+    plain = qap_delta_sparse_plain if isinstance(C, SparseFlows) \
+        else qap_delta_plain
     for t in range(cfg.max_neighbors):
         ab = pairs[:, t]
-        d = qap_delta_plain(C, M, p, ab[:, None, :])[:, 0]
+        d = plain(C, M, p, ab[:, None, :])[:, 0]
         accept = (((d < 0) | (us[:, t] < torch.exp(-d / tsafe)))
                   & (successes < cfg.max_success))
         p = torch.where(accept[:, None], qap.swap_positions(p, ab[:, 0], ab[:, 1]), p)
@@ -329,7 +339,12 @@ def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
               n_valid: Optional[torch.Tensor],
               init_perm: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """PSA over a wave of ``B0`` instances, ``C``/``M`` ``(B0, N, N)``."""
+    """PSA over a wave of ``B0`` instances, ``C``/``M`` ``(B0, N, N)``
+    (``C`` may be a ``SparseFlows`` with ``(B0, N, D)`` leaves)."""
+    if cfg.flows == "sparse" and not isinstance(C, SparseFlows):
+        raise TypeError(
+            "SAConfig.flows='sparse' requires C as a core.sparse.SparseFlows"
+            " -- convert host-side with sparse.prepare_flows(C, 'sparse')")
     if n_valid is not None:
         C = qap.mask_flows(C, n_valid)
     flat, history = anneal_chains(C, M, key, cfg, num_processes, exchange,
@@ -342,12 +357,19 @@ def _psa_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
     return flat.best_p.view(b0, -1, n)[rows, i], best_f[rows, i], history
 
 
+def lead(C):
+    """``C`` with a leading instance dim of 1, dense or sparse."""
+    return C.unsqueeze0() if isinstance(C, SparseFlows) else C[None]
+
+
 def wave_inputs(Cs, Ms, key, n_valid=None, init_perm=None, device=None):
     """A solver wave's inputs as tensors on the entry point's device
     (``cuda`` unless ``device`` says otherwise): ``(C, M, key, n_valid,
-    init_perm)``."""
+    init_perm)``; a ``SparseFlows`` ``Cs`` moves leaf by leaf."""
     dev = resolve_device(device)
-    return (as_tensor(Cs, torch.float32, dev), as_tensor(Ms, torch.float32, dev),
+    C = Cs.to(dev) if isinstance(Cs, SparseFlows) else as_tensor(
+        Cs, torch.float32, dev)
+    return (C, as_tensor(Ms, torch.float32, dev),
             as_tensor(key, torch.int64, dev),
             None if n_valid is None else as_tensor(n_valid, torch.int64, dev),
             None if init_perm is None else as_tensor(init_perm, torch.int32, dev))
@@ -356,7 +378,8 @@ def wave_inputs(Cs, Ms, key, n_valid=None, init_perm=None, device=None):
 def run_psa_batch(Cs, Ms, key, cfg: SAConfig, num_processes: int = 4,
                   exchange: bool = True, n_valid=None, init_perm=None,
                   device=None):
-    """Instance-batched PSA: ``Cs``/``Ms`` ``(B, N, N)`` padded instances,
+    """Instance-batched PSA: ``Cs``/``Ms`` ``(B, N, N)`` padded instances
+    (``Cs`` a ``SparseFlows`` with ``(B, N, D)`` leaves for sparse flows),
     ``key (B, 2)`` one key per instance, ``n_valid`` optional ``(B,)``,
     ``init_perm`` optional ``(B, N)`` warm starts (a negative first entry
     leaves that instance cold).  Returns ``(best_perms (B, N), best_fs
@@ -371,7 +394,7 @@ def run_psa(C, M, key, cfg: SAConfig, num_processes: int = 4,
             device=None):
     """Parallel SA on one instance: ``(best_perm, best_f, history)``."""
     C, M, k, nv, ip = wave_inputs(C, M, key, n_valid, init_perm, device)
-    p, f, hist = _psa_impl(C[None], M[None], k[None], cfg, num_processes,
+    p, f, hist = _psa_impl(lead(C), M[None], k[None], cfg, num_processes,
                            exchange, None if nv is None else nv.reshape(1),
                            None if ip is None else ip[None])
     return p[0], f[0], hist[0]

@@ -23,6 +23,9 @@ its best member to the next island of its ring.
 All three give the same populations.  ``GAConfig.rng`` picks the draws:
 ``"host"`` replays the reference's ``jax.random`` calls (``core.keys``),
 ``"counter"`` (implied by ``"fused"``) the Threefry counter stream.
+``GAConfig.flows="sparse"`` takes ``C`` as a ``core.sparse.SparseFlows``:
+children are then scored by the O(nnz) objective (kernel K6 on the card),
+and ``"fused"`` runs as ``"wide"`` with counter draws.
 
 Mutation realises per-gene Bernoulli(``p_mutation``) swaps as ``MAX_MUT``
 candidate swaps, each gated with probability ``p_mutation * n /
@@ -37,8 +40,9 @@ import torch
 
 from ..kernels import ops, prng
 from . import ga_ops, keys, qap
-from .annealing import wave_inputs
+from .annealing import lead, wave_inputs
 from .ga_ops import MAX_MUT, f32, worst_slots
+from .sparse import SparseFlows
 
 __all__ = ["GAConfig", "GAState", "MAX_MUT", "worst_slots", "run_pga",
            "run_pga_batch", "generation_step", "resolved_eval"]
@@ -57,7 +61,9 @@ class GAConfig:
     seed_identity: bool = False  # the as-allocated order joins population 0
     eval: str = "wide"           # "wide" | "island" | "fused" (same results)
     rng: str = "host"            # "host" (jax.random replay) | "counter"
-    flows: str = "dense"         # "dense" only in the port so far
+    flows: str = "dense"         # "dense" | "sparse": C as a
+                                 # core.sparse.SparseFlows (convert host-side
+                                 # via sparse.prepare_flows)
 
 
 class GAState(NamedTuple):
@@ -168,10 +174,12 @@ def _resolve_n_off(cfg: GAConfig, pop_actual: int) -> int:
 def resolved_eval(cfg: GAConfig, n: Optional[int] = None) -> str:
     """The generation realisation that runs at order ``n``: ``"fused"``
     degrades to the equivalent ``"wide"`` counter path above the fused
-    step's cap."""
+    step's cap and for sparse flows, which the fused kernel does not
+    read."""
     if cfg.eval not in ("wide", "island", "fused"):
         raise ValueError(f"unknown generation realisation {cfg.eval!r}")
-    if cfg.eval == "fused" and n is not None and not ops.fused_step_fits(n):
+    if cfg.eval == "fused" and (cfg.flows == "sparse" or (
+            n is not None and not ops.fused_step_fits(n))):
         return "wide"
     return cfg.eval
 
@@ -184,9 +192,8 @@ def _check(cfg: GAConfig) -> None:
         raise ValueError(
             "rng='counter' requires a wide-form eval ('wide'/'fused') -- "
             "eval='island' is the seed-era host-RNG golden reference")
-    if cfg.flows != "dense":
-        raise NotImplementedError(
-            "sparse flows are not ported yet (ROADMAP.md module step 7)")
+    if cfg.flows not in ("dense", "sparse"):
+        raise ValueError(f"flows must be 'dense' or 'sparse', got {cfg.flows!r}")
 
 
 def _init_population(key: torch.Tensor, cfg: GAConfig, n: int,
@@ -365,8 +372,13 @@ def _pga_impl(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
               init_perm=None):
     """PGA over a wave of ``B0`` instances, ``C``/``M`` ``(B0, N, N)``.
     ``init_perm`` seeds member 0 of every island; the elitism guard then
-    keeps the result no worse than the seed."""
+    keeps the result no worse than the seed.  ``C`` may be a
+    ``SparseFlows`` with ``(B0, N, D)`` leaves."""
     _check(cfg)
+    if cfg.flows == "sparse" and not isinstance(C, SparseFlows):
+        raise TypeError(
+            "GAConfig.flows='sparse' requires C as a core.sparse.SparseFlows"
+            " -- convert host-side with sparse.prepare_flows(C, 'sparse')")
     if n_valid is not None:
         C = qap.mask_flows(C, n_valid)
     k = keys.split(key)
@@ -392,7 +404,7 @@ def run_pga(C, M, key, cfg: GAConfig, num_processes: int = 4, n_valid=None,
             init_perm=None, device=None):
     """Island PGA on one instance: ``(best_perm, best_f, history)``."""
     C, M, k, nv, ip = wave_inputs(C, M, key, n_valid, init_perm, device)
-    p, f, hist = _pga_impl(C[None], M[None], k[None], cfg, num_processes,
+    p, f, hist = _pga_impl(lead(C), M[None], k[None], cfg, num_processes,
                            None if nv is None else nv.reshape(1),
                            None if ip is None else ip[None])
     return p[0], f[0], hist[0]

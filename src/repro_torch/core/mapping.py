@@ -25,19 +25,18 @@ POLISH_CANDIDATES = 256
 
 def polish_batch(Cs, Ms, ps, key, rounds: int = 200, n_valid=None,
                  device=None):
-    """Instance-batched greedy 2-swap descent: ``Cs``/``Ms`` ``(B, N, N)``,
-    ``ps (B, N)``, ``key (B, 2)``, ``n_valid`` optional ``(B,)``.
+    """Instance-batched greedy 2-swap descent: ``Cs``/``Ms`` ``(B, N, N)``
+    (``Cs`` may be a ``SparseFlows`` with ``(B, N, D)`` leaves), ``ps (B,
+    N)``, ``key (B, 2)``, ``n_valid`` optional ``(B,)``.
 
     Each round scores 256 random swaps of every instance in one
-    ``kernels.ops.qap_delta`` call and applies the best one (first index
-    on ties) if it lowers F by more than 1e-9.  Returns ``(perms, fs)``.
+    ``kernels.ops.qap_delta`` call (K1, or K7 for sparse flows, on the
+    card) and applies the best one (first index on ties) if it lowers F
+    by more than 1e-9.  Returns ``(perms, fs)``.
     """
-    dev = resolve_device(device)
-    C = as_tensor(Cs, torch.float32, dev)
-    M = as_tensor(Ms, torch.float32, dev)
-    p = as_tensor(ps, torch.int32, dev)
-    key = as_tensor(key, torch.int64, dev)
-    nv = None if n_valid is None else as_tensor(n_valid, torch.int64, dev)
+    C, M, key, nv, p = annealing.wave_inputs(Cs, Ms, key, n_valid, ps,
+                                             device)
+    dev = M.device
     if nv is not None:
         C = qap.mask_flows(C, nv)
     CT, MT = ops.transposes(C, M)
@@ -63,15 +62,10 @@ def polish_batch(Cs, Ms, ps, key, rounds: int = 200, n_valid=None,
 
 def polish(C, M, p, key, rounds: int = 200, n_valid=None, device=None):
     """Single-instance :func:`polish_batch`: ``(perm, f)``."""
-    dev = resolve_device(device)
-    C = as_tensor(C, torch.float32, dev)
-    M = as_tensor(M, torch.float32, dev)
-    p = as_tensor(p, torch.int32, dev)
-    key = as_tensor(key, torch.int64, dev)
-    nv = None if n_valid is None else as_tensor(n_valid, torch.int64,
-                                                dev).reshape(1)
-    ps, fs = polish_batch(C[None], M[None], p[None], key[None], rounds, nv,
-                          device=dev)
+    C, M, key, nv, p = annealing.wave_inputs(C, M, key, n_valid, p, device)
+    ps, fs = polish_batch(annealing.lead(C), M[None], p[None], key[None],
+                          rounds, None if nv is None else nv.reshape(1),
+                          device=M.device)
     return ps[0], fs[0]
 
 

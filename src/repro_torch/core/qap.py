@@ -1,4 +1,4 @@
-"""Quadratic-assignment core for the job-mapping problem (dense part).
+"""Quadratic-assignment core for the job-mapping problem.
 
     F(p) = sum_{k,l} C[k, l] * M[p[k], p[l]]
 
@@ -9,6 +9,8 @@ either shared ``(N, N)`` or instance-batched ``(B0, N, N)``, in which case
 the leading dim of ``p`` is the instance axis.  The wide candidate
 evaluation of the solvers goes through ``repro_torch.kernels.ops``
 (the CUDA kernel on the card, the plain version here on the CPU).
+``objective``, ``mask_flows`` and ``swap_delta`` also take a
+``core.sparse.SparseFlows`` ``C`` and run its O(nnz) path.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.qap_delta import qap_delta_plain
+from ..kernels.qap_sparse import qap_delta_sparse_plain
+from .sparse import SparseFlows, mask_flows_sparse
 
 
 def _gather_m(M: torch.Tensor, rows: torch.Tensor,
@@ -30,9 +34,16 @@ def _gather_m(M: torch.Tensor, rows: torch.Tensor,
     return M[inst, rows, cols]
 
 
-def objective(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor
-              ) -> torch.Tensor:
-    """F(p) for ``p`` of shape ``(..., N)`` -> ``(...)`` f32."""
+def objective(C, M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """F(p) for ``p`` of shape ``(..., N)`` -> ``(...)`` f32.  A
+    ``SparseFlows`` ``C`` goes through ``kernels.ops.qap_objective_sparse``
+    (kernel K6 on the card); batched leaves take ``p``'s leading dim as
+    the instance axis."""
+    if isinstance(C, SparseFlows):
+        from ..kernels import ops
+        b0 = C.shape[0] if C.dim() == 3 else 1
+        perms = p.to(torch.int32).reshape(b0, -1, p.shape[-1]).contiguous()
+        return ops.qap_objective_sparse(C, M, perms).reshape(p.shape[:-1])
     pl = p.long()
     Mp = _gather_m(M, pl[..., :, None], pl[..., None, :])    # (..., N, N)
     Cb = C if C.dim() == 2 else C.view(
@@ -52,10 +63,13 @@ def valid_mask(n: int, n_valid) -> torch.Tensor:
     return torch.arange(n, device=nv.device) < nv[..., None]
 
 
-def mask_flows(C: torch.Tensor, n_valid) -> torch.Tensor:
+def mask_flows(C, n_valid):
     """Zero every flow touching a padded slot, so the plain objective and
     delta of the padded instance equal the unpadded ones.  ``n_valid`` is
-    a scalar for ``(N, N)`` C, or ``(B0,)`` for batched C."""
+    a scalar for ``(N, N)`` C, or ``(B0,)`` for batched C; sparse flows
+    keep their pattern and lose the values."""
+    if isinstance(C, SparseFlows):
+        return mask_flows_sparse(C, n_valid)
     nv = torch.as_tensor(n_valid, device=C.device)
     return C * masked_weights(valid_mask(C.shape[-1], nv), C.dtype)
 
@@ -107,10 +121,10 @@ def swap_positions(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return p.scatter(-1, a, pb).scatter(-1, b, pa)
 
 
-def swap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
-               a, b) -> torch.Tensor:
+def swap_delta(C, M: torch.Tensor, p: torch.Tensor, a, b) -> torch.Tensor:
     """O(N) increment of F after swapping positions ``a`` and ``b`` of
-    ``p`` (``(..., N)``, shared C/M; ``a``/``b`` of shape ``(...)``)."""
+    ``p`` (``(..., N)``, shared C/M; ``a``/``b`` of shape ``(...)``);
+    O(max degree) for a ``SparseFlows`` ``C``."""
     n = p.shape[-1]
     a = torch.as_tensor(a, device=p.device)
     b = torch.as_tensor(b, device=p.device)
@@ -118,7 +132,9 @@ def swap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     pairs = torch.stack(torch.broadcast_tensors(a, b), dim=-1).expand(
         lead + (2,)).reshape(-1, 1, 2)
     ps = p.expand(lead + (n,)).reshape(-1, n)
-    return qap_delta_plain(C, M, ps, pairs).reshape(lead)
+    plain = qap_delta_sparse_plain if isinstance(C, SparseFlows) \
+        else qap_delta_plain
+    return plain(C, M, ps, pairs).reshape(lead)
 
 
 def first_argmin(x: torch.Tensor) -> torch.Tensor:

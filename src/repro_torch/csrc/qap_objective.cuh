@@ -1,6 +1,8 @@
 // The QAP objective of one permutation, as a block-wide device function:
 // the arithmetic of kernel K2 (csrc/qap_objective.cu), shared with the
 // fused GA step K5 (csrc/qap_ga_step.cu), which scores each child with it.
+// Its fixed-order reduction, block_sum, also ends the sparse objective K6
+// (csrc/qap_objective_sparse.cu).
 //
 //   F(p) = sum_k sum_l C[k, l] * M[p[k], p[l]]
 //
@@ -19,6 +21,28 @@
 
 namespace repro_torch {
 
+// The sum of every thread's acc over the block, in a fixed order: the
+// lanes of each warp by a butterfly, then the warps in warp order.  red:
+// kThreads / 32 floats of shared memory.  Every thread returns the total.
+// Contains __syncthreads(): call it from every thread of the block.
+template <int kThreads>
+__device__ __forceinline__ float block_sum(float acc, float* red) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) red[warp] = acc;
+  __syncthreads();
+  float total = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) total += red[w];
+  __syncthreads();  // every thread has read red before it is reused
+  return total;
+}
+
 // p: the permutation (shared memory or global); red: kThreads / 32
 // floats of shared memory.  Every thread returns the total.  Contains
 // __syncthreads(): call it from every thread of the block.
@@ -36,17 +60,7 @@ __device__ __forceinline__ float block_objective(const float* __restrict__ c,
     const float* mrow = m + static_cast<size_t>(p[k]) * N;
     for (int l = lane; l < N; l += 32) acc += crow[l] * mrow[p[l]];
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) red[warp] = acc;
-  __syncthreads();
-  float total = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) total += red[w];
-  __syncthreads();  // every thread has read red before it is reused
-  return total;
+  return block_sum<kThreads>(acc, red);
 }
 
 }  // namespace repro_torch

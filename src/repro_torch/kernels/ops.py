@@ -1,6 +1,12 @@
-"""Dense kernel dispatch: a CUDA tensor goes to the kernel, a CPU tensor
-to the plain PyTorch version.  Nothing else: there is no fallback from a
-CUDA tensor to the plain version, and a kernel that cannot launch raises.
+"""Kernel dispatch: a CUDA tensor goes to the kernel, a CPU tensor to the
+plain PyTorch version.  Nothing else: there is no fallback from a CUDA
+tensor to the plain version, and a kernel that cannot launch raises.
+
+Flows are dense ``(N, N)`` / ``(B0, N, N)`` tensors or a
+``core.sparse.SparseFlows``; :func:`qap_objective` and :func:`qap_delta`
+route the sparse ones to :func:`qap_objective_sparse` and
+:func:`qap_delta_sparse` (kernels K6/K7), so every solver gains the
+sparse path without change.
 
 Call sites in ``repro_torch.core`` go through these wrappers only.  Each
 kernel launch adds one to its count (:func:`launch_counts`), so a run can
@@ -12,11 +18,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.sparse import SparseFlows
 from . import build
 from .qap_delta import qap_delta_cuda, qap_delta_plain
 from .qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
 from .qap_objective import qap_objective_cuda, qap_objective_plain
 from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
+from .qap_sparse import (qap_delta_sparse_cuda, qap_delta_sparse_plain,
+                         qap_objective_sparse_cuda, qap_objective_sparse_plain)
 
 LANE = 128
 # The fused steps' order cap, kept equal to the reference's
@@ -43,13 +52,17 @@ def reset_launch_counts() -> None:
     build.LAUNCHES.clear()
 
 
-def transposes(C: torch.Tensor, M: torch.Tensor
+def transposes(C, M: torch.Tensor
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(C^T, M^T)`` contiguous, as the kernels read them: made once per
-    solve on the card; ``(None, None)`` for the plain path."""
-    if not _route(C):
+    solve on the card; ``(None, None)`` for the plain path.  Sparse flows
+    hold both orientations already: ``(None, M^T)``."""
+    if not _route(M):
         return None, None
-    return C.transpose(-2, -1).contiguous(), M.transpose(-2, -1).contiguous()
+    MT = M.transpose(-2, -1).contiguous()
+    if isinstance(C, SparseFlows):
+        return None, MT
+    return C.transpose(-2, -1).contiguous(), MT
 
 
 def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
@@ -58,8 +71,11 @@ def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     """Swap deltas ``p (B, N)`` x ``pairs (B, K, 2)`` -> ``(B, K)``.
 
     ``C``/``M`` shared ``(N, N)`` or instance-batched ``(B0, N, N)``;
-    ``CT``/``MT`` (their transposes) are used by the kernel only.
+    ``CT``/``MT`` (their transposes) are used by the kernel only.  A
+    ``SparseFlows`` ``C`` goes to :func:`qap_delta_sparse`.
     """
+    if isinstance(C, SparseFlows):
+        return qap_delta_sparse(C, M, p, pairs, MT)
     if _route(p):
         return qap_delta_cuda(C, M, p, pairs, CT, MT)
     return qap_delta_plain(C, M, p, pairs)
@@ -69,10 +85,37 @@ def qap_objective(C: torch.Tensor, M: torch.Tensor, perms: torch.Tensor
                   ) -> torch.Tensor:
     """F for ``perms (B, P, N)`` -> ``(B, P)``: every island's offspring
     of a wave in one call.  ``C``/``M`` shared ``(N, N)`` or
-    instance-batched ``(B0, N, N)`` with ``B0`` dividing ``B``."""
+    instance-batched ``(B0, N, N)`` with ``B0`` dividing ``B``.  A
+    ``SparseFlows`` ``C`` goes to :func:`qap_objective_sparse`."""
+    if isinstance(C, SparseFlows):
+        return qap_objective_sparse(C, M, perms)
     if _route(perms):
         return qap_objective_cuda(C, M, perms)
     return qap_objective_plain(C, M, perms)
+
+
+def qap_objective_sparse(S: SparseFlows, M: torch.Tensor,
+                         perms: torch.Tensor) -> torch.Tensor:
+    """Sparse F for ``perms (B, P, N)`` -> ``(B, P)`` in O(nnz) each (K6
+    on the card).  ``S`` leaves shared ``(N, D)`` with ``M (N, N)``, or
+    instance-batched ``(B0, N, D)`` with ``M (B0, N, N)``, ``B0``
+    dividing ``B``.  The reference capped its kernel at order 4096 and
+    ran its plain version above; K6 takes every order."""
+    if _route(perms):
+        return qap_objective_sparse_cuda(S, M, perms)
+    return qap_objective_sparse_plain(S, M, perms)
+
+
+def qap_delta_sparse(S: SparseFlows, M: torch.Tensor, p: torch.Tensor,
+                     pairs: torch.Tensor, MT: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Sparse swap deltas ``p (B, N)`` x ``pairs (B, K, 2)`` -> ``(B, K)``
+    in O(max degree) each (K7 on the card); ``S``/``M`` as for
+    :func:`qap_objective_sparse`, ``MT`` (``M``'s transpose) used by the
+    kernel only.  Every order, no cap."""
+    if _route(p):
+        return qap_delta_sparse_cuda(S, M, p, pairs, MT)
+    return qap_delta_sparse_plain(S, M, p, pairs)
 
 
 def fused_step_fits(n: int) -> bool:

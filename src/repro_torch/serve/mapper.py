@@ -1,5 +1,5 @@
 """Async, deadline-aware mapping service on the card: the port of
-``repro/serve/mapper.py`` for the dense buckets.
+``repro/serve/mapper.py``.
 
 The resource manager submits a job's flow graph ``C`` and its
 allocation's distance graph ``M`` and gets back a permutation:
@@ -17,13 +17,17 @@ allocation's distance graph ``M`` and gets back a permutation:
      refined by ``mapping.polish_batch``.  Padding is exact: flows touching
      padded slots are zeroed and the solvers keep real processes on real
      nodes.
-  4. An exact-digest LRU serves repeats; a shape-tier (order + system
-     graph) near miss warm-starts the solve from the cached permutation.
+  4. Orders above every dense bucket and at least ``multilevel_min_n``
+     (256) group under the large buckets 512/1024/4096 and are solved one
+     at a time at exact size by ``core.multilevel.solve_multilevel``:
+     host-side coarsening, a dense coarse solve, warm-started sparse SA
+     on each level and a sparse final polish (kernels K1, K6 and K7).
+  5. An exact-digest LRU serves repeats; a shape-tier (order + system
+     graph) near miss warm-starts the solve from the cached permutation
+     (not on the multilevel route, whose coarse solve is the seed).
 
 The same request gives the same permutation as the reference engine: the
-solvers replay its random streams and arithmetic bit for bit.  Orders
-routed to the large buckets of the multilevel path are not ported yet and
-fail their future with ``NotImplementedError``.
+solvers replay its random streams and arithmetic bit for bit.
 """
 from __future__ import annotations
 
@@ -38,13 +42,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import annealing, composite, genetic, keys, mapping as mapping_lib
+from ..core import (annealing, composite, genetic, keys, mapping as mapping_lib,
+                    multilevel)
 from ..kernels import build
 
 DEFAULT_BUCKETS = (32, 64, 128)
 
-# Routing labels of the reference's sparse/multilevel path (orders above
-# the dense buckets and >= multilevel_min_n); not ported yet.
+# Routing labels for the sparse/multilevel path: orders above the dense
+# buckets (and >= multilevel_min_n) group under the smallest large bucket
+# that holds them and solve via core.multilevel at exact size.
 LARGE_BUCKETS = (512, 1024, 4096)
 
 ALGORITHMS = ("psa", "pga", "pca")
@@ -262,6 +268,7 @@ class MappingEngine:
                  pad_batches: bool = True,
                  large_buckets: Sequence[int] = LARGE_BUCKETS,
                  multilevel_min_n: int = 256,
+                 multilevel_cfg: Optional[multilevel.MultilevelConfig] = None,
                  max_pending: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
@@ -271,6 +278,7 @@ class MappingEngine:
         self.large_buckets = tuple(sorted(int(b) for b in large_buckets))
         self._large_set = frozenset(self.large_buckets) - frozenset(self.buckets)
         self.multilevel_min_n = int(multilevel_min_n)
+        self.multilevel_cfg = multilevel_cfg or multilevel.MultilevelConfig()
         self.cache_size = int(cache_size)
         self.num_processes = int(num_processes)
         self.polish_rounds = int(polish_rounds)
@@ -327,16 +335,21 @@ class MappingEngine:
     def digest(self, req: MapRequest, algorithm: Optional[str] = None,
                tier: str = "default") -> str:
         """Exact-tier cache key: the instance and everything that shapes
-        its solution; the seed only with ``cache_seed``."""
+        its solution; the seed only with ``cache_seed``.  Multilevel-routed
+        orders fold the multilevel config in (the ``|ml|`` tag)."""
         algorithm = algorithm or req.algorithm
         sa_cfg, ga_cfg = self._tier_cfgs[tier]
         h = hashlib.sha1()
         C = np.ascontiguousarray(req.C, dtype=np.float32)
         M = np.ascontiguousarray(req.M, dtype=np.float32)
         seed_part = f"|s{req.seed}" if req.cache_seed else ""
-        h.update(f"{C.shape[0]}|{algorithm}|{tier}|{self.num_processes}|"
+        n = C.shape[0]
+        ml_part = ""
+        if self.bucket_for(n) is None and self.large_bucket_for(n) is not None:
+            ml_part = f"|ml|{self.multilevel_cfg}"
+        h.update(f"{n}|{algorithm}|{tier}|{self.num_processes}|"
                  f"{self.polish_rounds}|{sa_cfg}|{ga_cfg}"
-                 f"{seed_part}".encode())
+                 f"{seed_part}{ml_part}".encode())
         h.update(C.tobytes())
         h.update(M.tobytes())
         return h.hexdigest()
@@ -377,9 +390,10 @@ class MappingEngine:
     def warmup(self, buckets: Optional[Sequence[int]] = None,
                algorithms: Sequence[str] = ("psa",)) -> int:
         """Build the kernels (on the card) and run one dummy wave through
-        each algorithm's solver and the polish of every bucket, so the
-        first real wave pays neither the build nor first-use costs.
-        Returns the number of dummy waves run (also in
+        each algorithm's solver and the polish of every dense bucket, so
+        the first real wave pays neither the build nor first-use costs
+        (the multilevel large buckets solve at exact size and are not
+        warmed).  Returns the number of dummy waves run (also in
         ``stats.warmup_programs``)."""
         buckets = self.buckets if buckets is None else tuple(
             sorted(int(b) for b in buckets))
@@ -599,9 +613,11 @@ class MappingEngine:
                         solved = [self._solve_exact(p.req, algorithm, tier, w)
                                   for p, w in zip(heads, warms)]
                     elif bucket in self._large_set:
-                        raise NotImplementedError(
-                            "multilevel is not ported yet (ROADMAP.md "
-                            "module step 7)")
+                        # one multilevel solve per head; shape-tier warm
+                        # starts are ignored (the coarse solve is the seed)
+                        solved = [self._solve_multilevel(p.req)
+                                  for p in heads]
+                        warms = [None] * len(heads)
                     else:
                         solved = self._solve_bucket(
                             bucket, algorithm, tier, [p.req for p in heads],
@@ -750,3 +766,14 @@ class MappingEngine:
             self.stats.solver_batches += 1
             self.stats.solver_calls += 1
         return p.cpu().numpy().astype(np.int32), float(f)
+
+    def _solve_multilevel(self, req: MapRequest) -> Tuple[np.ndarray, float]:
+        """A large-bucket request through ``core.multilevel`` at exact
+        size; ``multilevel_cfg`` governs, not the tier's budgets."""
+        res = multilevel.solve_multilevel(
+            req.C, req.M, keys.prng_key(req.seed, self.device),
+            self.multilevel_cfg, device=self.device)
+        with self._lock:
+            self.stats.solver_batches += 1
+            self.stats.solver_calls += 1
+        return np.asarray(res.perm, np.int32), float(res.objective)

@@ -14,7 +14,7 @@ import torch
 from repro.core import annealing as jann
 from repro.core import qap as jqap
 from repro_torch import convert
-from repro_torch.core import annealing, qap
+from repro_torch.core import annealing, qap, sparse
 
 from _fixtures import SA_SMALL, instance, padded_batch
 
@@ -153,7 +153,19 @@ def test_entry_points_need_a_device_or_cpu():
 
 
 def test_sparse_flows_not_ported():
+    """Sparse flows are ported: ``flows="sparse"`` wants a SparseFlows C
+    (a dense one raises, as in the reference) and then solves exactly as
+    the dense path does."""
     C, M = instance(6, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        annealing.run_psa(C, M, np.zeros(2, np.uint32),
-                          annealing.SAConfig(flows="sparse"), device="cpu")
+    key = np.zeros(2, np.uint32)
+    cfg = annealing.SAConfig(max_neighbors=6, iters_per_exchange=3,
+                             num_exchanges=2, solvers=2)
+    with pytest.raises(TypeError, match="SparseFlows"):
+        annealing.run_psa(C, M, key, dataclasses.replace(cfg, flows="sparse"),
+                          device="cpu")
+    want = annealing.run_psa(C, M, key, cfg, device="cpu")
+    got = annealing.run_psa(sparse.from_dense(C), M, key,
+                            dataclasses.replace(cfg, flows="sparse"),
+                            device="cpu")
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)

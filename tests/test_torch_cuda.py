@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import annealing, genetic, instances
+from repro_torch.core import (annealing, exact, genetic, instances,
+                              multilevel, sparse)
 from repro_torch.kernels import ops
 from repro_torch.kernels.qap_delta import qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_plain
 from repro_torch.kernels.qap_objective import qap_objective_plain
 from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
+from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+                                            qap_objective_sparse_plain)
 from repro_torch.serve import MappingEngine, MapRequest
 
 pytestmark = pytest.mark.gpu
@@ -178,3 +181,96 @@ def test_ga_engine_on_card_matches_engine_on_cpu(cuda, algorithm, ga_eval):
     for g, c in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(g.perm, c.perm)
         assert g.objective == c.objective
+
+
+# (n, D): ragged lane edges (D = 1, 31, 33) and the multilevel route's
+# widths (D = 6 at its finest 4096 level, 46 at its coarsest).
+SPARSE_CASES = [(130, 1), (130, 33), (1000, 6), (1000, 31), (4096, 6),
+                (4096, 46)]
+
+
+def _sparse_inputs(n, D, shared, seed, device, chains=8, perms=4):
+    """Integer ELL flows of max degree exactly D (a circulant with some
+    entries zeroed, row 0 kept full), integer distances, ``chains``
+    permutations, ``perms`` more per chain row, and K candidate pairs."""
+    rng = np.random.default_rng(seed)
+    b0 = 1 if shared else 2
+    offsets = rng.choice(np.arange(1, n), D, replace=False)
+    rows = np.repeat(np.arange(n), D)
+    cols = (rows + np.tile(offsets, n)) % n
+    Cs = np.zeros((b0, n, n), np.float32)
+    Ms = np.zeros((b0, n, n), np.float32)
+    for i in range(b0):
+        w = rng.integers(1, 10, rows.size).astype(np.float32)
+        w[D:][rng.random(rows.size - D) < 0.2] = 0.0
+        Cs[i, rows, cols] = w
+        M = rng.integers(1, 10, (n, n)).astype(np.float32)
+        Ms[i] = M + M.T
+    S = sparse.from_dense(Cs[0] if shared else Cs, width=D, device=device)
+    assert S.max_degree == D
+    ps = np.stack([rng.permutation(n) for _ in range(chains)]).astype(np.int32)
+    many = np.stack([rng.permutation(n) for _ in range(chains * perms)])
+    pairs = np.sort(np.stack([rng.choice(n, 2, replace=False)
+                              for _ in range(chains * K)]), axis=1)
+    t = lambda x: torch.as_tensor(x, device=device)
+    return (S, t(Ms[0] if shared else Ms), t(ps),
+            t(many.astype(np.int32).reshape(chains, perms, n)),
+            t(pairs.reshape(chains, K, 2).astype(np.int32)))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n,D", SPARSE_CASES)
+def test_qap_objective_sparse_kernel_matches_plain(cuda, n, D, shared):
+    S, M, _, perms, _ = _sparse_inputs(n, D, shared, n + D, cuda)
+    before = ops.launch_counts()["qap_objective_sparse"]
+    got = ops.qap_objective(S, M, perms)
+    assert ops.launch_counts()["qap_objective_sparse"] == before + 1
+    assert torch.equal(got, qap_objective_sparse_plain(S, M, perms))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n,D", SPARSE_CASES)
+def test_qap_delta_sparse_kernel_matches_plain(cuda, n, D, shared):
+    S, M, p, _, pairs = _sparse_inputs(n, D, shared, 2 * n + D, cuda)
+    _, MT = ops.transposes(S, M)
+    before = ops.launch_counts()["qap_delta_sparse"]
+    got = ops.qap_delta(S, M, p, pairs, None, MT)
+    assert ops.launch_counts()["qap_delta_sparse"] == before + 1
+    assert torch.equal(got, qap_delta_sparse_plain(S, M, p, pairs))
+    assert torch.equal(ops.qap_delta_sparse(S, M, p, pairs), got)
+
+
+def test_sparse_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    S, M, p, perms, pairs = _sparse_inputs(130, 6, True, 0, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.qap_objective_sparse(S, M, perms.long())
+    with pytest.raises(ValueError, match="int32"):
+        ops.qap_delta_sparse(S, M, p.long(), pairs)
+    with pytest.raises(ValueError, match="cols"):
+        ops.qap_delta_sparse(S._replace(cols=S.cols.long()), M, p, pairs)
+    with pytest.raises(ValueError, match="divide"):
+        ops.qap_delta_sparse(S, torch.stack([M] * 3), p, pairs)
+
+
+def test_multilevel_engine_on_card_matches_engine_on_cpu(cuda):
+    cfg = multilevel.MultilevelConfig(coarse_n=16)
+    reqs = [MapRequest(job_id=f"torus{i}", C=inst.C, M=inst.M, seed=i)
+            for i, inst in enumerate([exact.make_torus((8, 8)),
+                                      exact.make_torus((4, 4, 4), version=2)])]
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = MappingEngine(buckets=(32,), large_buckets=(64,),
+                               multilevel_min_n=64, multilevel_cfg=cfg,
+                               device=device)
+        ops.reset_launch_counts()
+        futs = [engine.submit(r) for r in reqs]
+        engine.flush()
+        out[device] = [f.result() for f in futs]
+        counts = ops.launch_counts()
+        launched = counts["qap_delta_sparse"] > 0 and \
+            counts["qap_objective_sparse"] > 0 and counts["qap_delta"] > 0
+        assert launched == (device == "cuda"), counts
+    for g, c, r in zip(out["cuda"], out["cpu"], reqs):
+        np.testing.assert_array_equal(g.perm, c.perm)
+        assert g.objective == c.objective and g.bucket == 64
+        assert float(r.C.sum()) <= g.objective <= g.baseline

@@ -132,7 +132,8 @@ def test_config_errors():
     for bad, err in ((dict(eval="bogus"), ValueError),
                      (dict(rng="bogus"), ValueError),
                      (dict(eval="island", rng="counter"), ValueError),
-                     (dict(flows="sparse"), NotImplementedError)):
+                     (dict(flows="sparse"), TypeError),
+                     (dict(flows="bogus"), ValueError)):
         with pytest.raises(err):
             genetic.run_pga(C, M, key, _port(GA_TEST, **bad), device="cpu")
     if not torch.cuda.is_available():

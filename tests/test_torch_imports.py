@@ -33,7 +33,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.core.mapping, repro_torch.core.composite, "
-            "repro_torch.core.exact, repro_torch.kernels.ops; "
+            "repro_torch.core.exact, repro_torch.core.multilevel, "
+            "repro_torch.core.sparse, repro_torch.kernels.ops; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -13,12 +13,15 @@ from repro.kernels.qap_delta import qap_delta_pallas_batch
 from repro.kernels.qap_ga_step import qap_ga_step_pallas_batch
 from repro.kernels.qap_objective import qap_objective_pallas_batch
 from repro.kernels.qap_sa_step import qap_sa_step_pallas_batch
+from repro_torch.core import sparse
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
 from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                qap_objective_plain)
 from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
+from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+                                            qap_objective_sparse_plain)
 
 from _fixtures import instance
 
@@ -208,8 +211,16 @@ def test_ops_take_the_plain_path_on_cpu_tensors():
     got = ops.qap_ga_step(*args, **kw)
     want = qap_ga_step_plain(*args, **kw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert ops.launch_counts() == {"qap_delta": 0, "qap_objective": 0,
-                                   "qap_sa_step": 0, "qap_ga_step": 0}
+    S = sparse.from_dense(Cs)
+    assert torch.equal(ops.qap_objective(S, _t(Ms), _t(pops)),
+                       qap_objective_sparse_plain(S, _t(Ms), _t(pops)))
+    Cs, Ms, ps, pairs = _wave(16, 12, False, seed=8)
+    S = sparse.from_dense(Cs)
+    assert torch.equal(ops.qap_delta(S, _t(Ms), _t(ps), _t(pairs)),
+                       qap_delta_sparse_plain(S, _t(Ms), _t(ps), _t(pairs)))
+    assert ops.launch_counts() == {
+        "qap_delta": 0, "qap_objective": 0, "qap_sa_step": 0,
+        "qap_ga_step": 0, "qap_objective_sparse": 0, "qap_delta_sparse": 0}
 
 
 def test_fused_step_fits_keeps_the_reference_cap():

@@ -1,5 +1,7 @@
 """The port's jax.random replica and Threefry counter stream against the
 reference draws, bit for bit."""
+import math
+
 import numpy as np
 import pytest
 import jax
@@ -58,6 +60,18 @@ def test_permutation(n):
         np.testing.assert_array_equal(
             np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n)),
             keys.permutation(keys.prng_key(seed), n).numpy())
+
+
+@pytest.mark.parametrize("n", [1625, 1626, 2048, 4096])
+def test_permutation_two_rounds(n):
+    """Above n = 1625 the sort-based shuffle runs two rounds: the orders
+    of the multilevel route's finest levels (batched keys included)."""
+    assert math.ceil(3 * math.log(n) / math.log(2 ** 32 - 1)) == \
+        (1 if n <= 1625 else 2)
+    jk = jax.random.split(jax.random.PRNGKey(n), 3)
+    want = np.stack([np.asarray(jax.random.permutation(k, n)) for k in jk])
+    got = keys.permutation(torch.as_tensor(np.asarray(jk).astype(np.int64)), n)
+    np.testing.assert_array_equal(want, got.numpy())
 
 
 def test_draws_vectorise_over_leading_key_dims():

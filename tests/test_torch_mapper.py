@@ -10,7 +10,7 @@ from repro.core import genetic as jgen
 from repro.core import mapping as jmapping
 from repro.serve.mapper import MappingEngine as RefEngine
 from repro.serve.mapper import MapRequest as RefRequest
-from repro_torch.core import annealing, genetic, instances, mapping
+from repro_torch.core import annealing, genetic, instances, mapping, multilevel
 from repro_torch.serve import (ClusterState, MapCancelled, MappingEngine,
                                MapRequest, QueueFull)
 
@@ -152,13 +152,21 @@ def test_max_pending_and_cancel():
 
 
 def test_large_bucket_orders_fail_their_future():
+    """A multilevel solve that raises fails the futures of its own group
+    only: the dense group of the same flush is served, then the flush
+    raises the error."""
     engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
-                           multilevel_min_n=20, **ENGINE_KW)
+                           multilevel_min_n=20,
+                           multilevel_cfg=multilevel.MultilevelConfig(
+                               algorithm="bogus"), **ENGINE_KW)
     C, M = instance(24, 2)
     fut = engine.submit(MapRequest(job_id="big", C=C, M=M))
-    with pytest.raises(NotImplementedError, match="multilevel"):
+    C, M = instance(8, 3)
+    ok = engine.submit(MapRequest(job_id="small", C=C, M=M))
+    with pytest.raises(ValueError, match="algorithm"):
         engine.flush()
-    assert fut.done()
+    assert isinstance(fut.exception(timeout=1), ValueError)
+    assert ok.result(timeout=1).bucket == 8
 
 
 def test_flusher_thread_and_allocate_map_release_loop():
