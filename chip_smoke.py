@@ -13,7 +13,10 @@ Phases, each of which must pass:
    ``qap_objective``, K5 ``qap_ga_step``, K6 ``qap_objective_sparse``,
    K7 ``qap_delta_sparse``) against its plain PyTorch version on the
    card, at the shapes the engine gives it (bitwise: the instances are
-   integer-valued), and time both;
+   integer-valued), and time both; then K8 ``selective_scan`` at the
+   Jamba prefill's full-width shape (4 x 512 x 8192, d_state 16) and a
+   ragged one (2 x 49 x 200, d_state 4), ``y`` and the final state
+   within 2e-4 of their largest magnitude;
 4. drive the port's ``MappingEngine`` on the card through one full wave
    of the 128 bucket (32 requests of order 125) plus waves of the 64 and
    32 buckets, on five routes: PSA with ``loop="event"`` (kernel K1) and
@@ -23,11 +26,22 @@ Phases, each of which must pass:
    tori) through the large buckets (K1 for the coarse solve, K6 and K7
    on the refinement levels and in the final polish); the launch counts
    are set to 0 just before each wave or request and read just after;
+   then a seventh route, ``lm-serve``: Jamba-v0.1-52B at full width, 8 of
+   its 32 layers (one ``mMmMaMmM`` super-block), bf16 weights drawn on the
+   card from a seeded generator, dropless MoE, served through the port's
+   ``Engine.generate``: 4 prompts of 512 tokens, 16 greedy tokens (K8
+   once per Mamba layer of the prefill: 7 launches);
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
    requests on the multilevel route) against the same engine on the
-   CPU, bit for bit.
+   CPU, bit for bit; on ``lm-serve``, every token in the vocabulary,
+   finite logits, decode against teacher forcing at full width on the
+   same bf16 weights in f32 compute (argmax agreement >= 0.95, logits
+   within 1e-3 of their largest magnitude; the served bf16 arithmetic's
+   agreement over 16 prompts is printed), and Jamba's ``SMOKE`` width
+   in f32 on the card against the CPU (the same greedy tokens, prefill
+   logits within 1e-4 of their largest magnitude).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
@@ -61,6 +75,10 @@ N_OFF = GA_KW["pop_size"] // 2
 # polish 1 x 256; the chain start scores 4 permutations per K6 launch.
 ML_TORI = ((8, 8, 8), (32, 32), (16, 16, 16))
 ML_CHAINS, ML_K = 4, 16
+
+# The lm-serve route: 4 prompts of 512 tokens, 16 new tokens, greedy.
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 16
+LM_TF_ROWS = 16          # prompts in the bf16 teacher-forcing measurement
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -702,6 +720,255 @@ def check_multilevel_against_cpu(resps):
           f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
 
 
+def scan_inputs(shape, device, seed):
+    """u, dt, a, b, c for K8 in the ranges of the reference's kernel test
+    (dt in [0.001, 0.1], a in [-1, -0.1]), drawn on the card."""
+    import torch
+    bsz, s, d, n = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = functools.partial(torch.rand, generator=g, device=device)
+    randn = functools.partial(torch.randn, generator=g, device=device)
+    return (randn(bsz, s, d), rand(bsz, s, d) * 0.099 + 0.001,
+            -(rand(d, n) * 0.9 + 0.1), randn(bsz, s, n), randn(bsz, s, n))
+
+
+def check_selective_scan(device):
+    """K8 against its plain version at the Jamba prefill's full-width
+    shape and at a ragged one: ``y`` and ``h_last`` within 2e-4 of their
+    largest magnitude (the reference's kernel-test bar); whether they are
+    bitwise equal is printed."""
+    import torch
+    from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                    selective_scan_plain)
+    out = {}
+    for label, shape in (("full", (LM_BATCH, LM_PROMPT, 8192, 16)),
+                         ("ragged", (2, 49, 200, 4))):
+        args = scan_inputs(shape, device, sum(shape))
+        y, h = selective_scan_cuda(*args)
+        want_y, want_h = selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = float((y - want_y).abs().max())
+        err_h = float((h - want_h).abs().max())
+        for name, e, w in (("y", err, want_y), ("h_last", err_h, want_h)):
+            require(e <= 2e-4 * float(w.abs().max()), f"selective_scan "
+                    f"{label}: {name} max err {e} > 2e-4 * max")
+        launch = lambda: selective_scan_cuda(*args)
+        ms, dev_ms = cuda_ms(launch, 50), graph_ms(launch, 50)
+        plain = cuda_ms(lambda: selective_scan_plain(*args), 2)
+        bsz, s, d, n = shape
+        nbytes = 4 * (3 * bsz * s * d + d * n + 2 * bsz * s * n + bsz * d * n)
+        bound, by = bound_ms(nbytes, 7 * bsz * s * d * n + bsz * s * d)
+        out[label] = dict(err=err, err_h=err_h, ms=ms, plain_ms=plain,
+                          bound_ms=bound, bound_by=by)
+        print(f"selective_scan {label:6s} B={bsz} S={s} D={d} N={n}: kernel "
+              f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain {plain:.4f} "
+              f"ms, bound {bound:.4f} ms ({by}), max err y {err} h_last "
+              f"{err_h}, bitwise y {torch.equal(y, want_y)} h_last "
+              f"{torch.equal(h, want_h)}", flush=True)
+    return out
+
+
+class TimedModel:
+    """The port's ``Model`` with every prefill and decode step timed on
+    the host clock around a ``torch.cuda.synchronize()``, and the logits
+    they return kept."""
+
+    def __init__(self, model):
+        self.model, self.device = model, model.device
+        self.times = {"prefill": [], "decode": []}
+        self.logits = []
+
+    def _timed(self, name, fn, *args, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.times[name].append(time.perf_counter() - t)
+        self.logits.append(logits)
+        return logits, cache
+
+    def prefill(self, *args, **kw):
+        return self._timed("prefill", self.model.prefill, *args, **kw)
+
+    def decode_step(self, *args, **kw):
+        return self._timed("decode", self.model.decode_step, *args, **kw)
+
+
+def lm_config():
+    """Jamba-v0.1-52B at full width, cut to one super-block of 8 layers,
+    served with bf16 weights and dropless MoE."""
+    from repro_torch import configs
+    return configs.get_config("jamba_v0_1_52b").with_overrides(
+        num_layers=8, layer_pattern="mMmMaMmM", param_dtype="bf16",
+        moe_capacity_factor=0.0)
+
+
+def drive_lm_serve():
+    """Serve 4 prompts of 512 tokens, 16 greedy tokens each, through the
+    port's ``Engine`` on the card, the launch counts set to 0 just before
+    ``generate`` and read just after; then decode against teacher
+    forcing at full width.  Returns the launch counts of ``generate``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = lm_config()
+    mamba_layers = sum(ch in "mM" for ch in cfg.layer_pattern)
+    model = Model(cfg, device="cuda")
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[lm-serve] {cfg.name} cut to {cfg.num_layers} layers "
+          f"({cfg.layer_pattern}), {model.num_params()} parameters in "
+          f"{cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    timed = TimedModel(model)
+    engine = Engine(timed, params, ServeConfig(max_new_tokens=LM_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = engine.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(out.shape == (LM_BATCH, LM_NEW), f"[lm-serve] output {out.shape}")
+    require(((out >= 0) & (out < cfg.vocab_size)).all(),
+            "[lm-serve] a token outside the vocabulary")
+    require(all(bool(torch.isfinite(x).all()) for x in timed.logits),
+            "[lm-serve] non-finite logits")
+    require(counts["selective_scan"] == mamba_layers,
+            f"[lm-serve] {counts['selective_scan']} selective_scan launches "
+            f"for one prefill of {mamba_layers} Mamba layers")
+    prefill_s = timed.times["prefill"][0]
+    decode_s = sum(timed.times["decode"]) / len(timed.times["decode"])
+    print(f"[lm-serve] {LM_BATCH} x {LM_PROMPT} prompts, {LM_NEW} greedy "
+          f"tokens: generate wall {wall:.4f} s, prefill {prefill_s:.4f} s, "
+          f"decode {decode_s * 1e3:.3f} ms per step "
+          f"({len(timed.times['decode'])} steps), "
+          f"{out.size / wall:.2f} generated tokens/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB, launches {counts}", flush=True)
+    print(f"[lm-serve] tokens {out[:, :8].tolist()}", flush=True)
+    # a decode step reads every weight but the embedding (dropless MoE
+    # runs all experts): its least time at the card's memory rate
+    step_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                     if t is not params["embed"]["embedding"])
+    print(f"[lm-serve] a decode step reads {step_bytes / 1e9:.3f} GB of "
+          f"weights: bound {step_bytes / H100_BYTES_PER_S * 1e3:.3f} ms "
+          f"(bytes), measured {decode_s * 1e3:.3f} ms", flush=True)
+
+    # decode against teacher forcing at full width: the gate in f32
+    # compute on the same bf16 weights, then the served bf16 arithmetic
+    gate = teacher_forcing(
+        Model(cfg.with_overrides(compute_dtype=torch.float32), device="cuda"),
+        params, LM_BATCH, "f32 compute")
+    require(gate["agree"] >= 0.95,
+            f"[lm-serve] f32 argmax agreement {gate['agree']} < 0.95")
+    require(gate["diff"] <= 1e-3 * gate["scale"],
+            f"[lm-serve] f32 teacher forcing: max diff {gate['diff']} > "
+            f"1e-3 * {gate['scale']}")
+    # The served bf16 arithmetic, measured: its logits come out of a bf16
+    # product (the reference's logits_fn), so a row's top two often tie
+    # within one bf16 step, and decode and prefill round differently
+    # (other GEMM shapes); its argmax agreement is printed, not gated.
+    teacher_forcing(model, params, LM_TF_ROWS, "bf16 compute")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def teacher_forcing(model, params, rows, label):
+    """Logits of [prefill(S) -> decode token S] against the last logits of
+    prefill(S + 1) for ``rows`` prompts of ``LM_PROMPT`` tokens (K8 7
+    times per prefill).  Returns the agreement of the argmaxes, the max
+    abs difference and the largest logit; prints each row's max
+    difference and top-2 gap, and for each row whose argmaxes differ the
+    gap between the two tokens' prefill logits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    toks = torch.as_tensor(
+        np.random.default_rng(1).integers(2, cfg.vocab_size,
+                                          (rows, LM_PROMPT + 1)),
+        dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    _, cache = model.prefill(params, {"tokens": toks[:, :LM_PROMPT]},
+                             cache_len=LM_PROMPT + 8)
+    a, _ = model.decode_step(params, cache, {"tokens": toks[:, LM_PROMPT:]},
+                             LM_PROMPT)
+    del cache
+    b, _ = model.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["selective_scan"]
+    mamba_layers = sum(ch in "mM" for ch in cfg.layer_pattern)
+    require(launched == 2 * mamba_layers, f"[lm-serve] {launched} "
+            f"selective_scan launches for two prefills")
+    require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()),
+            f"[lm-serve] non-finite teacher-forcing logits ({label})")
+    ia, ib = a.argmax(-1), b.argmax(-1)
+    top2 = b.topk(2, dim=-1).values
+    rows_idx = torch.arange(rows, device=b.device)
+    out = dict(agree=float((ia == ib).float().mean()),
+               diff=float((a - b).abs().max()), scale=float(b.abs().max()))
+    row_diff = (a - b).abs().amax(-1).tolist()
+    top2_gap = (top2[:, 0] - top2[:, 1]).tolist()
+    ties = (b[rows_idx, ib] - b[rows_idx, ia])[ia != ib].tolist()
+    print(f"[lm-serve] decode vs teacher forcing at full width, {label}, "
+          f"{rows} rows: max abs diff {out['diff']:.6f} (logits max "
+          f"{out['scale']:.4f}), argmax agreement {out['agree']}; per row "
+          f"max diff {[round(x, 4) for x in row_diff]}, top-2 gap "
+          f"{[round(x, 4) for x in top2_gap]}, prefill-logit gap of each "
+          f"disagreement {ties}", flush=True)
+    return out
+
+
+def check_lm_against_cpu():
+    """Jamba's SMOKE width in f32, weights drawn once on the CPU from one
+    seed: the card's greedy tokens equal the CPU's, and its prefill
+    logits agree to 1e-4 of their largest magnitude."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = configs.smoke_config("jamba_v0_1_52b").with_overrides(
+        compute_dtype=torch.float32)
+    prompts = np.random.default_rng(2).integers(
+        2, cfg.vocab_size, (4, 49)).astype(np.int32)
+    out, logits = {}, {}
+    t = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        ops.reset_launch_counts()
+        logits[device], _ = model.prefill(
+            params, {"tokens": torch.as_tensor(prompts, device=device)})
+        launched = ops.launch_counts()["selective_scan"]
+        require(launched == (7 if device == "cuda" else 0),
+                f"[lm-serve] smoke prefill on {device}: {launched} launches")
+        out[device] = Engine(model, params,
+                             ServeConfig(max_new_tokens=8)).generate(prompts)
+    err = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    require((out["cuda"] == out["cpu"]).all(),
+            f"[lm-serve] smoke tokens: card {out['cuda'].tolist()} != cpu "
+            f"{out['cpu'].tolist()}")
+    require(err <= 1e-4 * scale, f"[lm-serve] smoke prefill logits: max err "
+            f"{err} > 1e-4 * {scale}")
+    print(f"[lm-serve] smoke width f32: card == cpu tokens {out['cuda'][0]}, "
+          f"prefill logits max err {err} (max {scale:.4f}) "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -735,6 +1002,9 @@ def main():
     ga = check_qap_ga_step(device)
     dsp = check_qap_delta_sparse(device)
     osp = check_qap_objective_sparse(device)
+    scan = check_selective_scan(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     runs = {}
     for route in ROUTES:
@@ -748,6 +1018,8 @@ def main():
         require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
     ml_resps, runs["multilevel"] = drive_multilevel()
     check_multilevel_against_cpu(ml_resps)
+    runs["lm-serve"] = drive_lm_serve()
+    check_lm_against_cpu()
 
     d = delta[("event", "batched")]
     o = obj[("generation", "batched")]
@@ -792,6 +1064,14 @@ def main():
              launches=runs["multilevel"]["qap_delta_sparse"],
              max_abs_err=max(v["err"] for v in dsp.values()),
              **{k: dsp[("finest", "refine", "batched")][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
+        dict(name="selective_scan", route="cuda",
+             source="src/repro_torch/csrc/selective_scan.cu",
+             replaces="src/repro/kernels/selective_scan.py:73",
+             launches=runs["lm-serve"]["selective_scan"],
+             max_abs_err=max(v["err"] for v in scan.values()),
+             **{k: scan["full"][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
     ]

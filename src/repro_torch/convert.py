@@ -8,7 +8,7 @@ reference state in the middle of a run.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +19,8 @@ from .core.composite import CompositeConfig
 from .core.genetic import GAConfig, GAState
 from .core.multilevel import MultilevelConfig
 from .core.sparse import SparseFlows
+from .models.config import ModelConfig, resolve_dtype
+from .models.param import tree_map
 
 
 def sa_config_from_reference(fields: Mapping) -> SAConfig:
@@ -93,3 +95,30 @@ def ga_state_from_reference(state: Mapping[str, np.ndarray],
                                  torch.int32, device),
                    fit=as_tensor(fit.reshape((-1, fit.shape[-1])),
                                  torch.float32, device))
+
+
+def model_config_from_reference(fields: Mapping) -> ModelConfig:
+    """A :class:`ModelConfig` from the reference config's fields
+    (``dataclasses.asdict(cfg)``).  Dtype fields go by name: a name such
+    as ``"bf16"`` or ``"float32"``, or any object numpy reads as a dtype
+    (``np.dtype(x).name``, e.g. the reference's ``jnp.bfloat16``)."""
+    f = dict(fields)
+    for name in ("compute_dtype", "param_dtype", "opt_dtype"):
+        if name in f and not isinstance(f[name], str):
+            f[name] = np.dtype(f[name]).name
+        if name in f:
+            f[name] = resolve_dtype(f[name])
+    return ModelConfig(**f)
+
+
+def lm_params_from_reference(tree: Any, device="cpu",
+                             param_dtype=None) -> Any:
+    """The port's LM parameter tree from the reference's, with leaves as
+    numpy arrays (``jax.tree.map(np.asarray, params)``; bf16 leaves
+    arrive as f32, e.g. ``np.asarray(x, np.float32)``).  The nested dicts
+    and lists carry over as they are; each leaf becomes a tensor of
+    ``param_dtype`` (a torch dtype or its name; default: f32) on
+    ``device``."""
+    dt = torch.float32 if param_dtype is None else resolve_dtype(param_dtype)
+    return tree_map(lambda x: torch.as_tensor(
+        np.array(x, np.float32)).to(device=device, dtype=dt), tree)

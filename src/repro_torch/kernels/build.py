@@ -35,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("qap_delta", "qap_objective", "qap_sa_step", "qap_ga_step",
-           "qap_objective_sparse", "qap_delta_sparse")
+           "qap_objective_sparse", "qap_delta_sparse", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -8,9 +8,13 @@ route the sparse ones to :func:`qap_objective_sparse` and
 :func:`qap_delta_sparse` (kernels K6/K7), so every solver gains the
 sparse path without change.
 
-Call sites in ``repro_torch.core`` go through these wrappers only.  Each
-kernel launch adds one to its count (:func:`launch_counts`), so a run can
-show that its work went through the kernels.
+:func:`selective_scan` (kernel K8) is the Mamba layer's scan
+(``models/ssm.py``).
+
+Call sites in ``repro_torch.core`` and ``repro_torch.models`` go
+through these wrappers only.  Each kernel launch adds one to its count
+(:func:`launch_counts`), so a run can show that its work went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from .qap_objective import qap_objective_cuda, qap_objective_plain
 from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
 from .qap_sparse import (qap_delta_sparse_cuda, qap_delta_sparse_plain,
                          qap_objective_sparse_cuda, qap_objective_sparse_plain)
+from .selective_scan import selective_scan_cuda, selective_scan_plain
 
 LANE = 128
 # The fused steps' order cap, kept equal to the reference's
@@ -150,3 +155,14 @@ def qap_ga_step(C, M, pop, fit, keys, n_valid, *, n_off: int, tournament: int,
     if _route(pop):
         return qap_ga_step_cuda(C, M, pop, fit, keys, n_valid, **kw)
     return qap_ga_step_plain(C, M, pop, fit, keys, n_valid, **kw)
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba selective scan: ``u``, ``dt (B, S, D)``, ``a (D, N)``,
+    ``b``, ``c (B, S, N)`` -> ``(y (B, S, D), h_last (B, D, N))`` f32
+    (K8 on the card; contiguous f32 inputs)."""
+    if _route(u):
+        return selective_scan_cuda(u, dt, a, b, c)
+    return selective_scan_plain(u, dt, a, b, c)

@@ -1,0 +1,307 @@
+"""Transformer substrate: norms, RoPE, GQA attention (all assigned
+variants), SwiGLU MLP, embeddings and the LM head.
+
+The reference's ``repro/models/layers.py`` in PyTorch: the same
+parameter trees (``(in, out)`` weight layouts), the same arithmetic in
+the same dtypes.  Attention comes in two forms, as there:
+
+* train/prefill: memory-efficient blockwise causal attention
+  (:func:`_mea`, online softmax over KV chunks, windowed masks for SWA
+  layers), written out in plain PyTorch ops as the reference left it to
+  XLA;
+* decode: single-token attention over a (possibly ring/windowed) KV
+  cache.
+
+The reference's sharding constraints have no counterpart on one card.
+The chunked LM loss (``lm_loss``) belongs to the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .param import PDecl
+
+NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_decls(d: int) -> Dict[str, PDecl]:
+    return {"scale": PDecl((d,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (NeoX half-rotation)
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exponent)
+    ang = positions[..., None].float() * freqs                  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attn_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    decls = {
+        "wq": PDecl((d, h * hd)),
+        "wk": PDecl((d, kv * hd)),
+        "wv": PDecl((d, kv * hd)),
+        "wo": PDecl((h * hd, d)),
+    }
+    if cfg.qkv_bias:
+        decls |= {"bq": PDecl((h * hd,), init="zeros"),
+                  "bk": PDecl((kv * hd,), init="zeros"),
+                  "bv": PDecl((kv * hd,), init="zeros")}
+    if cfg.qk_norm:
+        decls |= {"q_norm": PDecl((hd,), init="ones"),
+                  "k_norm": PDecl((hd,), init="ones")}
+    return decls
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), roped + normed."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = cfg.compute_dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+        k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         q_pos: torch.Tensor, kv_pos: torch.Tensor, cfg: ModelConfig,
+         window: Optional[int]) -> torch.Tensor:
+    """Memory-efficient attention: online softmax over KV chunks.
+
+    q (B, Sq, H, hd); k, v (B, Skv, KV, hd); positions (Sq,) / (Skv,) give
+    the causal/window masks.  Returns (B, Sq, H, hd) in the compute dtype.
+    """
+    b, sq0, h, hd = q.shape
+    skv0, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qc = min(cfg.attn_q_chunk, sq0)
+    kc = min(cfg.attn_kv_chunk, skv0)
+    # pad to chunk multiples; padded KV slots get position 2^30 so the causal
+    # mask excludes them, padded Q rows are sliced off at the end.
+    pq = (-sq0) % qc
+    pk = (-skv0) % kc
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        kv_pos = F.pad(kv_pos, (0, pk), value=2 ** 30)
+    sq, skv = sq0 + pq, skv0 + pk
+    nq, nk = sq // qc, skv // kc
+    scale = hd ** -0.5
+
+    qr = q.reshape(b, nq, qc, kvh, g, hd)
+    qpr = q_pos.reshape(nq, qc)
+    kr = k.reshape(b, nk, kc, kvh, hd)
+    vr = v.reshape(b, nk, kc, kvh, hd)
+    kpr = kv_pos.reshape(nk, kc)
+
+    outs = []
+    for i in range(nq):                       # the reference's map over q chunks
+        qb, qp = qr[:, i].float(), qpr[i]     # (b, qc, kvh, g, hd)
+        acc = torch.zeros((b, qc, kvh, g, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, qc, kvh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, qc, kvh, g), dtype=torch.float32, device=q.device)
+        for j in range(nk):                   # its scan over kv chunks
+            kb, vb, kp = kr[:, j].float(), vr[:, j].float(), kpr[j]
+            s_ = torch.einsum("bqkgd,bskd->bqkgs", qb, kb) * scale
+            mask = kp[None, :] <= qp[:, None]                     # causal
+            if window is not None:
+                mask &= kp[None, :] > qp[:, None] - window
+            s_ = torch.where(mask[None, :, None, None, :], s_, NEG_INF)
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            p = torch.exp(s_ - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bqkgs,bskd->bqkgd", p, vb)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.stack(outs, dim=1).reshape(b, sq, h, hd)[:, :sq0]
+    return out.to(cfg.compute_dtype)
+
+
+def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
+                    window: Optional[int], positions: torch.Tensor
+                    ) -> torch.Tensor:
+    """Causal self-attention over (B, S, D); returns (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    w = window if (window is not None and window < s) else None
+    pos1d = positions[0]                       # (S,) -- same across batch
+    o = _mea(q, k, v, pos1d, pos1d, cfg, w)
+    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o @ params["wo"].to(cfg.compute_dtype)
+
+
+def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               window: Optional[int], device=None) -> Dict[str, Any]:
+    size = min(window, seq_len) if window else seq_len
+    kvshape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kvshape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(kvshape, dtype=cfg.compute_dtype, device=device)}
+
+
+def attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
+                      window: Optional[int], positions: torch.Tensor,
+                      cache_len: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Like train, but also returns the KV cache (ring-rolled if windowed).
+
+    ``cache_len`` >= S adds decode headroom; windowed layers cap the cache at
+    the window size (ring buffer with slot = position % window).
+    """
+    b, s, _ = x.shape
+    cache_len = cache_len or s
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    w = window if (window is not None and window < s) else None
+    pos1d = positions[0]
+    o = _mea(q, k, v, pos1d, pos1d, cfg, w)
+    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    y = o @ params["wo"].to(cfg.compute_dtype)
+
+    if window and window < cache_len:
+        keep = min(window, s)
+        k_last, v_last = k[:, s - keep:], v[:, s - keep:]
+        if s > window:
+            # ring-order the last `window` entries: slot = pos % window
+            shift = s % window
+            cache = {"k": torch.roll(k_last, shift, dims=1),
+                     "v": torch.roll(v_last, shift, dims=1)}
+        else:
+            pad = window - s
+            cache = {"k": F.pad(k_last, (0, 0, 0, 0, 0, pad)),
+                     "v": F.pad(v_last, (0, 0, 0, 0, 0, pad))}
+    else:
+        pad = cache_len - s
+        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                 "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+    return y, cache
+
+
+def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor], pos: int,
+                     window: Optional[int]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode: x (B, 1, D), cache (B, Sc, KV, hd), pos an int.
+
+    The new key and value are written into the cache in place
+    (``index_copy_`` at slot ``pos % Sc``, where the reference's
+    ``dynamic_update_slice`` makes a new array); the returned cache is
+    the same tensors.
+    """
+    b = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // kvh
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+
+    k, v = cache["k"], cache["v"]
+    sc = k.shape[1]
+    slot = torch.tensor([pos % sc], device=x.device)
+    k.index_copy_(1, slot, k_new.to(k.dtype))
+    v.index_copy_(1, slot, v_new.to(v.dtype))
+
+    qv = q.reshape(b, kvh, g, hd)
+    s_ = torch.einsum("bkgd,bskd->bkgs", qv.float(), k.float()) * (hd ** -0.5)
+    valid = torch.arange(sc, device=x.device) < min(pos + 1, sc)  # ring: all valid once full
+    s_ = torch.where(valid[None, None, None, :], s_, NEG_INF)
+    p = torch.softmax(s_, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = o.reshape(b, 1, h * hd).to(cfg.compute_dtype)
+    return o @ params["wo"].to(cfg.compute_dtype), {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
+    d, f = cfg.d_model, cfg.d_ff
+    decls = {"wi": PDecl((d, f)), "wo": PDecl((f, d))}
+    if cfg.mlp_gated:
+        decls["wg"] = PDecl((d, f))
+    return decls
+
+
+def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    if cfg.mlp_gated:
+        h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    else:   # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ params["wi"].to(dt), approximate="tanh")
+    return h @ params["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + LM head
+# ---------------------------------------------------------------------------
+
+def embed_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
+    return {"embedding": PDecl((cfg.vocab_size, cfg.d_model), init="embed",
+                               fan_in=cfg.d_model)}
+
+
+def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+
+
+def head_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
+    return {"w": PDecl((cfg.d_model, cfg.vocab_size))}
+
+
+def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    return (h.to(dt) @ params["w"].to(dt)).float()

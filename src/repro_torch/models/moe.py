@@ -1,0 +1,138 @@
+"""Mixture-of-Experts layer: top-k routing with sort-based dispatch.
+
+The reference's ``repro/models/moe.py`` in PyTorch.  Tokens are grouped,
+argsorted by expert id within the group (stable, as ``jnp.argsort``),
+packed into capacity-bounded per-expert buffers, run through every
+expert with batched einsums, and combined back with the router weights
+(``moe_combine="gather"``, the token side, or ``"scatter"``, the expert
+side).  Top-k ties go to the lower expert id, as ``jax.lax.top_k``.
+
+Capacity: ``cap = tokens_per_group * top_k / E * moe_capacity_factor``
+(+1, at most the group size); overflow tokens are dropped.  A factor
+``<= 0`` is dropless (``cap`` = group size), which serving runs.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .config import ModelConfig
+from .param import PDecl
+
+
+def moe_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {
+        "router": PDecl((d, e)),
+        "wg": PDecl((e, d, f), fan_in=d),
+        "wi": PDecl((e, d, f), fan_in=d),
+        "wo": PDecl((e, f, d), fan_in=f),
+    }
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, ties to the
+    lower index (a stable descending sort)."""
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], ids[..., :k]
+
+
+def _dispatch_group(xg, idg, wg_, cfg: ModelConfig, cap: int):
+    """One group: xg (tg, d); idg/wg_ (tg, k) -> the expert buffer
+    (e, cap, d) and what the combine needs."""
+    tg, d = xg.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    dt = cfg.compute_dtype
+    dev = xg.device
+    flat_ids = idg.reshape(tg * k)
+    order = torch.argsort(flat_ids, stable=True)          # local sort only
+    sorted_ids = flat_ids[order]
+    tok = order // k                                       # source token
+    hist = torch.bincount(flat_ids, minlength=e)
+    start = torch.cumsum(hist, 0) - hist                   # first slot per expert
+    pos = torch.arange(tg * k, device=dev) - start[sorted_ids]   # rank within expert
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap - 1)
+
+    # Per-slot source token and router weight.  The reference scatters
+    # every entry, the dropped ones as (token tg, weight 0) into slot
+    # cap - 1, and the last write wins: a dropped entry follows the kept
+    # ones of its expert, so an expert that overflows ends with slot
+    # cap - 1 empty.  Here the kept entries are written (the dropped ones
+    # into a spare column) and that last write is applied explicitly, so
+    # the result does not depend on the order of colliding writes.
+    wflat = wg_.reshape(tg * k)[order]
+    col = torch.where(keep, pos, cap)
+    tok_buf = torch.full((e, cap + 1), tg, dtype=torch.long, device=dev)
+    tok_buf[sorted_ids, col] = tok
+    w_buf = torch.zeros((e, cap + 1), dtype=torch.float32, device=dev)
+    w_buf[sorted_ids, col] = wflat
+    tok_buf, w_buf = tok_buf[:, :cap], w_buf[:, :cap]
+    over = hist > cap
+    tok_buf[:, cap - 1] = torch.where(over, tg, tok_buf[:, cap - 1])
+    w_buf[:, cap - 1] = torch.where(over, 0.0, w_buf[:, cap - 1])
+    if cfg.moe_combine == "scatter":
+        xg_pad = torch.cat([xg.to(dt), torch.zeros((1, d), dtype=dt,
+                                                   device=dev)])
+        buf = xg_pad[tok_buf]                              # (e, cap, d)
+    else:
+        buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
+        buf.index_put_((sorted_ids, slot),
+                       torch.where(keep[:, None], xg[tok].to(dt), 0),
+                       accumulate=True)
+    return buf, (sorted_ids, slot, tok, keep, order, tok_buf, w_buf)
+
+
+def _combine_group(yg, wg_, meta, cfg: ModelConfig):
+    """One group's expert outputs yg (e, cap, d) back to (tg, d)."""
+    sorted_ids, slot, tok, keep, order, tok_buf, w_buf = meta
+    d = yg.shape[-1]
+    tg, k = wg_.shape
+    dt = cfg.compute_dtype
+    if cfg.moe_combine == "scatter":
+        # expert-side combine: weight and scatter-add into tg + 1 rows
+        contrib = yg * w_buf[..., None].to(dt)             # (e, cap, d)
+        out = torch.zeros((tg + 1, d), dtype=dt, device=yg.device)
+        out.index_add_(0, tok_buf.reshape(-1), contrib.reshape(-1, d))
+        return out[:tg]
+    gathered = yg[sorted_ids, slot]                        # (tg*k, d)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    wflat = wg_.reshape(tg * k)[order]
+    out = torch.zeros((tg, d), dtype=dt, device=yg.device)
+    out.index_add_(0, tok, gathered * wflat[:, None].to(dt))
+    return out
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
+              num_groups: int = 1) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    dt = cfg.compute_dtype
+    t = b * s
+    g = num_groups if t % num_groups == 0 else 1
+    tg = t // g
+
+    xf = x.reshape(g, tg, d)
+    logits = xf.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)                  # (g, tg, E)
+    w, ids = _top_k(probs, k)                              # (g, tg, k)
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+
+    if cfg.moe_capacity_factor <= 0:
+        cap = tg          # dropless: worst case, every token picks one expert
+    else:
+        cap = min(int(tg * k / e * cfg.moe_capacity_factor) + 1, tg)
+
+    groups = [_dispatch_group(xf[i], ids[i], w[i], cfg, cap) for i in range(g)]
+    bufs = torch.stack([buf for buf, _ in groups])         # (g, E, cap, D)
+
+    hg = torch.nn.functional.silu(
+        torch.einsum("gecd,edf->gecf", bufs, params["wg"].to(dt)))
+    hu = torch.einsum("gecd,edf->gecf", bufs, params["wi"].to(dt))
+    y = torch.einsum("gecf,efd->gecd", hg * hu, params["wo"].to(dt))
+
+    out = torch.stack([_combine_group(y[i], w[i], groups[i][1], cfg)
+                       for i in range(g)])
+    return out.reshape(b, s, d)

@@ -1,0 +1,292 @@
+"""Model assembly: layer-pattern plans, stacked layer groups, and the
+prefill / decode entry points.
+
+The reference's ``repro/models/transformer.py`` in PyTorch.  The
+per-layer pattern string (config.py) is compressed into
+``unit * repeats + rest`` exactly as there, and the parameter and cache
+trees keep that shape: when ``repeats > 1`` every leaf of a ``unit``
+position carries a leading layer axis, which the reference scans over and
+which a Python loop walks here.  Jamba's ``mMmMaMmM`` is one super-block.
+
+This slice serves the attention, MLP, MoE and Mamba blocks (pattern
+characters ``TEGLWmMaA``).  The RWKV block (``R``) and the audio/vision
+frontends raise ``NotImplementedError``: they are later items of
+``ROADMAP.md`` step 10.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import layers, moe, ssm
+from .config import ModelConfig
+from .param import PDecl, stack, tree_map
+
+ATTN_CHARS = "TEGLWaA"
+MOE_CHARS = "EWMA"
+WINDOW_CHARS = "LW"
+
+
+def _unsupported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, module step 10: RWKV and "
+        f"the frontends come after the Jamba serving slice)")
+
+
+def layer_plan(pattern: str, scan_layers: bool = True) -> Tuple[str, int, str]:
+    """pattern == unit * repeats + rest  (smallest unit with repeats >= 2)."""
+    n = len(pattern)
+    if scan_layers:
+        for p in range(1, min(12, n) + 1):
+            unit = pattern[:p]
+            reps = n // p
+            if reps >= 2 and (unit * (reps + 1))[:n] == pattern:
+                return unit, reps, pattern[p * reps:]
+    return pattern, 1, ""
+
+
+def _window_for(cfg: ModelConfig, ch: str) -> Optional[int]:
+    if ch == "L":
+        return cfg.local_window
+    if ch == "W":
+        return cfg.sliding_window
+    return None
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if "R" in cfg.layer_pattern:
+        raise _unsupported("the RWKV block ('R')")
+    if cfg.frontend is not None:
+        raise _unsupported(f"the {cfg.frontend} frontend")
+
+
+# ---------------------------------------------------------------------------
+# One block (mixer + ffn with pre-norms)
+# ---------------------------------------------------------------------------
+
+def block_decls(cfg: ModelConfig, ch: str) -> Dict[str, Any]:
+    if ch == "R":
+        raise _unsupported("the RWKV block ('R')")
+    d = cfg.d_model
+    decls: Dict[str, Any] = {"norm1": layers.rmsnorm_decls(d),
+                             "norm2": layers.rmsnorm_decls(d)}
+    if ch in "mM":
+        decls["mixer"] = ssm.mamba_decls(cfg)
+    else:
+        decls["mixer"] = layers.attn_decls(cfg)
+    decls["ffn"] = moe.moe_decls(cfg) if ch in MOE_CHARS else layers.mlp_decls(cfg)
+    return decls
+
+
+def _ffn(params, x, cfg: ModelConfig, ch: str, num_groups: int):
+    h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if ch in MOE_CHARS:
+        y = moe.moe_apply(params["ffn"], h, cfg, num_groups)
+    else:
+        y = layers.mlp(params["ffn"], h, cfg)
+    return x + y
+
+
+def block_train(params, x: torch.Tensor, cfg: ModelConfig, ch: str,
+                positions: torch.Tensor, num_groups: int) -> torch.Tensor:
+    if ch == "R":
+        raise _unsupported("the RWKV block ('R')")
+    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if ch in "mM":
+        y = ssm.mamba_train(params["mixer"], h, cfg)
+    else:
+        y = layers.attention_train(params["mixer"], h, cfg,
+                                   _window_for(cfg, ch), positions)
+    return _ffn(params, x + y, cfg, ch, num_groups)
+
+
+def block_make_cache(cfg: ModelConfig, ch: str, batch: int, seq_len: int,
+                     device=None):
+    if ch == "R":
+        raise _unsupported("the RWKV block ('R')")
+    if ch in "mM":
+        return ssm.mamba_make_cache(cfg, batch, device)
+    return layers.make_cache(cfg, batch, seq_len, _window_for(cfg, ch), device)
+
+
+def block_prefill(params, x, cfg, ch, positions, num_groups, cache_len=None):
+    """Returns (x, cache)."""
+    if ch == "R":
+        raise _unsupported("the RWKV block ('R')")
+    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if ch in "mM":
+        # Mamba prefill: one pass returns both outputs and the decode state.
+        y, cache = ssm.mamba_train(params["mixer"], h, cfg, return_state=True)
+    else:
+        y, cache = layers.attention_prefill(params["mixer"], h, cfg,
+                                            _window_for(cfg, ch), positions,
+                                            cache_len)
+    return _ffn(params, x + y, cfg, ch, num_groups), cache
+
+
+def block_decode(params, x, cfg, ch, cache, pos, num_groups):
+    """x (B, 1, D); returns (x, new_cache)."""
+    if ch == "R":
+        raise _unsupported("the RWKV block ('R')")
+    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if ch in "mM":
+        y, cache = ssm.mamba_decode(params["mixer"], h, cfg, cache)
+    else:
+        y, cache = layers.attention_decode(params["mixer"], h, cfg, cache, pos,
+                                           _window_for(cfg, ch))
+    return _ffn(params, x + y, cfg, ch, num_groups), cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-model declarations
+# ---------------------------------------------------------------------------
+
+def model_decls(cfg: ModelConfig) -> Dict[str, Any]:
+    _check_supported(cfg)
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+    decls: Dict[str, Any] = {"embed": layers.embed_decls(cfg)}
+    unit_decls = [block_decls(cfg, ch) for ch in unit]
+    decls["unit"] = [stack(d, reps) for d in unit_decls] if reps > 1 else unit_decls
+    decls["rest"] = [block_decls(cfg, ch) for ch in rest]
+    decls["final_norm"] = layers.rmsnorm_decls(cfg.d_model)
+    decls["head"] = layers.head_decls(cfg)
+    pdt = cfg.param_dtype
+    if pdt != torch.float32:
+        # serving mode: store weights directly in the compute dtype
+        decls = tree_map(lambda d: PDecl(d.shape, d.init, pdt, d.fan_in),
+                         decls)
+    return decls
+
+
+def _embed_inputs(params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    if "embeds" in batch:
+        raise _unsupported("frontend input ('embeds')")
+    return layers.embed(params["embed"], batch["tokens"], cfg)
+
+
+def _maybe_cast_params(params, cfg: ModelConfig):
+    if not cfg.cast_params_once:
+        return params
+    dt = cfg.compute_dtype
+    return tree_map(lambda p: p.to(dt) if (p.dtype == torch.float32
+                                           and p.dim() >= 2) else p, params)
+
+
+def _layer(tree, r: int):
+    """Layer ``r`` of a stacked (leading layer axis) tree."""
+    return tree_map(lambda t: t[r], tree)
+
+
+def _stack_layers(trees):
+    """A list of per-layer trees as one tree with a leading layer axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   num_groups: int = 1) -> torch.Tensor:
+    """Embed -> all blocks -> final norm.  Returns hidden states (B, S, D)."""
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+    params = _maybe_cast_params(params, cfg)
+    x = _embed_inputs(params, batch, cfg)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for r in range(reps):
+        pslices = [_layer(p, r) for p in params["unit"]] if reps > 1 \
+            else params["unit"]
+        for ch, p in zip(unit, pslices):
+            x = block_train(p, x, cfg, ch, positions, num_groups)
+    for ch, p in zip(rest, params["rest"]):
+        x = block_train(p, x, cfg, ch, positions, num_groups)
+    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            num_groups: int = 1, cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Any]:
+    """Returns (last-token logits (B, V) f32, cache tree)."""
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+    x = _embed_inputs(params, batch, cfg)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+
+    per_rep = []
+    for r in range(reps):
+        pslices = [_layer(p, r) for p in params["unit"]] if reps > 1 \
+            else params["unit"]
+        rep_caches = []
+        for ch, p in zip(unit, pslices):
+            x, cache = block_prefill(p, x, cfg, ch, positions, num_groups,
+                                     cache_len)
+            rep_caches.append(cache)
+        per_rep.append(rep_caches)
+    caches: Dict[str, Any] = {"unit": per_rep[0], "rest": []}
+    if reps > 1:
+        caches["unit"] = [_stack_layers([rc[i] for rc in per_rep])
+                          for i in range(len(unit))]
+    for ch, p in zip(rest, params["rest"]):
+        x, cache = block_prefill(p, x, cfg, ch, positions, num_groups,
+                                 cache_len)
+        caches["rest"].append(cache)
+    h = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    logits = layers.logits_fn(params["head"], h, cfg)[:, 0]
+    return logits, caches
+
+
+def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+    """One decode step: batch has 'tokens' (B, 1); ``pos`` the position
+    of that token.  Attention caches are updated in place
+    (``layers.attention_decode``)."""
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+    x = _embed_inputs(params, batch, cfg)
+
+    per_rep = []
+    for r in range(reps):
+        pslices = [_layer(p, r) for p in params["unit"]] if reps > 1 \
+            else params["unit"]
+        cslices = [_layer(c, r) for c in cache["unit"]] if reps > 1 \
+            else cache["unit"]
+        rep_caches = []
+        for ch, p, c in zip(unit, pslices, cslices):
+            x, nc = block_decode(p, x, cfg, ch, c, pos, 1)
+            rep_caches.append(nc)
+        per_rep.append(rep_caches)
+    new_caches: Dict[str, Any] = {"unit": per_rep[0], "rest": []}
+    if reps > 1:
+        new_caches["unit"] = [_stack_layers([rc[i] for rc in per_rep])
+                              for i in range(len(unit))]
+    for ch, p, c in zip(rest, params["rest"], cache["rest"]):
+        x, nc = block_decode(p, x, cfg, ch, c, pos, 1)
+        new_caches["rest"].append(nc)
+    h = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = layers.logits_fn(params["head"], h, cfg)[:, 0]
+    return logits, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Cache constructor
+# ---------------------------------------------------------------------------
+
+def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    _check_supported(cfg)
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+
+    def one(ch):
+        return block_make_cache(cfg, ch, batch, seq_len, device)
+    unit_caches = [one(ch) for ch in unit]
+    if reps > 1:
+        unit_caches = [tree_map(
+            lambda a: a.expand((reps,) + tuple(a.shape)).clone(), c)
+            for c in unit_caches]
+    return {"unit": unit_caches, "rest": [one(ch) for ch in rest]}

@@ -1,5 +1,7 @@
-"""Service layer of the port: the mapping engine and the cluster model."""
+"""Service layer of the port: the mapping engine, the cluster model and
+the LM serving engine."""
 from repro_torch.serve.cluster import Allocation, ClusterState
+from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.mapper import (DeadlinePolicy, EngineStats,
                                       MapCancelled, MapFuture, MappingEngine,
                                       MapRequest, MapResponse, QueueFull)
@@ -7,5 +9,5 @@ from repro_torch.serve.mapper import (DeadlinePolicy, EngineStats,
 __all__ = [
     "MappingEngine", "MapRequest", "MapResponse", "MapFuture",
     "DeadlinePolicy", "EngineStats", "QueueFull", "MapCancelled",
-    "ClusterState", "Allocation",
+    "ClusterState", "Allocation", "Engine", "ServeConfig",
 ]

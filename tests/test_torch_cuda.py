@@ -19,7 +19,10 @@ from repro_torch.kernels.qap_objective import qap_objective_plain
 from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
 from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
-from repro_torch.serve import MappingEngine, MapRequest
+from repro_torch import configs
+from repro_torch.kernels.selective_scan import selective_scan_plain
+from repro_torch.models.api import Model
+from repro_torch.serve import Engine, MappingEngine, MapRequest, ServeConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -274,3 +277,59 @@ def test_multilevel_engine_on_card_matches_engine_on_cpu(cuda):
         np.testing.assert_array_equal(g.perm, c.perm)
         assert g.objective == c.objective and g.bucket == 64
         assert float(r.C.sum()) <= g.objective <= g.baseline
+
+
+@pytest.mark.parametrize("shape", [(2, 49, 200, 4), (2, 130, 1024, 16)])
+def test_selective_scan_kernel_matches_plain(cuda, shape):
+    """K8 at a ragged shape (S and D not multiples of the kernel's 64-step
+    chunk and 128-channel block) and at Jamba's d_state of 16: within
+    2e-4 * max|y| of the plain version (the JAX kernel test's bar), the
+    final state too; both run the same f32 operations in one order."""
+    bsz, s, d, n = shape
+    rng = np.random.default_rng(sum(shape))
+    u = torch.as_tensor(rng.standard_normal((bsz, s, d)), dtype=torch.float32)
+    dt = torch.as_tensor(rng.uniform(0.001, 0.1, (bsz, s, d)),
+                         dtype=torch.float32)
+    a = torch.as_tensor(-rng.uniform(0.1, 1.0, (d, n)), dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((bsz, s, n)), dtype=torch.float32)
+    c = torch.as_tensor(rng.standard_normal((bsz, s, n)), dtype=torch.float32)
+    args = [x.to(cuda) for x in (u, dt, a, b, c)]
+    before = ops.launch_counts()["selective_scan"]
+    y, h = ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    want_y, want_h = selective_scan_plain(*args)
+    for got, want in ((y, want_y), (h, want_h)):
+        assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+    with pytest.raises(ValueError, match="float32"):
+        ops.selective_scan(args[0].double(), *args[1:])
+
+
+def test_lm_engine_on_card_matches_engine_on_cpu(cuda):
+    """Jamba's SMOKE width in f32, weights drawn once on the CPU: the
+    card's greedy tokens equal the CPU's and its prefill logits agree to
+    1e-4 * max|logit| (sums in other orders, no TF32); the card's prefill
+    launches K8 once per Mamba layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.smoke_config("jamba_v0_1_52b").with_overrides(
+        compute_dtype=torch.float32)
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (2, 49)).astype(np.int32)
+    out, logits = {}, {}
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        ops.reset_launch_counts()
+        logits[device], _ = model.prefill(
+            params, {"tokens": torch.as_tensor(prompts, device=device)})
+        launches = ops.launch_counts()["selective_scan"]
+        assert launches == (cfg.layer_pattern.count("m")
+                            + cfg.layer_pattern.count("M")
+                            if device == "cuda" else 0)
+        out[device] = Engine(model, params,
+                             ServeConfig(max_new_tokens=8)).generate(prompts)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    want = logits["cpu"]
+    err = float((logits["cuda"].cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max())

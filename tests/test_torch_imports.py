@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.core.mapping, repro_torch.core.composite, "
             "repro_torch.core.exact, repro_torch.core.multilevel, "
-            "repro_torch.core.sparse, repro_torch.kernels.ops; "
+            "repro_torch.core.sparse, repro_torch.kernels.ops, "
+            "repro_torch.models.transformer, repro_torch.serve.engine, "
+            "repro_torch.configs, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

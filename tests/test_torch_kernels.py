@@ -22,6 +22,8 @@ from repro_torch.kernels.qap_objective import (qap_objective_cuda,
 from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
 from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
+from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                selective_scan_plain)
 
 from _fixtures import instance
 
@@ -218,9 +220,16 @@ def test_ops_take_the_plain_path_on_cpu_tensors():
     S = sparse.from_dense(Cs)
     assert torch.equal(ops.qap_delta(S, _t(Ms), _t(ps), _t(pairs)),
                        qap_delta_sparse_plain(S, _t(Ms), _t(ps), _t(pairs)))
+    rng = np.random.default_rng(9)
+    scan = [_t(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((2, 5, 8), (2, 5, 8), (8, 4), (2, 5, 4), (2, 5, 4))]
+    got = ops.selective_scan(*scan)
+    want = selective_scan_plain(*scan)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ops.launch_counts() == {
         "qap_delta": 0, "qap_objective": 0, "qap_sa_step": 0,
-        "qap_ga_step": 0, "qap_objective_sparse": 0, "qap_delta_sparse": 0}
+        "qap_ga_step": 0, "qap_objective_sparse": 0, "qap_delta_sparse": 0,
+        "selective_scan": 0}
 
 
 def test_fused_step_fits_keeps_the_reference_cap():
@@ -243,7 +252,19 @@ def _malformed_calls():
                                        _islands(16, 12, False, seed=7))
     ga = (iC, iM, pops, fits, ikeys.long(), invs)
     ga_kw = dict(n_off=3, tournament=2, p_crossover=1.0, p_mutation=0.2)
+    rng = np.random.default_rng(10)
+    scan = [_t(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((2, 5, 8), (2, 5, 8), (8, 4), (2, 5, 4), (2, 5, 4))]
     return {
+        "scan-u-f64": (lambda: selective_scan_cuda(scan[0].double(), *scan[1:]),
+                       "u must be"),
+        "scan-c-strided": (lambda: selective_scan_cuda(
+            *scan[:4], scan[4].transpose(0, 1).contiguous().transpose(0, 1)),
+            "c must be"),
+        "scan-b-shape": (lambda: selective_scan_cuda(*scan[:3], scan[3][:, :4],
+                                                     scan[4]), "b must be"),
+        "scan-u-rank": (lambda: selective_scan_cuda(scan[0][0], *scan[1:]),
+                        "u must be"),
         "delta-p-int64": (lambda: qap_delta_cuda(Cs, Ms, ps.long(), pairs),
                           "int32"),
         "delta-b0-divides": (lambda: qap_delta_cuda(
