@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""Time the dense mapping kernels of one checkout's port on one NVIDIA GPU,
+and probe which kernels equal their plain versions bit for bit on inputs
+that are not integer-valued.
+
+Run from the root of a checkout:
+
+    python3 chip_kernels.py [--src DIR] [--probe]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed
+(default: this checkout's), so that two commits can be compared in one
+call on one card: unpack the other commit into a directory that
+``.gitignore`` lists and run old, new, new, old.  The kernels are built
+from that directory's sources.  For K1 ``qap_delta`` (the event round,
+16 chains x 25 candidates per instance, and the polish round, 256
+candidates per instance) and K4 ``qap_sa_step`` (16 chains per instance,
+25 candidates, at most 10 acceptances), each at the 128 bucket's wave of
+32 instances and the 64 and 32 buckets' waves of 3, and for K2
+``qap_objective`` (64 islands x 16 children) and K5 ``qap_ga_step`` (64
+islands of 32), it prints milliseconds per call by
+CUDA events over a loop of wrapper calls, in a CUDA graph of the same
+calls (device time alone), and their difference: what the host adds per
+call when it, and not the card, sets the pace.  ``--probe`` also runs
+each kernel of the port (K1, K2, K4-K8) and its plain version on random
+real-valued inputs and prints whether they agree bit for bit.
+
+The shapes and helpers are those of ``chip_smoke.py``.  Prints the card's
+name and power limit; exits non-zero without a CUDA device.
+"""
+import argparse
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def padded_wave(order, bucket, count, device):
+    """``count`` masked ``make_taie`` instances of ``order`` padded into the
+    ``bucket`` (the engine's wave at that bucket)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import instances, qap
+    Cs = np.zeros((count, bucket, bucket), np.float32)
+    Ms = np.zeros((count, bucket, bucket), np.float32)
+    for v in range(count):
+        inst = instances.make_taie(order, version=v + 1)
+        Cs[v, :order, :order] = inst.C
+        Ms[v, :order, :order] = inst.M
+    Cs = torch.as_tensor(Cs, device=device)
+    return (qap.mask_flows(Cs, torch.full((count,), order, device=device)),
+            torch.as_tensor(Ms, device=device))
+
+
+def timings():
+    """(label, events ms, graph ms) of each dense kernel at the smoke's
+    shapes: K1 and K4 at the 128 bucket's 32-request wave and the 64 and
+    32 buckets' 3-request waves, K2 and K5 at the 128 bucket."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import annealing, keys, qap
+    from repro_torch.kernels.qap_delta import qap_delta_cuda
+    from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda
+    from repro_torch.kernels.qap_objective import (qap_objective_cuda,
+                                                   qap_objective_plain)
+    from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda
+    dev = torch.device("cuda")
+    rpt = cs.NUM_PROCESSES * cs.SA_KW["solvers"]
+    k = cs.SA_KW["max_neighbors"]
+    out = []
+    for order, bucket, count in ((cs.ORDER, cs.BUCKET, cs.WAVE), (45, 64, 3),
+                                 (27, 32, 3)):
+        Cs, Ms = padded_wave(order, bucket, count, dev)
+        CT = Cs.transpose(1, 2).contiguous()
+        MT = Ms.transpose(1, 2).contiguous()
+        for label, chains, kk in (("event", count * rpt, k),
+                                  ("polish", count, cs.POLISH_K)):
+            ck = keys.split(keys.fold_in(keys.prng_key(2024, dev), kk), chains)
+            p = qap.masked_random_permutation(ck, bucket, order)
+            pairs = qap.random_swap_pairs(
+                keys.fold_in(ck, 1), kk, bucket,
+                torch.full((chains,), order, device=dev))
+            out.append((f"K1 {label} N={bucket} {chains}x{kk}",
+                        lambda C=Cs, M=Ms, CT=CT, MT=MT, p=p, pairs=pairs:
+                        qap_delta_cuda(C, M, p, pairs, CT, MT), 200))
+        chains = count * rpt
+        ck = keys.split(keys.prng_key(7, dev), chains)
+        p = qap.masked_random_permutation(ck, bucket, order)
+        f = qap.objective(Cs, Ms, p.view(count, rpt, bucket)).reshape(-1)
+        temp = annealing.initial_temperature(f, 0.3, 0.3)
+        nv = torch.full((chains,), order, dtype=torch.int32, device=dev)
+        args = (Cs, Ms, p, f, p.clone(), f.clone(), temp, keys.fold_in(ck, 3),
+                nv)
+        out.append((f"K4 N={bucket} {chains} chains",
+                    lambda args=args, CT=CT, MT=MT: qap_sa_step_cuda(
+                        *args, max_neighbors=k, max_success=10, CT=CT, MT=MT),
+                    100))
+    Cg, Mg, kids = cs.island_populations(dev, cs.N_OFF)
+    out.append(("K2 64x16", lambda: qap_objective_cuda(Cg, Mg, kids), 200))
+    Cg, Mg, pops = cs.island_populations(dev, cs.GA_KW["pop_size"])
+    fits = qap_objective_plain(Cg, Mg, pops)
+    gkeys = keys.split(keys.prng_key(5, dev), cs.ISLANDS)
+    gnv = torch.full((cs.ISLANDS,), cs.ORDER, dtype=torch.int32, device=dev)
+    out.append(("K5 64x32", lambda: qap_ga_step_cuda(
+        Cg, Mg, pops, fits, gkeys, gnv, n_off=cs.N_OFF, tournament=2,
+        p_crossover=1.0, p_mutation=0.001, crossover="ox"), 100))
+    return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
+            for label, fn, reps in out]
+
+
+def float_instances(n, count, seed, device):
+    """``count`` real-valued instances of order ``n`` (uniform in [0, 1),
+    so no f32 sum of them is exact in every order)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.rand(count, n, n, generator=g, device=device),
+            torch.rand(count, n, n, generator=g, device=device))
+
+
+def probe():
+    """Each kernel against its plain version on real-valued inputs:
+    (label, bitwise equal, max abs difference, largest magnitude)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import keys, qap, sparse
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qap_delta import qap_delta_plain
+    from repro_torch.kernels.qap_ga_step import qap_ga_step_plain
+    from repro_torch.kernels.qap_objective import qap_objective_plain
+    from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
+    from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+                                                qap_objective_sparse_plain)
+    from repro_torch.kernels.selective_scan import selective_scan_plain
+    dev = torch.device("cuda")
+    rows = []
+
+    def record(label, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        rows.append((label, all(torch.equal(g, w) for g, w in zip(got, want)),
+                     max(float((g.float() - w.float()).abs().max())
+                         for g, w in zip(got, want)),
+                     max(float(w.float().abs().max()) for w in want)))
+
+    for n in (cs.BUCKET, cs.L2_ORDER):
+        C, M = float_instances(n, 4, n, dev)
+        chains = 64
+        ck = keys.split(keys.prng_key(n, dev), chains)
+        p = qap.random_permutation(ck, n)
+        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), 25, n)
+        record(f"K1 N={n}", ops.qap_delta(C, M, p, pairs),
+               qap_delta_plain(C, M, p, pairs))
+        f = qap.objective(C, M, p.view(4, chains // 4, n)).reshape(-1)
+        temp = f * 0.01
+        nv = torch.full((chains,), n, dtype=torch.int32, device=dev)
+        args = (C, M, p, f, p.clone(), f.clone(), temp, keys.fold_in(ck, 3),
+                nv)
+        kw = dict(max_neighbors=25, max_success=10)
+        record(f"K4 N={n}", ops.qap_sa_step(*args, **kw),
+               qap_sa_step_plain(*args, **kw))
+    C, M = float_instances(cs.BUCKET, 4, 3, dev)
+    pk = keys.split(keys.prng_key(3, dev), 4 * 32)
+    pops = qap.random_permutation(pk, cs.BUCKET).reshape(4, 32, cs.BUCKET)
+    record("K2 N=128", ops.qap_objective(C, M, pops),
+           qap_objective_plain(C, M, pops))
+    fits = qap_objective_plain(C, M, pops)
+    gk = keys.split(keys.prng_key(4, dev), 4)
+    gnv = torch.full((4,), cs.BUCKET, dtype=torch.int32, device=dev)
+    kw = dict(n_off=16, tournament=2, p_crossover=1.0, p_mutation=0.001,
+              crossover="ox")
+    record("K5 N=128", ops.qap_ga_step(C, M, pops, fits, gk, gnv, **kw),
+           qap_ga_step_plain(C, M, pops, fits, gk, gnv, **kw))
+    # sparse flows: the 4096 torus's finest (D = 6) and coarsest (n = 128,
+    # D = 46) levels with real-valued weights
+    g = torch.Generator().manual_seed(6)
+    for level in (cs.torus_levels()[0], cs.torus_levels()[-1]):
+        Cl, Ml = level[0], level[1]
+        n = Cl.shape[0]
+        S = sparse.from_dense(Cl * torch.rand(Cl.shape, generator=g).numpy(),
+                              device=dev)
+        Md = torch.as_tensor(Ml, device=dev) * torch.rand(
+            Ml.shape, generator=g).to(dev)
+        ck = keys.split(keys.prng_key(n, dev), 4)
+        p = qap.random_permutation(ck, n)
+        perms = p.reshape(1, 4, n)
+        tag = f"N={n} D={S.max_degree}"
+        record(f"K6 {tag}", ops.qap_objective(S, Md, perms),
+               qap_objective_sparse_plain(S, Md, perms))
+        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), 16, n)
+        record(f"K7 {tag}", ops.qap_delta(S, Md, p, pairs, None,
+                                          Md.transpose(0, 1).contiguous()),
+               qap_delta_sparse_plain(S, Md, p, pairs))
+    for shape in ((2, 130, 1024, 16), (2, 49, 200, 4)):
+        scan = cs.scan_inputs(shape, dev, sum(shape))
+        record("K8 " + "x".join(map(str, shape)), ops.selective_scan(*scan),
+               selective_scan_plain(*scan))
+    return rows
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--src", default=os.path.join(ROOT, "src"))
+    parser.add_argument("--probe", action="store_true")
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    src = os.path.abspath(args.src)
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_kernels: no repro_torch under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    sys.path.insert(1, ROOT)
+    from repro_torch.kernels import build
+    build.build_all()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}; package {src}", flush=True)
+    for label, ev, gr in timings():
+        print(f"{label:26s} events {ev:.4f} ms, graph {gr:.4f} ms, events - "
+              f"graph {ev - gr:.4f} ms", flush=True)
+    if args.probe:
+        for label, same, err, scale in probe():
+            print(f"probe {label:18s} bitwise {same}, max abs diff {err:.3e} "
+                  f"(max |plain| {scale:.3e})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,9 @@ Phases, each of which must pass:
    ``qap_objective``, K5 ``qap_ga_step``, K6 ``qap_objective_sparse``,
    K7 ``qap_delta_sparse``) against its plain PyTorch version on the
    card, at the shapes the engine gives it (bitwise: the instances are
-   integer-valued), and time both; then K8 ``selective_scan`` at the
+   integer-valued), and time both, by CUDA events and (the kernel) in a
+   CUDA graph; K1 and K4 on both branches, the shared-memory one at the
+   128 bucket and the L2 one at order 256; then K8 ``selective_scan`` at the
    Jamba prefill's full-width shape (4 x 512 x 8192, d_state 16) and a
    ragged one (2 x 49 x 200, d_state 4), ``y`` and the final state
    within 2e-4 of their largest magnitude;
@@ -25,7 +27,9 @@ Phases, each of which must pass:
    ``multilevel``: requests of orders 512, 1024 and 4096 (known-optimum
    tori) through the large buckets (K1 for the coarse solve, K6 and K7
    on the refinement levels and in the final polish); the launch counts
-   are set to 0 just before each wave or request and read just after;
+   are set to 0 just before each wave or request and read just after,
+   and every K1 and K4 launch there must have taken the shared-memory
+   branch;
    then a seventh route, ``lm-serve``: Jamba-v0.1-52B at full width, 8 of
    its 32 layers (one ``mMmMaMmM`` super-block), bf16 weights drawn on the
    card from a seeded generator, dropless MoE, served through the port's
@@ -61,6 +65,7 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12           # f32 outside the tensor cores
 
 ORDER, BUCKET, WAVE = 125, 128, 32
+L2_ORDER = 256       # K1 and K4 past their shared-memory threshold (169)
 SA_KW = dict(max_neighbors=25, iters_per_exchange=30, num_exchanges=20,
              solvers=8)
 GA_KW = dict(generations=80, pop_size=32)     # the engine's default GA
@@ -152,46 +157,86 @@ def wave_instances(device):
     return torch.as_tensor(Cs, device=device), torch.as_tensor(Ms, device=device)
 
 
+def integer_instances(n, count, seed, device):
+    """``count`` symmetric integer-valued instances of order ``n`` (C in
+    [0, 18], M in [2, 18]) from a seeded numpy generator."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    C = rng.integers(0, 10, (count, n, n)).astype(np.float32)
+    M = rng.integers(1, 10, (count, n, n)).astype(np.float32)
+    C, M = C + C.transpose(0, 2, 1), M + M.transpose(0, 2, 1)
+    return torch.as_tensor(C, device=device), torch.as_tensor(M, device=device)
+
+
+def branch_launched(kernel, branch, fn):
+    """Run ``fn`` and require that it launched ``kernel`` once, on
+    ``branch`` ("smem" or "l2")."""
+    from repro_torch.kernels import ops
+    before = ops.branch_counts()
+    out = fn()
+    after = ops.branch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    require(moved == {f"{kernel}/{branch}": 1},
+            f"{kernel}: expected one launch on its {branch} branch, got "
+            f"{moved}")
+    return out
+
+
 def check_qap_delta(device):
-    """K1 against its plain version at the event-loop shape (512 chains x
-    25 candidates) and the polish shape (32 x 256), shared and per
-    instance."""
+    """K1 against its plain version, each launch on the branch its order
+    selects: the shared-memory branch at the 128 bucket's event-loop shape
+    (512 chains x 25 candidates) and polish shape (32 x 256), shared and
+    per instance; the L2 branch at order 256 (8 integer instances, 128
+    chains x 25), one order class above the threshold."""
     import torch
     from repro_torch.core import keys, qap
     from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
     Cs, Ms = wave_instances(device)
     nv = torch.full((WAVE,), ORDER, dtype=torch.int64, device=device)
     Cs = qap.mask_flows(Cs, nv)
-    CT, MT = Cs.transpose(1, 2).contiguous(), Ms.transpose(1, 2).contiguous()
+    C2, M2 = integer_instances(L2_ORDER, 8, 256, device)
     base = keys.prng_key(2024, device)
     out = {}
-    for label, chains, k in (("event", WAVE * NUM_PROCESSES * SA_KW["solvers"],
-                              SA_KW["max_neighbors"]), ("polish", WAVE, POLISH_K)):
+    for label, (Cb, Mb, order, n), chains, k in (
+            ("event", (Cs, Ms, ORDER, BUCKET),
+             WAVE * NUM_PROCESSES * SA_KW["solvers"], SA_KW["max_neighbors"]),
+            ("polish", (Cs, Ms, ORDER, BUCKET), WAVE, POLISH_K),
+            ("l2", (C2, M2, L2_ORDER, L2_ORDER), 8 * 16,
+             SA_KW["max_neighbors"])):
+        branch = "l2" if label == "l2" else "smem"
+        CT = Cb.transpose(1, 2).contiguous()
+        MT = Mb.transpose(1, 2).contiguous()
         ck = keys.split(keys.fold_in(base, k), chains)
-        p = qap.masked_random_permutation(ck, BUCKET, ORDER)
-        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, BUCKET,
-                                      torch.full((chains,), ORDER, device=device))
+        p = qap.masked_random_permutation(ck, n, order)
+        nv = torch.full((chains,), order, device=device)
+        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n, nv)
         for mats, (C, M, Ct, Mt) in (
-                ("batched", (Cs, Ms, CT, MT)),
-                ("shared", (Cs[0].contiguous(), Ms[0].contiguous(),
+                ("batched", (Cb, Mb, CT, MT)),
+                ("shared", (Cb[0].contiguous(), Mb[0].contiguous(),
                             CT[0].contiguous(), MT[0].contiguous()))):
-            got = qap_delta_cuda(C, M, p, pairs, Ct, Mt)
+            launch = lambda: qap_delta_cuda(C, M, p, pairs, Ct, Mt)
+            got = branch_launched("qap_delta", branch, launch)
             want = qap_delta_plain(C, M, p, pairs)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            require(torch.equal(got, want),
-                    f"qap_delta {label}/{mats}: kernel != plain, max err {err}")
-            ms = cuda_ms(lambda: qap_delta_cuda(C, M, p, pairs, Ct, Mt), 200)
+            require(torch.equal(got, want), f"qap_delta {label}/{mats}: "
+                    f"kernel != plain, max err {err}")
+            ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
             plain = cuda_ms(lambda: qap_delta_plain(C, M, p, pairs), 20)
             b0 = C.shape[0] if C.dim() == 3 else 1
-            nbytes = 4 * (4 * b0 * BUCKET * BUCKET + chains * BUCKET
-                          + chains * k * 3)
-            bound, by = bound_ms(nbytes, 8 * BUCKET * chains * k)
-            out[(label, mats)] = dict(err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bound, bound_by=by)
-            print(f"qap_delta {label:6s} {mats:7s} B={chains} K={k}: "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}), max err {err}", flush=True)
+            io = chains * n + chains * k * 3          # p; pairs in, deltas out
+            bound, by = bound_ms(4 * (2 * b0 * n * n + io),
+                                 8 * n * chains * k)
+            bound4, _ = bound_ms(4 * (4 * b0 * n * n + io), 8 * n * chains * k)
+            out[(label, mats)] = dict(err=err, ms=ms, graph_ms=dev_ms,
+                                      plain_ms=plain, bound_ms=bound,
+                                      bound_by=by)
+            print(f"qap_delta {label:6s} {mats:7s} N={n} B={chains} K={k} "
+                  f"({branch} branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms in "
+                  f"a graph), plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}; {bound4:.4f} counting C^T and M^T as well), max "
+                  f"err {err}", flush=True)
     return out
 
 
@@ -218,8 +263,10 @@ def scan_evaluated(C, M, p, f, temp, keys_w, nv, k, max_success):
 
 
 def check_qap_sa_step(device):
-    """K4 against its plain version: 512 chains, order 125 in the 128
-    bucket, 25 candidates, at most 10 acceptances, starting at T0."""
+    """K4 against its plain version, starting at T0, 25 candidates, at
+    most 10 acceptances: the shared-memory branch at the 128 bucket (512
+    chains, order 125, one warp per chain), the L2 branch at order 256 (8
+    integer instances x 16 chains).  Returns the 128 bucket's numbers."""
     import torch
     from repro_torch.core import annealing, keys, qap
     from repro_torch.kernels.qap_sa_step import (qap_sa_step_cuda,
@@ -227,39 +274,50 @@ def check_qap_sa_step(device):
     Cs, Ms = wave_instances(device)
     nv_i = torch.full((WAVE,), ORDER, dtype=torch.int64, device=device)
     Cs = qap.mask_flows(Cs, nv_i)
-    CT, MT = Cs.transpose(1, 2).contiguous(), Ms.transpose(1, 2).contiguous()
+    C2, M2 = integer_instances(L2_ORDER, 8, 257, device)
     rpt = NUM_PROCESSES * SA_KW["solvers"]
-    chains = WAVE * rpt
-    ck = keys.split(keys.prng_key(7, device), chains)
-    p = qap.masked_random_permutation(ck, BUCKET, ORDER)
-    f = qap.objective(Cs, Ms, p.view(WAVE, rpt, BUCKET)).reshape(-1)
-    temp = annealing.initial_temperature(f, 0.3, 0.3)
-    nv = torch.full((chains,), ORDER, dtype=torch.int32, device=device)
-    step_keys = keys.fold_in(ck, 3)
     k, cap = SA_KW["max_neighbors"], 10
-    args = (Cs, Ms, p, f, p.clone(), f.clone(), temp, step_keys, nv)
-    got = qap_sa_step_cuda(*args, max_neighbors=k, max_success=cap, CT=CT, MT=MT)
-    want = qap_sa_step_plain(*args, max_neighbors=k, max_success=cap)
-    torch.cuda.synchronize()
-    err = max(float((g.float() - w.float()).abs().max())
-              for g, w in zip(got, want))
-    for name, g, w in zip(("p", "f", "best_p", "best_f"), got, want):
-        require(torch.equal(g, w), f"qap_sa_step {name}: kernel != plain "
-                f"(max err {err})")
-    ms = cuda_ms(lambda: qap_sa_step_cuda(*args, max_neighbors=k,
-                                          max_success=cap, CT=CT, MT=MT), 100)
-    plain = cuda_ms(lambda: qap_sa_step_plain(*args, max_neighbors=k,
-                                              max_success=cap), 10)
-    evaluated = scan_evaluated(Cs, Ms, p, f, temp, step_keys, nv, k, cap)
-    nbytes = (4 * 4 * WAVE * BUCKET * BUCKET          # C, C^T, M, M^T
-              + 4 * 4 * chains * BUCKET               # p, best_p in and out
-              + chains * (4 * 4 + 8 + 4 * 2))         # f, bf, temp, nv, keys; f, bf out
-    bound, by = bound_ms(nbytes, 8 * BUCKET * evaluated)
-    print(f"qap_sa_step B={chains} N={BUCKET} K={k} cap={cap}: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), "
-          f"{evaluated} of {chains * k} candidates scored, max err {err}",
-          flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    out = {}
+    for label, Cb, Mb, order, n in (("smem", Cs, Ms, ORDER, BUCKET),
+                                    ("l2", C2, M2, L2_ORDER, L2_ORDER)):
+        b0 = Cb.shape[0]
+        chains = b0 * rpt
+        CT = Cb.transpose(1, 2).contiguous()
+        MT = Mb.transpose(1, 2).contiguous()
+        ck = keys.split(keys.prng_key(7, device), chains)
+        p = qap.masked_random_permutation(ck, n, order)
+        f = qap.objective(Cb, Mb, p.view(b0, rpt, n)).reshape(-1)
+        temp = annealing.initial_temperature(f, 0.3, 0.3)
+        nv = torch.full((chains,), order, dtype=torch.int32, device=device)
+        step_keys = keys.fold_in(ck, 3)
+        args = (Cb, Mb, p, f, p.clone(), f.clone(), temp, step_keys, nv)
+        launch = lambda: qap_sa_step_cuda(*args, max_neighbors=k,
+                                          max_success=cap, CT=CT, MT=MT)
+        got = branch_launched("qap_sa_step", label, launch)
+        want = qap_sa_step_plain(*args, max_neighbors=k, max_success=cap)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        for name, g, w in zip(("p", "f", "best_p", "best_f"), got, want):
+            require(torch.equal(g, w), f"qap_sa_step {label} {name}: kernel "
+                    f"!= plain (max err {err})")
+        ms, dev_ms = cuda_ms(launch, 100), graph_ms(launch, 100)
+        plain = cuda_ms(lambda: qap_sa_step_plain(*args, max_neighbors=k,
+                                                  max_success=cap), 10)
+        evaluated = scan_evaluated(Cb, Mb, p, f, temp, step_keys, nv, k, cap)
+        io = (4 * 4 * chains * n              # p, best_p in and out
+              + chains * (4 * 4 + 16 + 4 * 2))  # f, bf, temp, nv, keys; out
+        bound, by = bound_ms(4 * 2 * b0 * n * n + io, 8 * n * evaluated)
+        bound4, _ = bound_ms(4 * 4 * b0 * n * n + io, 8 * n * evaluated)
+        out[label] = dict(err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain,
+                          bound_ms=bound, bound_by=by)
+        print(f"qap_sa_step B={chains} N={n} K={k} cap={cap} ({label} "
+              f"branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms in a graph), "
+              f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{bound4:.4f} counting C^T and M^T as well), {evaluated} of "
+              f"{chains * k} "
+              f"candidates scored, max err {err}", flush=True)
+    return out["smem"]
 
 
 def island_populations(device, pop):
@@ -589,6 +647,16 @@ def route_requests(route):
     return [dataclasses.replace(r, algorithm=algorithm) for r in reqs], optima
 
 
+def require_smem_branch(route, counts, branches):
+    """Every K1 and K4 launch of a dense bucket (orders up to 128) or a
+    multilevel coarse solve (order 64) took the shared-memory branch."""
+    for kernel in ("qap_delta", "qap_sa_step"):
+        require(branches[f"{kernel}/smem"] == counts[kernel]
+                and branches[f"{kernel}/l2"] == 0,
+                f"[{route}] {kernel} launches {counts[kernel]}, by branch "
+                f"{branches}: not all on the shared-memory branch")
+
+
 def drive_engine(route):
     """Submit and flush each bucket's wave on the card, the launch counts
     set to 0 just before each wave and read just after; returns the
@@ -611,15 +679,18 @@ def drive_engine(route):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = ops.launch_counts()
+        branches = ops.branch_counts()
         for r, fut in zip(wave, futs):
             resps[r.job_id] = fut.result()
             check_response(r, resps[r.job_id], optima[r.job_id])
+        require_smem_branch(route, counts, branches)
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         ratio = sum(resps[r.job_id].objective / optima[r.job_id]
                     for r in wave) / len(wave)
         print(f"[{route}] bucket {resps[wave[0].job_id].bucket}: {len(wave)} "
               f"requests of order {order}, wave wall {wall:.4f} s, launches "
-              f"{counts}, mean F/F0 {ratio:.4f}", flush=True)
+              f"{counts}, K1/K4 branches {branches}, mean F/F0 {ratio:.4f}",
+              flush=True)
     return reqs, resps, total
 
 
@@ -684,8 +755,10 @@ def drive_multilevel():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             counts = ops.launch_counts()
+            branches = ops.branch_counts()
             resp = resps[req.job_id] = fut.result()
             check_response(req, resp, optimum)
+            require_smem_branch("multilevel", counts, branches)
             for kernel in ("qap_delta", "qap_objective_sparse",
                            "qap_delta_sparse"):
                 require(counts[kernel] > 0,

@@ -1,0 +1,138 @@
+// One dense QAP instance staged in shared memory, for K1 (qap_delta.cu)
+// and K4 (qap_sa_step.cu).
+//
+// A block copies one instance's C and M -- only these two, no transposes
+// -- from global memory into dynamic shared memory: row r of each at word
+// r * stride, stride = N | 1 (N + 1 at the even bucket orders).  An odd
+// stride keeps the three reads of the swap delta free of bank conflicts
+// beyond the permutation's own collisions:
+//   - a column C[k, a] over lanes k: bank (k * stride + a) mod 32, 32
+//     distinct banks for 32 consecutive k because the stride is odd;
+//   - a gather M[u, p[i]] over lanes i: one row, bank p[i] mod 32;
+//   - a column gather M[p[i], v]: bank (p[i] * stride + v) mod 32, a
+//     bijection of p[i] mod 32, as spread as the row gather.
+// With stride N the last read would put all 32 lanes of a warp in one bank
+// at N = 128.
+//
+// The copy is cp.async, 4 bytes a lane (the odd stride rules out 16-byte
+// destinations), warps over rows and lanes over columns so that each
+// warp's source reads are coalesced; one cp.async.wait_all and one
+// __syncthreads, then the block reads only shared memory.
+//
+// The threshold, here and nowhere else: the shared-memory branch takes
+// order N when C, M and one warp's chain state (K4's p and best_p, 2N
+// ints) fit the 227 KB a block may have on an H100 (kSmemBlockLimit,
+// granted with cudaFuncSetAttribute): N <= kSmemMaxN = 169, which covers
+// every order the engine solves densely (buckets 32/64/128, multilevel
+// coarse solves at 64 and below).  Above it both launchers take their L2
+// branch, which reads C, M and their transposes from global memory.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstddef>
+#include <type_traits>
+
+namespace repro_torch {
+
+constexpr int kSmemBlockLimit = 232448;  // 227 KB, an H100 block's most
+constexpr int kSmemMaxN = 169;
+// Lane-iterations over an order up to kSmemMaxN: the kernels take the
+// count as a template argument, so that a lane's loop over i is unrolled
+// and its loads issue together.
+constexpr int kSmemMaxIters = (kSmemMaxN + 31) / 32;
+
+__host__ __device__ constexpr int smem_stride(int n) { return n | 1; }
+
+__host__ __device__ constexpr size_t smem_instance_bytes(int n) {
+  return 2 * static_cast<size_t>(n) * smem_stride(n) * sizeof(float);
+}
+
+static_assert(smem_instance_bytes(kSmemMaxN) + 2 * kSmemMaxN * sizeof(int) <=
+                  static_cast<size_t>(kSmemBlockLimit),
+              "C, M and one chain's state fit at kSmemMaxN");
+static_assert(smem_instance_bytes(kSmemMaxN + 1) >
+                  static_cast<size_t>(kSmemBlockLimit),
+              "kSmemMaxN is the largest order that fits");
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Stage C and M (each (n, n), contiguous) into c and m at the padded
+// stride; every thread of the block calls it.
+__device__ __forceinline__ void stage_instance(float* c, float* m,
+                                               const float* C, const float* M,
+                                               int n) {
+  const int s = smem_stride(n);
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < n; r += warps) {
+    const float* cr = C + static_cast<size_t>(r) * n;
+    const float* mr = M + static_cast<size_t>(r) * n;
+    for (int j = lane; j < n; j += 32) {
+      cp_async4(c + r * s + j, cr + j);
+      cp_async4(m + r * s + j, mr + j);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Host side: the current device's SM count, and the full 227 KB granted
+// to `kernel` once per device (bit d of `granted`).
+inline cudaError_t smem_launch_setup(const void* kernel,
+                                     std::atomic<unsigned long long>& granted,
+                                     int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (granted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBlockLimit);
+  if (err == cudaSuccess) granted.fetch_or(bit);
+  return err;
+}
+
+// f(std::integral_constant<int, I>{}) for I = ceil(n / 32) lane-iterations,
+// 1 <= I <= kSmemMaxIters; f returns a cudaError_t.
+template <typename F>
+cudaError_t with_iters(int n, F&& f) {
+  switch ((n + 31) / 32) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(kSmemMaxIters == 6, "with_iters covers every order it takes");
+
+// Makes `device` current for a launch and restores the caller's device.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : device_(device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device_) err_ = cudaSetDevice(device_);
+  }
+  ~DeviceGuard() {
+    if (prev_ >= 0 && prev_ != device_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int device_;
+  int prev_ = -1;
+  cudaError_t err_;
+};
+
+}  // namespace repro_torch

@@ -9,9 +9,15 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math.  ``-fmad=false`` keeps
 each multiply and add rounded on its own, as the plain PyTorch versions
-round them, so a kernel and its plain version agree bit for bit beyond
-the integer-valued instances as well.  ``-Xptxas -v`` leaves each
-kernel's register and shared-memory use in the build log.
+round them.  That makes a kernel equal its plain version bit for bit on
+any input only where it also sums in the plain version's order: K8
+``selective_scan`` does, and so did K7 ``qap_delta_sparse`` on every
+real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4 (its
+shared-memory branch), K5 and K6 (at ELL width 46) sum in other orders
+and differed there in the last bits; they agree bit for bit on
+integer-valued instances, where every f32 sum is exact in any order,
+and those are what the engine's parity rests on.  ``-Xptxas -v`` leaves
+each kernel's register and shared-memory use in the build log.
 
 Every launch also adds one to ``LAUNCHES[name]``: the count a run reads
 to show that its work went through the kernel.  The wrappers validate
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,7 +46,28 @@ KERNELS = ("qap_delta", "qap_objective", "qap_sa_step", "qap_ga_step",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# The C functions of each library: name -> (return type, argument types),
+# a letter each: "p" a pointer or the stream, "i" an int, "q" a long
+# long, "f" a float.  Bound once, when the library is loaded.
+SIGNATURES: Dict[str, Dict[str, str]] = {
+    "qap_delta": {"qap_delta_launch": "i:pppppppiiiiip",
+                  "qap_delta_smem_max_n": "i:"},
+    "qap_objective": {"qap_objective_launch": "i:ppppqiqp"},
+    "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip",
+                    "qap_sa_step_smem_bytes": "q:ii"},
+    "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffip",
+                    "qap_ga_step_smem_bytes": "i:iiii"},
+    "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiqip"},
+    "qap_delta_sparse": {"qap_delta_sparse_launch": "i:pppppppppiiiiip"},
+    "selective_scan": {"selective_scan_launch": "i:pppppppiiiip"},
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
+           "f": ctypes.c_float}
+
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+# Launches by branch, for the kernels with two ("qap_delta/smem",
+# "qap_delta/l2", ...); cleared with LAUNCHES.
+BRANCH_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _log: Dict[str, str] = {}
@@ -92,8 +120,18 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(_log[n] for n in failed))
         for name in KERNELS:
-            _libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            _libs[name] = _bind(ctypes.CDLL(str(out_dir / f"lib{name}.so")),
+                                SIGNATURES[name])
         return dict(_libs)
+
+
+def _bind(lib: ctypes.CDLL, signatures: Dict[str, str]) -> ctypes.CDLL:
+    for fn, sig in signatures.items():
+        ret, args = sig.split(":")
+        f = getattr(lib, fn)
+        f.restype = _CTYPES[ret]
+        f.argtypes = [_CTYPES[c] for c in args]
+    return lib
 
 
 def build_log() -> Dict[str, str]:
@@ -104,6 +142,14 @@ def build_log() -> Dict[str, str]:
 
 def library(name: str) -> ctypes.CDLL:
     return _libs[name] if name in _libs else build_all()[name]
+
+
+@functools.lru_cache(maxsize=None)
+def dense_smem_max_n() -> int:
+    """The largest order K1 and K4 take on their shared-memory branch
+    (``kSmemMaxN`` of ``csrc/qap_dense_smem.cuh``); above it they take
+    their L2 branch, which reads the transposes too."""
+    return library("qap_delta").qap_delta_smem_max_n()
 
 
 def check(err: int, name: str) -> None:
@@ -136,8 +182,8 @@ def check_args(device: torch.device, *specs) -> None:
     """Validate ``(name, tensor, dtype, shape)`` specs: each tensor
     contiguous, of that dtype and shape, on ``device``."""
     for name, X, dt, shape in specs:
-        if X.dtype != dt or tuple(X.shape) != tuple(shape) \
-                or not X.is_contiguous() or X.device != device:
+        if X.dtype != dt or X.shape != shape or X.device != device \
+                or not X.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt} {tuple(shape)} "
                              f"on C's device, got {X.dtype} "
                              f"{tuple(X.shape)}")

@@ -53,8 +53,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: build.LAUNCHES[name] for name in build.KERNELS}
 
 
+def branch_counts() -> Dict[str, int]:
+    """Launches of K1 and K4 by branch (``"qap_delta/smem"``,
+    ``"qap_delta/l2"``, ``"qap_sa_step/smem"``, ``"qap_sa_step/l2"``)
+    since the last :func:`reset_launch_counts`."""
+    return {f"{name}/{branch}": build.BRANCH_LAUNCHES[f"{name}/{branch}"]
+            for name in ("qap_delta", "qap_sa_step")
+            for branch in ("smem", "l2")}
+
+
 def reset_launch_counts() -> None:
     build.LAUNCHES.clear()
+    build.BRANCH_LAUNCHES.clear()
 
 
 def transposes(C, M: torch.Tensor

@@ -11,14 +11,16 @@ decomposition
 
 ``C``/``M`` are shared ``(N, N)`` or instance-batched ``(B0, N, N)``
 with ``B0`` dividing ``B``: row ``r`` belongs to instance
-``r // (B // B0)``.  The kernel (``csrc/qap_delta.cu``) also takes the
-transposes ``C^T``/``M^T`` so that every read of a column is a read of a
-contiguous row; callers that evaluate many rounds against one instance
-compute them once and pass them in.
+``r // (B // B0)``.  The kernel (``csrc/qap_delta.cu``) has two branches,
+chosen by the order: up to :func:`build.dense_smem_max_n` (every dense
+bucket) each block stages one instance's ``C`` and ``M`` in shared
+memory; above it the kernel reads ``C``, ``M`` and the transposes
+``C^T``/``M^T`` from global memory, so that every read of a column is a
+read of a contiguous row; callers that evaluate many rounds against one
+instance compute them once and pass them in.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -73,29 +75,34 @@ def qap_delta_cuda(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
                    pairs: torch.Tensor, CT: Optional[torch.Tensor] = None,
                    MT: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1 on the card: same contract as :func:`qap_delta_plain`,
-    ``p``/``pairs`` int32 CUDA tensors; ``CT``/``MT`` default to fresh
-    transposes."""
-    CT = C.transpose(-2, -1).contiguous() if CT is None else CT
-    MT = M.transpose(-2, -1).contiguous() if MT is None else MT
+    ``p``/``pairs`` int32 CUDA tensors.  ``CT``/``MT`` are read only above
+    :func:`build.dense_smem_max_n` (the L2 branch), where they default to
+    fresh transposes."""
     B, n = p.shape
     if pairs.dim() != 3:
         raise ValueError(f"pairs must be (B, K, 2), got {tuple(pairs.shape)}")
     k = pairs.shape[1]
-    b0 = build.check_mats(B, n, C=C, M=M, CT=CT, MT=MT)
+    b0 = build.check_mats(B, n, C=C, M=M)
     build.check_args(C.device, ("p", p, torch.int32, (B, n)),
                      ("pairs", pairs, torch.int32, (B, k, 2)))
+    if pairs.data_ptr() % 8:
+        raise ValueError("pairs must start on an 8-byte boundary (the kernel "
+                         "reads each pair as one int2)")
     out = torch.empty((B, k), dtype=torch.float32, device=p.device)
     if B * k == 0:
         return out
-    lib = build.library("qap_delta")
-    fn = lib.qap_delta_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(C.data_ptr(), CT.data_ptr(), M.data_ptr(), MT.data_ptr(),
-                 p.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-                 B, k, n, B // b0, stream)
+    smem = n <= build.dense_smem_max_n()
+    ct = mt = None
+    if not smem:
+        CT = C.transpose(-2, -1).contiguous() if CT is None else CT
+        MT = M.transpose(-2, -1).contiguous() if MT is None else MT
+        build.check_mats(B, n, C=C, CT=CT, MT=MT)
+        ct, mt = CT.data_ptr(), MT.data_ptr()
+    err = build.library("qap_delta").qap_delta_launch(
+        C.data_ptr(), ct, M.data_ptr(), mt, p.data_ptr(), pairs.data_ptr(),
+        out.data_ptr(), B, k, n, B // b0, p.device.index,
+        torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_delta")
     build.LAUNCHES["qap_delta"] += 1
+    build.BRANCH_LAUNCHES["qap_delta/smem" if smem else "qap_delta/l2"] += 1
     return out

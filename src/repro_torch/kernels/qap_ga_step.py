@@ -18,8 +18,6 @@ for bit on integer-valued instances.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core import ga_ops
@@ -72,9 +70,6 @@ def qap_ga_step_cuda(C, M, pop, fit, keys, n_valid, *, n_off: int,
     if B == 0:
         return pop_out, fit_out
     fn = lib.qap_ga_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     with torch.cuda.device(pop.device):
         stream = torch.cuda.current_stream(pop.device).cuda_stream
         err = fn(C.data_ptr(), M.data_ptr(), pop.data_ptr(), fit.data_ptr(),

@@ -18,8 +18,6 @@ and to a relative 1e-6 elsewhere.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..core import qap
@@ -61,9 +59,6 @@ def qap_objective_cuda(C: torch.Tensor, M: torch.Tensor,
     if B * P == 0:
         return out
     fn = build.library("qap_objective").qap_objective_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     with torch.cuda.device(perms.device):
         stream = torch.cuda.current_stream(perms.device).cuda_stream
         err = fn(C.data_ptr(), M.data_ptr(), perms.data_ptr(), out.data_ptr(),

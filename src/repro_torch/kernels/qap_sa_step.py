@@ -12,13 +12,17 @@ The plain version consumes the candidates with the acceptance-event loop
 (:func:`event_loop`, also the ``loop="event"`` hot loop of
 ``core.annealing``): each round scores every remaining candidate against
 the current state in one wide delta call and applies the first accepted
-one.  The kernel (``csrc/qap_sa_step.cu``) scans them one by one.
+one.  The kernel (``csrc/qap_sa_step.cu``) scans them one by one: up to
+``build.dense_smem_max_n()`` (every dense bucket) one warp per chain,
+the chains of an instance sharing a block that stages ``C`` and ``M`` in
+shared memory; above it one block per chain, reading ``C``, ``M`` and
+their transposes from global memory.
 Rejected candidates never change the state, so the two agree bit for bit
 on integer-valued instances, where every f32 sum is exact in any order.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -26,9 +30,6 @@ import torch
 from ..core import qap
 from . import build, prng
 from .qap_delta import qap_delta_plain
-
-# The kernel's dynamic shared memory stays under the default 48 KB limit.
-_SMEM_LIMIT = 48 * 1024
 
 
 def event_loop(delta: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -80,44 +81,57 @@ def qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
                       p, f, best_p, best_f, temp, pairs, us, max_success)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(n: int, k: int) -> int:
+    """Shared memory of the K4 branch that takes order ``n`` with ``k``
+    candidates; -1 where neither branch takes it."""
+    return build.library("qap_sa_step").qap_sa_step_smem_bytes(n, k)
+
+
 def qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
                      max_neighbors: int, max_success: int,
                      CT: Optional[torch.Tensor] = None,
                      MT: Optional[torch.Tensor] = None):
     """Launch K4 on the card: same contract as :func:`qap_sa_step_plain`
-    on CUDA tensors (``p``/``best_p``/``n_valid`` int32)."""
-    CT = C.transpose(-2, -1).contiguous() if CT is None else CT
-    MT = M.transpose(-2, -1).contiguous() if MT is None else MT
+    on CUDA tensors (``p``/``best_p``/``n_valid`` int32, ``keys`` int64
+    words).  ``CT``/``MT`` are read only above
+    :func:`build.dense_smem_max_n` (the L2 branch), where they default to
+    fresh transposes."""
     B, n = p.shape
-    b0 = build.check_mats(B, n, C=C, M=M, CT=CT, MT=MT)
+    b0 = build.check_mats(B, n, C=C, M=M)
     build.check_args(
         C.device, ("p", p, torch.int32, (B, n)),
         ("best_p", best_p, torch.int32, (B, n)), ("f", f, torch.float32, (B,)),
         ("best_f", best_f, torch.float32, (B,)),
         ("temp", temp, torch.float32, (B,)), ("keys", keys, torch.int64, (B, 2)),
         ("n_valid", n_valid, torch.int32, (B,)))
-    lib = build.library("qap_sa_step")
-    smem = lib.qap_sa_step_smem_bytes(n, max_neighbors)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"order {n} x {max_neighbors} candidates needs "
-                         f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
-    kw = build.key_words(keys)
-    p_out, bp_out = torch.empty_like(p), torch.empty_like(best_p)
-    f_out, bf_out = torch.empty_like(f), torch.empty_like(best_f)
+    if _smem_bytes(n, max_neighbors) < 0:
+        raise ValueError(f"no branch of the qap_sa_step kernel takes order "
+                         f"{n} with {max_neighbors} candidates: its state "
+                         f"needs more than 227 KB of shared memory")
+    # one allocation for p and best_p, one for f and best_f
+    perms = torch.empty((2, B, n), dtype=torch.int32, device=p.device)
+    fs = torch.empty((2, B), dtype=torch.float32, device=p.device)
     if B == 0:
-        return p_out, f_out, bp_out, bf_out
-    fn = lib.qap_sa_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(C.data_ptr(), CT.data_ptr(), M.data_ptr(), MT.data_ptr(),
-                 p.data_ptr(), f.data_ptr(), best_p.data_ptr(),
-                 best_f.data_ptr(), temp.data_ptr(), kw.data_ptr(),
-                 n_valid.data_ptr(), p_out.data_ptr(), f_out.data_ptr(),
-                 bp_out.data_ptr(), bf_out.data_ptr(), B, n, B // b0,
-                 max_neighbors, max_success, stream)
+        return perms[0], fs[0], perms[1], fs[1]
+    smem = n <= build.dense_smem_max_n()
+    ct = mt = None
+    if not smem:
+        CT = C.transpose(-2, -1).contiguous() if CT is None else CT
+        MT = M.transpose(-2, -1).contiguous() if MT is None else MT
+        build.check_mats(B, n, C=C, CT=CT, MT=MT)
+        ct, mt = CT.data_ptr(), MT.data_ptr()
+    pp, fp = perms.data_ptr(), fs.data_ptr()
+    err = build.library("qap_sa_step").qap_sa_step_launch(
+        C.data_ptr(), ct, M.data_ptr(), mt, p.data_ptr(), f.data_ptr(),
+        best_p.data_ptr(), best_f.data_ptr(), temp.data_ptr(), keys.data_ptr(),
+        n_valid.data_ptr(), pp, fp, pp + 4 * B * n, fp + 4 * B, B, n, B // b0,
+        max_neighbors, max_success, p.device.index,
+        torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_sa_step")
     build.LAUNCHES["qap_sa_step"] += 1
+    build.BRANCH_LAUNCHES["qap_sa_step/smem" if smem
+                          else "qap_sa_step/l2"] += 1
+    p_out, bp_out = perms.unbind(0)
+    f_out, bf_out = fs.unbind(0)
     return p_out, f_out, bp_out, bf_out

@@ -30,7 +30,6 @@ version agree bit for bit.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -151,10 +150,6 @@ def qap_objective_sparse_cuda(S, M: torch.Tensor, perms: torch.Tensor
     if B * P == 0:
         return out
     fn = build.library("qap_objective_sparse").qap_objective_sparse_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     with torch.cuda.device(perms.device):
         stream = torch.cuda.current_stream(perms.device).cuda_stream
         err = fn(S.cols.data_ptr(), S.vals.data_ptr(), M.data_ptr(),
@@ -184,8 +179,6 @@ def qap_delta_sparse_cuda(S, M: torch.Tensor, p: torch.Tensor,
     if B * k == 0:
         return out
     fn = build.library("qap_delta_sparse").qap_delta_sparse_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(S.cols.data_ptr(), S.vals.data_ptr(), S.cols_t.data_ptr(),

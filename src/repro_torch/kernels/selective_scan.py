@@ -15,7 +15,6 @@ returns ``y (B, S, D)`` f32 and, unlike the TPU kernel, the final state
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -74,8 +73,6 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if B * D == 0:
         return y, h_last
     fn = build.library("selective_scan").selective_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import (annealing, exact, genetic, instances,
                               multilevel, sparse)
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.qap_delta import qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_plain
 from repro_torch.kernels.qap_objective import qap_objective_plain
@@ -27,7 +27,18 @@ from repro_torch.serve import Engine, MappingEngine, MapRequest, ServeConfig
 pytestmark = pytest.mark.gpu
 
 B0, RPT, K = 4, 8, 25
-CASES = [(16, 16, True), (16, 11, False), (40, 29, True), (128, 125, False)]
+# (n, nv, shared): K1 and K4 take orders up to 169 on their shared-memory
+# branch and 256 on their L2 branch; 32 is the engine's smallest bucket.
+CASES = [(16, 16, True), (16, 11, False), (40, 29, True), (128, 125, False),
+         (32, 27, False), (169, 160, True), (256, 250, False)]
+# K1/K4 block splits, (n, nv, shared, chains per instance, candidates):
+# the polish shape, one shared instance with many chains, an odd chain
+# count (a block's last warps unused), and the first order past the
+# shared-memory threshold.
+SPLIT_CASES = [(128, 125, False, 1, 256), (64, 64, True, 128, 25),
+               (128, 125, False, 5, 25), (32, 27, True, 5, 25),
+               (170, 170, False, 3, 25)]
+DENSE_CASES = [c + (RPT, K) for c in CASES] + SPLIT_CASES
 
 
 @pytest.fixture
@@ -37,10 +48,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, nv, shared, seed, device):
-    """Integer instances zero-padded past ``nv``; B0 * RPT chains whose
-    permutations keep the padded tail on itself, with candidate pairs,
-    objectives, temperatures, key words and valid orders."""
+def _inputs(n, nv, shared, seed, device, rpt=RPT, k=K):
+    """Integer instances zero-padded past ``nv``; B0 * rpt chains whose
+    permutations keep the padded tail on itself, with ``k`` candidate
+    pairs each, objectives, temperatures, key words and valid orders."""
     rng = np.random.default_rng(seed)
     b0 = 1 if shared else B0
     Cs = np.zeros((b0, n, n), np.float32)
@@ -49,13 +60,13 @@ def _inputs(n, nv, shared, seed, device):
         C = rng.integers(0, 10, (nv, nv)).astype(np.float32)
         M = rng.integers(1, 10, (nv, nv)).astype(np.float32)
         Cs[i, :nv, :nv], Ms[i, :nv, :nv] = C + C.T, M + M.T
-    B = B0 * RPT
+    B = B0 * rpt
     ps = np.tile(np.arange(n, dtype=np.int32), (B, 1))
     for r in range(B):
         ps[r, :nv] = rng.permutation(nv)
     pairs = np.sort(np.stack([rng.choice(nv, 2, replace=False)
-                              for _ in range(B * K)]), axis=1)
-    inst = np.arange(B) // RPT if not shared else np.zeros(B, int)
+                              for _ in range(B * k)]), axis=1)
+    inst = np.arange(B) // rpt if not shared else np.zeros(B, int)
     fs = np.array([(Cs[i] * Ms[i][np.ix_(p, p)]).sum()
                    for i, p in zip(inst, ps)], np.float32)
     temps = np.linspace(5.0, 500.0, B).astype(np.float32)
@@ -63,27 +74,41 @@ def _inputs(n, nv, shared, seed, device):
     if shared:
         Cs, Ms = Cs[0], Ms[0]
     t = lambda x: torch.as_tensor(x, device=device)
-    return (t(Cs), t(Ms), t(ps), t(pairs.reshape(B, K, 2).astype(np.int32)),
+    return (t(Cs), t(Ms), t(ps), t(pairs.reshape(B, k, 2).astype(np.int32)),
             t(fs), t(temps), t(keys), t(np.full(B, nv, np.int32)))
 
 
-@pytest.mark.parametrize("n,nv,shared", CASES)
-def test_qap_delta_kernel_matches_plain(cuda, n, nv, shared):
-    C, M, p, pairs, *_ = _inputs(n, nv, shared, n + nv, cuda)
+def _launched_on(kernel, n, before):
+    """One launch of ``kernel`` since ``before`` (``ops.branch_counts()``),
+    on the branch order ``n`` selects."""
+    branch = "smem" if n <= build.dense_smem_max_n() else "l2"
+    after = ops.branch_counts()
+    return {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {f"{kernel}/{branch}": 1}
+
+
+@pytest.mark.parametrize("n,nv,shared,rpt,k", DENSE_CASES)
+def test_qap_delta_kernel_matches_plain(cuda, n, nv, shared, rpt, k):
+    C, M, p, pairs, *_ = _inputs(n, nv, shared, n + nv, cuda, rpt, k)
     before = ops.launch_counts()["qap_delta"]
+    branches = ops.branch_counts()
     got = ops.qap_delta(C, M, p, pairs)
     assert ops.launch_counts()["qap_delta"] == before + 1
+    assert _launched_on("qap_delta", n, branches)
     assert torch.equal(got, qap_delta_plain(C, M, p, pairs))
 
 
-@pytest.mark.parametrize("n,nv,shared", CASES)
-def test_qap_sa_step_kernel_matches_plain(cuda, n, nv, shared):
-    C, M, p, _, f, temp, keys, nv_t = _inputs(n, nv, shared, 2 * n + nv, cuda)
+@pytest.mark.parametrize("n,nv,shared,rpt,k", DENSE_CASES)
+def test_qap_sa_step_kernel_matches_plain(cuda, n, nv, shared, rpt, k):
+    C, M, p, _, f, temp, keys, nv_t = _inputs(n, nv, shared, 2 * n + nv,
+                                              cuda, rpt, k)
     args = (C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t)
-    kw = dict(max_neighbors=K, max_success=6)
+    kw = dict(max_neighbors=k, max_success=6)
     before = ops.launch_counts()["qap_sa_step"]
+    branches = ops.branch_counts()
     got = ops.qap_sa_step(*args, **kw)
     assert ops.launch_counts()["qap_sa_step"] == before + 1
+    assert _launched_on("qap_sa_step", n, branches)
     want = qap_sa_step_plain(*args, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -138,6 +163,18 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.qap_delta(C, M, p.long(), pairs)
     with pytest.raises(ValueError, match="divide"):
         ops.qap_delta(torch.stack([C] * 3), torch.stack([M] * 3), p, pairs)
+    # an order neither branch of K4 takes: the L2 branch's 2n + 3K ints of
+    # chain state pass 227 KB of shared memory
+    n = 30000
+    big = torch.empty((n, n), device=cuda)
+    p_big = torch.arange(n, dtype=torch.int32, device=cuda)[None]
+    one = torch.ones(1, device=cuda)
+    with pytest.raises(ValueError, match=f"order {n}"):
+        ops.qap_sa_step(big, big, p_big, one, p_big, one, one,
+                        torch.zeros((1, 2), dtype=torch.int64, device=cuda),
+                        torch.full((1,), n, dtype=torch.int32, device=cuda),
+                        max_neighbors=K, max_success=6, CT=big, MT=big)
+    del big
     C, M, pops, fits, keys, nvs = _islands(16, 16, True, 0, cuda, pop=4)
     with pytest.raises(ValueError, match="int32"):
         ops.qap_objective(C, M, pops.long())
