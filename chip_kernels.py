@@ -16,8 +16,9 @@ from that directory's sources.  For K1 ``qap_delta`` (the event round,
 candidates per instance) and K4 ``qap_sa_step`` (16 chains per instance,
 25 candidates, at most 10 acceptances), each at the 128 bucket's wave of
 32 instances and the 64 and 32 buckets' waves of 3, and for K2
-``qap_objective`` (64 islands x 16 children) and K5 ``qap_ga_step`` (64
-islands of 32), it prints milliseconds per call by
+``qap_objective`` (16 children an island) and K5 ``qap_ga_step`` (islands
+of 32), 2 islands a request at the same waves (64 islands at the 128
+bucket, 6 at the others), it prints milliseconds per call by
 CUDA events over a loop of wrapper calls, in a CUDA graph of the same
 calls (device time alone), and their difference: what the host adds per
 call when it, and not the card, sets the pace.  ``--probe`` also runs
@@ -52,10 +53,18 @@ def padded_wave(order, bucket, count, device):
             torch.as_tensor(Ms, device=device))
 
 
+def island_perms(order, bucket, islands, pop, device):
+    """``islands`` populations of ``pop`` random permutations of ``order``
+    in the ``bucket`` (identity tail), as ``chip_smoke.py`` draws them."""
+    from repro_torch.core import keys, qap
+    ck = keys.split(keys.prng_key(pop, device), islands)
+    return qap.masked_random_permutations(ck, pop, bucket, order).contiguous()
+
+
 def timings():
     """(label, events ms, graph ms) of each dense kernel at the smoke's
-    shapes: K1 and K4 at the 128 bucket's 32-request wave and the 64 and
-    32 buckets' 3-request waves, K2 and K5 at the 128 bucket."""
+    shapes: K1, K4, K2 and K5 at the 128 bucket's 32-request wave and the
+    64 and 32 buckets' 3-request waves (2 islands a request for K2/K5)."""
     import torch
     import chip_smoke as cs
     from repro_torch.core import annealing, keys, qap
@@ -95,15 +104,21 @@ def timings():
                     lambda args=args, CT=CT, MT=MT: qap_sa_step_cuda(
                         *args, max_neighbors=k, max_success=10, CT=CT, MT=MT),
                     100))
-    Cg, Mg, kids = cs.island_populations(dev, cs.N_OFF)
-    out.append(("K2 64x16", lambda: qap_objective_cuda(Cg, Mg, kids), 200))
-    Cg, Mg, pops = cs.island_populations(dev, cs.GA_KW["pop_size"])
-    fits = qap_objective_plain(Cg, Mg, pops)
-    gkeys = keys.split(keys.prng_key(5, dev), cs.ISLANDS)
-    gnv = torch.full((cs.ISLANDS,), cs.ORDER, dtype=torch.int32, device=dev)
-    out.append(("K5 64x32", lambda: qap_ga_step_cuda(
-        Cg, Mg, pops, fits, gkeys, gnv, n_off=cs.N_OFF, tournament=2,
-        p_crossover=1.0, p_mutation=0.001, crossover="ox"), 100))
+        islands = count * cs.NUM_PROCESSES
+        kids = island_perms(order, bucket, islands, cs.N_OFF, dev)
+        out.append((f"K2 N={bucket} {islands}x{cs.N_OFF}",
+                    lambda C=Cs, M=Ms, kids=kids: qap_objective_cuda(C, M, kids),
+                    200))
+        pops = island_perms(order, bucket, islands, cs.GA_KW["pop_size"], dev)
+        fits = qap_objective_plain(Cs, Ms, pops)
+        gkeys = keys.split(keys.prng_key(5, dev), islands)
+        gnv = torch.full((islands,), order, dtype=torch.int32, device=dev)
+        out.append((f"K5 N={bucket} {islands}x{cs.GA_KW['pop_size']}",
+                    lambda C=Cs, M=Ms, pops=pops, fits=fits, gkeys=gkeys,
+                    gnv=gnv: qap_ga_step_cuda(
+                        C, M, pops, fits, gkeys, gnv, n_off=cs.N_OFF,
+                        tournament=2, p_crossover=1.0, p_mutation=0.001,
+                        crossover="ox"), 100))
     return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
             for label, fn, reps in out]
 

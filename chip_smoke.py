@@ -14,10 +14,10 @@ Phases, each of which must pass:
    K7 ``qap_delta_sparse``) against its plain PyTorch version on the
    card, at the shapes the engine gives it (bitwise: the instances are
    integer-valued), and time both, by CUDA events and (the kernel) in a
-   CUDA graph; K1 and K4 on both branches, the shared-memory one at the
-   128 bucket and the L2 one at order 256; then K8 ``selective_scan`` at the
-   Jamba prefill's full-width shape (4 x 512 x 8192, d_state 16) and a
-   ragged one (2 x 49 x 200, d_state 4), ``y`` and the final state
+   CUDA graph; K1, K4, K2 and K5 on both branches, the shared-memory
+   one at the 128 bucket and the L2 one at order 256; then K8
+   ``selective_scan`` at the Jamba prefill's full-width shape (4 x 512 x
+   8192, d_state 16) and a ragged one (2 x 49 x 200, d_state 4), ``y`` and the final state
    within 2e-4 of their largest magnitude;
 4. drive the port's ``MappingEngine`` on the card through one full wave
    of the 128 bucket (32 requests of order 125) plus waves of the 64 and
@@ -28,8 +28,8 @@ Phases, each of which must pass:
    tori) through the large buckets (K1 for the coarse solve, K6 and K7
    on the refinement levels and in the final polish); the launch counts
    are set to 0 just before each wave or request and read just after,
-   and every K1 and K4 launch there must have taken the shared-memory
-   branch;
+   and every K1, K2, K4 and K5 launch there must have taken the
+   shared-memory branch;
    then a seventh route, ``lm-serve``: Jamba-v0.1-52B at full width, 8 of
    its 32 layers (one ``mMmMaMmM`` super-block), bf16 weights drawn on the
    card from a seeded generator, dropless MoE, served through the port's
@@ -65,7 +65,7 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12           # f32 outside the tensor cores
 
 ORDER, BUCKET, WAVE = 125, 128, 32
-L2_ORDER = 256       # K1 and K4 past their shared-memory threshold (169)
+L2_ORDER = 256       # K1, K2, K4, K5 past their shared-memory thresholds
 SA_KW = dict(max_neighbors=25, iters_per_exchange=30, num_exchanges=20,
              solvers=8)
 GA_KW = dict(generations=80, pop_size=32)     # the engine's default GA
@@ -332,80 +332,118 @@ def island_populations(device, pop):
     return Cs, Ms, pops
 
 
+# K2 and K5 at order L2_ORDER, past their shared-memory thresholds: 8
+# integer instances of NUM_PROCESSES islands each.
+L2_INSTANCES = 8
+
+
+def ga_shapes(device, pop):
+    """``(branch, C, M, pops, order)`` of each branch K2 and K5 take on the
+    GA's path: the 128 bucket's wave (shared memory) and ``L2_INSTANCES``
+    integer instances of order ``L2_ORDER`` (L2), ``pop`` members an
+    island."""
+    from repro_torch.core import keys, qap
+    Cs, Ms, pops = island_populations(device, pop)
+    C2, M2 = integer_instances(L2_ORDER, L2_INSTANCES, 258, device)
+    ck = keys.split(keys.prng_key(pop + 1, device),
+                    L2_INSTANCES * NUM_PROCESSES)
+    pops2 = qap.masked_random_permutations(ck, pop, L2_ORDER,
+                                           L2_ORDER).contiguous()
+    return (("smem", Cs, Ms, pops, ORDER), ("l2", C2, M2, pops2, L2_ORDER))
+
+
 def check_qap_objective(device):
-    """K2 against its plain version at the GA's shapes: one generation's
-    children (64 islands x 16) and the initial populations (64 x 32), per
-    instance and shared."""
+    """K2 against its plain version at the GA's shapes, each launch on the
+    branch its order selects: one generation's children (16 an island)
+    and the initial populations (32 an island), per instance and shared,
+    on the shared-memory branch at the 128 bucket (64 islands) and on the
+    L2 branch at order 256 (16 islands)."""
     import torch
     from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                    qap_objective_plain)
     out = {}
     for label, pop in (("generation", N_OFF), ("init", GA_KW["pop_size"])):
-        Cs, Ms, pops = island_populations(device, pop)
-        for mats, (C, M) in (("batched", (Cs, Ms)),
-                             ("shared", (Cs[0].contiguous(), Ms[0].contiguous()))):
-            got = qap_objective_cuda(C, M, pops)
-            want = qap_objective_plain(C, M, pops)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            require(torch.equal(got, want),
-                    f"qap_objective {label}/{mats}: kernel != plain, max err {err}")
-            ms = cuda_ms(lambda: qap_objective_cuda(C, M, pops), 200)
-            plain = cuda_ms(lambda: qap_objective_plain(C, M, pops), 20)
-            b0 = C.shape[0] if C.dim() == 3 else 1
-            count = ISLANDS * pop
-            nbytes = 4 * (2 * b0 * BUCKET * BUCKET + count * BUCKET + count)
-            bound, by = bound_ms(nbytes, 2 * BUCKET * BUCKET * count)
-            out[(label, mats)] = dict(err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bound, bound_by=by)
-            print(f"qap_objective {label:10s} {mats:7s} {ISLANDS}x{pop}: "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}), max err {err}", flush=True)
+        for branch, Cs, Ms, pops, _ in ga_shapes(device, pop):
+            n = pops.shape[-1]
+            for mats, (C, M) in (("batched", (Cs, Ms)),
+                                 ("shared", (Cs[0].contiguous(),
+                                             Ms[0].contiguous()))):
+                launch = lambda: qap_objective_cuda(C, M, pops)
+                got = branch_launched("qap_objective", branch, launch)
+                want = qap_objective_plain(C, M, pops)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                require(torch.equal(got, want), f"qap_objective {label}/"
+                        f"{branch}/{mats}: kernel != plain, max err {err}")
+                ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
+                plain = cuda_ms(lambda: qap_objective_plain(C, M, pops), 20)
+                b0 = C.shape[0] if C.dim() == 3 else 1
+                count = pops.shape[0] * pop
+                nbytes = 4 * (2 * b0 * n * n + count * n + count)
+                bound, by = bound_ms(nbytes, 2 * n * n * count)
+                out[(label, branch, mats)] = dict(
+                    err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by)
+                print(f"qap_objective {label:10s} {mats:7s} N={n} "
+                      f"{pops.shape[0]}x{pop} ({branch} branch): kernel "
+                      f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain "
+                      f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), max err "
+                      f"{err}", flush=True)
     return out
 
 
 def check_qap_ga_step(device):
-    """K5 against its plain version: 64 islands of 32, order 125 in the
-    128 bucket, at the engine's GA settings (16 children, binary
-    tournaments, OX, p_mutation 0.001) and at a wider setting (32
-    children: every member replaced, the elitism guard; OXS, p_mutation
-    0.3)."""
+    """K5 against its plain version on both branches: the shared-memory
+    one with 64 islands of 32, order 125 in the 128 bucket, the L2 one
+    with 16 islands of 32 at order 256; each at the engine's GA settings
+    (16 children, binary tournaments, OX, p_mutation 0.001) and at a wider
+    setting (32 children, more than the kernel's 16 warps: every member
+    replaced, the elitism guard; OXS, p_mutation 0.3).  Returns the 128
+    bucket's numbers at the engine's settings."""
     import torch
     from repro_torch.core import keys
     from repro_torch.kernels.qap_ga_step import (qap_ga_step_cuda,
                                                  qap_ga_step_plain)
     from repro_torch.kernels.qap_objective import qap_objective_plain
     pop = GA_KW["pop_size"]
-    Cs, Ms, pops = island_populations(device, pop)
-    fits = qap_objective_plain(Cs, Ms, pops)
-    step_keys = keys.split(keys.prng_key(5, device), ISLANDS)
-    nv = torch.full((ISLANDS,), ORDER, dtype=torch.int32, device=device)
     engine_kw = dict(n_off=N_OFF, tournament=2, p_crossover=1.0,
                      p_mutation=0.001, crossover="ox")
     wide_kw = dict(n_off=pop, tournament=3, p_crossover=0.7, p_mutation=0.3,
                    crossover="oxs")
-    args = (Cs, Ms, pops, fits, step_keys, nv)
-    err = 0.0
-    for kw in (engine_kw, wide_kw):
-        got = qap_ga_step_cuda(*args, **kw)
-        want = qap_ga_step_plain(*args, **kw)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("pop", "fit"), got, want):
-            e = float((g.float() - w.float()).abs().max())
-            err = max(err, e)
-            require(torch.equal(g, w), f"qap_ga_step {name} {kw}: kernel != "
-                    f"plain (max err {e})")
-    ms = cuda_ms(lambda: qap_ga_step_cuda(*args, **engine_kw), 100)
-    plain = cuda_ms(lambda: qap_ga_step_plain(*args, **engine_kw), 10)
-    nbytes = (4 * 2 * WAVE * BUCKET * BUCKET          # C, M
-              + 2 * 4 * ISLANDS * pop * BUCKET        # populations in and out
-              + 2 * 4 * ISLANDS * pop                 # fitness in and out
-              + ISLANDS * (8 + 4))                    # key words, n_valid
-    bound, by = bound_ms(nbytes, 2 * BUCKET * BUCKET * ISLANDS * N_OFF)
-    print(f"qap_ga_step {ISLANDS} islands x {pop}, {N_OFF} children, "
-          f"N={BUCKET}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}), max err {err}", flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+    out = {}
+    for branch, Cs, Ms, pops, order in ga_shapes(device, pop):
+        islands, _, n = pops.shape
+        fits = qap_objective_plain(Cs, Ms, pops)
+        step_keys = keys.split(keys.prng_key(5, device), islands)
+        nv = torch.full((islands,), order, dtype=torch.int32, device=device)
+        args = (Cs, Ms, pops, fits, step_keys, nv)
+        err = 0.0
+        for kw in (engine_kw, wide_kw):
+            got = branch_launched("qap_ga_step", branch,
+                                  lambda: qap_ga_step_cuda(*args, **kw))
+            want = qap_ga_step_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("pop", "fit"), got, want):
+                e = float((g.float() - w.float()).abs().max())
+                err = max(err, e)
+                require(torch.equal(g, w), f"qap_ga_step {branch} {name} "
+                        f"{kw}: kernel != plain (max err {e})")
+        launch = lambda: qap_ga_step_cuda(*args, **engine_kw)
+        ms, dev_ms = cuda_ms(launch, 100), graph_ms(launch, 100)
+        plain = cuda_ms(lambda: qap_ga_step_plain(*args, **engine_kw), 10)
+        nbytes = (4 * 2 * Cs.shape[0] * n * n        # C, M
+                  + 2 * 4 * islands * pop * n        # populations in and out
+                  + 2 * 4 * islands * pop            # fitness in and out
+                  + islands * (8 + 4))               # key words, n_valid
+        bound, by = bound_ms(nbytes, 2 * n * n * islands * N_OFF)
+        out[branch] = dict(err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by)
+        print(f"qap_ga_step {islands} islands x {pop}, {N_OFF} children, "
+              f"N={n} ({branch} branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms "
+              f"in a graph), plain {plain:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), max err {err}", flush=True)
+    out["smem"]["err"] = max(v["err"] for v in out.values())
+    return out["smem"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -648,9 +686,11 @@ def route_requests(route):
 
 
 def require_smem_branch(route, counts, branches):
-    """Every K1 and K4 launch of a dense bucket (orders up to 128) or a
-    multilevel coarse solve (order 64) took the shared-memory branch."""
-    for kernel in ("qap_delta", "qap_sa_step"):
+    """Every K1, K2, K4 and K5 launch of a dense bucket (orders up to 128)
+    or a multilevel coarse solve (order 64) took the shared-memory
+    branch."""
+    for kernel in ("qap_delta", "qap_sa_step", "qap_objective",
+                   "qap_ga_step"):
         require(branches[f"{kernel}/smem"] == counts[kernel]
                 and branches[f"{kernel}/l2"] == 0,
                 f"[{route}] {kernel} launches {counts[kernel]}, by branch "
@@ -689,7 +729,7 @@ def drive_engine(route):
                     for r in wave) / len(wave)
         print(f"[{route}] bucket {resps[wave[0].job_id].bucket}: {len(wave)} "
               f"requests of order {order}, wave wall {wall:.4f} s, launches "
-              f"{counts}, K1/K4 branches {branches}, mean F/F0 {ratio:.4f}",
+              f"{counts}, branches {branches}, mean F/F0 {ratio:.4f}",
               flush=True)
     return reqs, resps, total
 
@@ -1095,7 +1135,7 @@ def main():
     check_lm_against_cpu()
 
     d = delta[("event", "batched")]
-    o = obj[("generation", "batched")]
+    o = obj[("generation", "smem", "batched")]
     kernels = [
         dict(name="qap_delta", route="cuda",
              source="src/repro_torch/csrc/qap_delta.cu",

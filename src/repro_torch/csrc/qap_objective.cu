@@ -5,7 +5,8 @@
 // -> (B, P) f32, F = sum_{k,l} C[k,l] * M[p[k], p[l]].  C and M are shared
 // (N, N) or instance-batched (B0, N, N) with B0 dividing B: perms row b
 // belongs to instance b / (B / B0), so permutation q = b * P + j reads the
-// matrices of instance q / perms_per_inst, perms_per_inst = B * P / B0.
+// matrices of instance q / perms_per_inst, perms_per_inst = B * P / B0,
+// and the permutations of one instance are contiguous.
 //
 // The TPU kernel built a one-hot P and ran P @ M @ P^T on the MXU, with
 // permutations padded to 128 by an identity tail.  That is a systolic
@@ -13,33 +14,98 @@
 // is masked, and no tensor core is used (csrc/qap_objective.cuh holds the
 // arithmetic, shared with the fused GA step K5).
 //
-// Layout: one block of 128 threads per permutation.  The block loads its
-// permutation into shared memory (N ints), then each warp walks rows of C
-// coalesced and gathers through the permutation from one row of M.
+// Two branches, chosen on the host by the order (qap_dense_smem.cuh):
+//
+// * Shared memory, N <= kSmemMaxN (every dense bucket of the engine).  A
+//   block takes one instance and a contiguous slice of its permutations,
+//   stages C and M into shared memory once (cp.async at the odd row
+//   stride), then scores its permutations one warp each
+//   (warp_objective): each permutation's terms are read from shared
+//   memory, not from L2.  The split: floor(SMs / B0) blocks of 16 warps
+//   per instance (at least one, at most one per permutation), so a GA
+//   generation of the 128 bucket's wave (32 instances x 32 children) is
+//   128 blocks, one per SM, each staging its 132 KB once and scoring 8
+//   permutations, and the 64 and 32 buckets' 3-request waves spread over
+//   as many blocks as they have permutations (up to 132).  Warps without
+//   a permutation still speed the staging (16 warps measured faster than
+//   8 at the 128 bucket and than 4 at the 3-request waves).
+//
+// * L2, larger orders.  One block of 128 threads per permutation
+//   (block_objective): the block loads its permutation into shared memory
+//   (N ints), then each warp walks rows of C coalesced and gathers through
+//   the permutation from one row of M, all from global memory and L2.
+//   The TPU kernel's VMEM cap does not apply: any order whose permutation
+//   fits the default 48 KB of shared memory.
 //
 // What bounds it on an H100: memory, and at the engine's shapes the
 // launch.  A GA generation of a 32-instance 128-bucket wave scores 1024
 // children: C and M of 32 instances are 4.2 MB of unique bytes (1.3 us at
-// 3.35 TB/s) against 34 MFLOP (0.5 us at the f32 peak).  Each block
-// re-reads its instance's C and M (128 KB) from L2, which holds the whole
-// wave's matrices; the design keeps one launch per generation for the
-// whole wave and reads each row of C coalesced.  Staging M in shared
-// memory, or scoring several permutations per block against one staged
-// C, is later work.
+// 3.35 TB/s) against 34 MFLOP (0.5 us at the f32 peak).  The L2 branch
+// re-reads its instance's 128 KB for each permutation (134 MB through L2
+// per generation); the shared-memory branch reads each instance from L2
+// four times and then only shared memory, where the gathers through the
+// permutation land on random banks: it is bound by shared-memory
+// wavefronts (some 4.5 per row and 32 columns).
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstddef>
 
+#include "qap_dense_smem.cuh"
 #include "qap_objective.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using repro_torch::smem_stride;
+
+constexpr int kThreads = 128;   // L2 branch
+constexpr int kSmemWarps = 16;  // shared-memory branch
+
+// One flag word per instantiation of the shared-memory kernel.
+std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
+
+template <int ITERS>
+__global__ void __launch_bounds__(kSmemWarps * 32)
+qap_objective_smem_kernel(const float* __restrict__ C,
+                          const float* __restrict__ M,
+                          const int* __restrict__ perms,
+                          float* __restrict__ out, int N,
+                          long long perms_per_inst, int blocks_per_inst) {
+  extern __shared__ float smem[];
+  const int s = smem_stride(N);
+  float* c = smem;
+  float* m = smem + static_cast<size_t>(N) * s;
+  const int inst = blockIdx.x / blocks_per_inst;
+  const int part = blockIdx.x - inst * blocks_per_inst;
+  const size_t nn = static_cast<size_t>(N) * N;
+  repro_torch::stage_instance(c, m, C + inst * nn, M + inst * nn, N);
+
+  const long long chunk =
+      (perms_per_inst + blocks_per_inst - 1) / blocks_per_inst;
+  const long long first = inst * perms_per_inst + part * chunk;
+  const long long end = min(first + chunk, (inst + 1) * perms_per_inst);
+  const int lane = threadIdx.x & 31;
+  for (long long q = first + (threadIdx.x >> 5); q < end;
+       q += blockDim.x >> 5) {
+    const int* prow = perms + static_cast<size_t>(q) * N;
+    int pl[ITERS];
+#pragma unroll
+    for (int j = 0; j < ITERS; ++j) {
+      const int l = lane + 32 * j;
+      pl[j] = l < N ? prow[l] : 0;
+    }
+    const float f = repro_torch::warp_objective<ITERS>(c, m, s, pl, N);
+    if (lane == 0) out[q] = f;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
-qap_objective_kernel(const float* __restrict__ C, const float* __restrict__ M,
-                     const int* __restrict__ perms, float* __restrict__ out,
-                     int N, long long perms_per_inst) {
+qap_objective_l2_kernel(const float* __restrict__ C,
+                        const float* __restrict__ M,
+                        const int* __restrict__ perms,
+                        float* __restrict__ out, int N,
+                        long long perms_per_inst) {
   extern __shared__ int p[];
   __shared__ float red[kThreads / 32];
   const long long q = blockIdx.x;
@@ -57,9 +123,33 @@ qap_objective_kernel(const float* __restrict__ C, const float* __restrict__ M,
 extern "C" int qap_objective_launch(const float* C, const float* M,
                                     const int* perms, float* out,
                                     long long total, int N,
-                                    long long perms_per_inst, void* stream) {
-  qap_objective_kernel<<<static_cast<unsigned>(total), kThreads,
-                         N * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
-      C, M, perms, out, N, perms_per_inst);
+                                    long long perms_per_inst, int device,
+                                    void* stream) {
+  repro_torch::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= repro_torch::kSmemMaxN) {
+    const long long b0 = total / perms_per_inst;
+    return static_cast<int>(repro_torch::with_iters(N, [&](auto iters) {
+      constexpr int I = decltype(iters)::value;
+      int sms = 0;
+      const cudaError_t err = repro_torch::smem_launch_setup(
+          reinterpret_cast<const void*>(qap_objective_smem_kernel<I>),
+          g_smem_granted[I], sms);
+      if (err != cudaSuccess) return err;
+      // Spread each instance over floor(SMs / B0) blocks, one permutation
+      // at least each, so that the card's SMs all stage and score.
+      const int per = static_cast<int>(std::max(
+          1LL, std::min(static_cast<long long>(sms) / b0, perms_per_inst)));
+      qap_objective_smem_kernel<I>
+          <<<static_cast<unsigned>(b0 * per), kSmemWarps * 32,
+             repro_torch::smem_instance_bytes(N), st>>>(
+              C, M, perms, out, N, perms_per_inst, per);
+      return cudaGetLastError();
+    }));
+  }
+  qap_objective_l2_kernel<<<static_cast<unsigned>(total), kThreads,
+                            N * sizeof(int), st>>>(C, M, perms, out, N,
+                                                   perms_per_inst);
   return static_cast<int>(cudaGetLastError());
 }

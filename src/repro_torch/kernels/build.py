@@ -52,11 +52,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "qap_delta": {"qap_delta_launch": "i:pppppppiiiiip",
                   "qap_delta_smem_max_n": "i:"},
-    "qap_objective": {"qap_objective_launch": "i:ppppqiqp"},
+    "qap_objective": {"qap_objective_launch": "i:ppppqiqip"},
     "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip",
                     "qap_sa_step_smem_bytes": "q:ii"},
-    "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffip",
-                    "qap_ga_step_smem_bytes": "i:iiii"},
+    "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffiip",
+                    "qap_ga_step_smem_bytes": "i:iiii",
+                    "qap_ga_step_smem_warps": "i:iiii"},
     "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiqip"},
     "qap_delta_sparse": {"qap_delta_sparse_launch": "i:pppppppppiiiiip"},
     "selective_scan": {"selective_scan_launch": "i:pppppppiiiip"},
@@ -65,8 +66,8 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "f": ctypes.c_float}
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
-# Launches by branch, for the kernels with two ("qap_delta/smem",
-# "qap_delta/l2", ...); cleared with LAUNCHES.
+# Launches by branch, for the kernels with two (K1, K2, K4, K5:
+# "qap_delta/smem", "qap_delta/l2", ...); cleared with LAUNCHES.
 BRANCH_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -146,9 +147,10 @@ def library(name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def dense_smem_max_n() -> int:
-    """The largest order K1 and K4 take on their shared-memory branch
+    """The largest order K1, K2 and K4 take on their shared-memory branch
     (``kSmemMaxN`` of ``csrc/qap_dense_smem.cuh``); above it they take
-    their L2 branch, which reads the transposes too."""
+    their L2 branch (K1 and K4 read the transposes there too).  K5's
+    threshold also counts the population (``qap_ga_step.smem_branch``)."""
     return library("qap_delta").qap_delta_smem_max_n()
 
 
@@ -190,6 +192,7 @@ def check_args(device: torch.device, *specs) -> None:
 
 
 def key_words(keys: torch.Tensor) -> torch.Tensor:
-    """uint32 key words held in int64 as the int32 bit pattern the kernels
-    read."""
+    """uint32 key words held in int64 as their int32 bit pattern, the form
+    a C interface of 32-bit words takes (K4 and K5 read the int64 words
+    themselves)."""
     return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)

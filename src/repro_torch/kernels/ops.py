@@ -54,11 +54,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def branch_counts() -> Dict[str, int]:
-    """Launches of K1 and K4 by branch (``"qap_delta/smem"``,
-    ``"qap_delta/l2"``, ``"qap_sa_step/smem"``, ``"qap_sa_step/l2"``)
-    since the last :func:`reset_launch_counts`."""
+    """Launches of K1, K4, K2 and K5 by branch (``"qap_delta/smem"``,
+    ``"qap_delta/l2"``, ..., ``"qap_ga_step/l2"``) since the last
+    :func:`reset_launch_counts`."""
     return {f"{name}/{branch}": build.BRANCH_LAUNCHES[f"{name}/{branch}"]
-            for name in ("qap_delta", "qap_sa_step")
+            for name in ("qap_delta", "qap_sa_step", "qap_objective",
+                         "qap_ga_step")
             for branch in ("smem", "l2")}
 
 

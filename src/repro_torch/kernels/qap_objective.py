@@ -10,11 +10,15 @@ Replaces the TPU kernel ``repro/kernels/qap_objective.py``
 ``b // (B // B0)`` (the islands of one instance contiguous).  The GA
 scores every island's offspring of a wave with one call per generation.
 
-The kernel (``csrc/qap_objective.cu``) gathers ``M[p[k], p[l]]`` directly
-and takes any order; the TPU kernel's cap (``MAX_KERNEL_N``) was a VMEM
-limit of its one-hot matmul form.  Sums run in another order than the
-plain version's, so the two agree bit for bit on integer-valued instances
-and to a relative 1e-6 elsewhere.
+The kernel (``csrc/qap_objective.cu``) gathers ``M[p[k], p[l]]``
+directly; the TPU kernel's cap (``MAX_KERNEL_N``) was a VMEM limit of its
+one-hot matmul form.  It has two branches, chosen by the order: up to
+:func:`build.dense_smem_max_n` (every dense bucket) a block stages one
+instance's ``C`` and ``M`` in shared memory and scores a slice of its
+permutations, one warp each; above it one block per permutation reads
+``C`` and ``M`` from global memory (L2).  Sums run in another order than
+the plain version's, so the two agree bit for bit on integer-valued
+instances and to a relative 1e-6 elsewhere.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 from ..core import qap
 from . import build
 
-# The kernel keeps one permutation in shared memory, under the default
+# The L2 branch keeps one permutation in shared memory, under the default
 # 48 KB of dynamic shared memory a block may use.
 _SMEM_LIMIT = 48 * 1024
 
@@ -58,11 +62,13 @@ def qap_objective_cuda(C: torch.Tensor, M: torch.Tensor,
     out = torch.empty((B, P), dtype=torch.float32, device=perms.device)
     if B * P == 0:
         return out
-    fn = build.library("qap_objective").qap_objective_launch
-    with torch.cuda.device(perms.device):
-        stream = torch.cuda.current_stream(perms.device).cuda_stream
-        err = fn(C.data_ptr(), M.data_ptr(), perms.data_ptr(), out.data_ptr(),
-                 B * P, n, (B * P) // b0, stream)
+    smem = n <= build.dense_smem_max_n()
+    err = build.library("qap_objective").qap_objective_launch(
+        C.data_ptr(), M.data_ptr(), perms.data_ptr(), out.data_ptr(), B * P,
+        n, (B * P) // b0, perms.device.index,
+        torch.cuda.current_stream(perms.device).cuda_stream)
     build.check(err, "qap_objective")
     build.LAUNCHES["qap_objective"] += 1
+    build.BRANCH_LAUNCHES["qap_objective/smem" if smem
+                          else "qap_objective/l2"] += 1
     return out

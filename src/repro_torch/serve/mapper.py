@@ -388,13 +388,22 @@ class MappingEngine:
 
     # --------------------------------------------------------------- warmup
     def warmup(self, buckets: Optional[Sequence[int]] = None,
-               algorithms: Sequence[str] = ("psa",)) -> int:
+               algorithms: Sequence[str] = ("psa",),
+               tiers: Sequence[str] = ("default",),
+               batch_sizes: Optional[Sequence[int]] = None,
+               warm_starts: Sequence[bool] = (False, True),
+               execute: Optional[bool] = None) -> int:
         """Build the kernels (on the card) and run one dummy wave through
-        each algorithm's solver and the polish of every dense bucket, so
+        the solver of each (bucket, algorithm, tier) and the polish, so
         the first real wave pays neither the build nor first-use costs
         (the multilevel large buckets solve at exact size and are not
         warmed).  Returns the number of dummy waves run (also in
-        ``stats.warmup_programs``)."""
+        ``stats.warmup_programs``).
+
+        The arguments are the reference's and are validated as it
+        validates them; ``batch_sizes``, ``warm_starts`` and ``execute``
+        are otherwise ignored, since the kernels are built once and launch
+        at any wave size, so there is no per-shape program to compile."""
         buckets = self.buckets if buckets is None else tuple(
             sorted(int(b) for b in buckets))
         for b in buckets:
@@ -403,6 +412,11 @@ class MappingEngine:
         for a in algorithms:
             if a not in ALGORITHMS:
                 raise ValueError(f"algorithm must be one of {ALGORITHMS}")
+        for t in tiers:
+            if t not in TIERS:
+                raise ValueError(f"tier must be one of {TIERS}")
+        if batch_sizes is None and not self.pad_batches:
+            raise ValueError("pad_batches=False: pass batch_sizes= explicitly")
         if self.device.type == "cuda":
             build.build_all()
         rng = np.random.RandomState(0)
@@ -414,13 +428,15 @@ class MappingEngine:
             key = keys.prng_key(0, self.device)[None]
             nv = torch.full((1,), bucket, dtype=torch.int64, device=self.device)
             for algorithm in algorithms:
-                p, _ = self._dispatch(algorithm, "default", C, C, key, nv, None)
-                if self.polish_rounds > 0:
-                    mapping_lib.polish_batch(C, C, p, key, self.polish_rounds,
-                                             nv, device=self.device)
+                for tier in tiers:
+                    p, _ = self._dispatch(algorithm, tier, C, C, key, nv, None)
+                    if self.polish_rounds > 0:
+                        mapping_lib.polish_batch(C, C, p, key,
+                                                 self.polish_rounds, nv,
+                                                 device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        count = len(buckets) * len(algorithms)
+        count = len(buckets) * len(algorithms) * len(tiers)
         with self._lock:
             self.stats.warmup_programs += count
         return count

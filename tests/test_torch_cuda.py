@@ -14,7 +14,7 @@ from repro_torch.core import (annealing, exact, genetic, instances,
                               multilevel, sparse)
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.qap_delta import qap_delta_plain
-from repro_torch.kernels.qap_ga_step import qap_ga_step_plain
+from repro_torch.kernels.qap_ga_step import qap_ga_step_plain, smem_branch
 from repro_torch.kernels.qap_objective import qap_objective_plain
 from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
 from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
@@ -48,19 +48,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, nv, shared, seed, device, rpt=RPT, k=K):
-    """Integer instances zero-padded past ``nv``; B0 * rpt chains whose
+def _inputs(n, nv, shared, seed, device, rpt=RPT, k=K, insts=B0):
+    """Integer instances zero-padded past ``nv``; insts * rpt chains whose
     permutations keep the padded tail on itself, with ``k`` candidate
     pairs each, objectives, temperatures, key words and valid orders."""
     rng = np.random.default_rng(seed)
-    b0 = 1 if shared else B0
+    b0 = 1 if shared else insts
     Cs = np.zeros((b0, n, n), np.float32)
     Ms = np.zeros((b0, n, n), np.float32)
     for i in range(b0):
         C = rng.integers(0, 10, (nv, nv)).astype(np.float32)
         M = rng.integers(1, 10, (nv, nv)).astype(np.float32)
         Cs[i, :nv, :nv], Ms[i, :nv, :nv] = C + C.T, M + M.T
-    B = B0 * rpt
+    B = insts * rpt
     ps = np.tile(np.arange(n, dtype=np.int32), (B, 1))
     for r in range(B):
         ps[r, :nv] = rng.permutation(nv)
@@ -78,10 +78,13 @@ def _inputs(n, nv, shared, seed, device, rpt=RPT, k=K):
             t(fs), t(temps), t(keys), t(np.full(B, nv, np.int32)))
 
 
-def _launched_on(kernel, n, before):
+def _launched_on(kernel, n, before, smem=None):
     """One launch of ``kernel`` since ``before`` (``ops.branch_counts()``),
-    on the branch order ``n`` selects."""
-    branch = "smem" if n <= build.dense_smem_max_n() else "l2"
+    on the branch order ``n`` selects (or ``smem`` says, where the order
+    alone does not decide it)."""
+    if smem is None:
+        smem = n <= build.dense_smem_max_n()
+    branch = "smem" if smem else "l2"
     after = ops.branch_counts()
     return {k: after[k] - before[k] for k in after
             if after[k] != before[k]} == {f"{kernel}/{branch}": 1}
@@ -114,12 +117,12 @@ def test_qap_sa_step_kernel_matches_plain(cuda, n, nv, shared, rpt, k):
         assert torch.equal(g, w)
 
 
-def _islands(n, nv, shared, seed, device, pop=32):
-    """B0 * RPT islands of ``pop`` members over integer instances, with
+def _islands(n, nv, shared, seed, device, pop=32, insts=B0, rpt=RPT):
+    """insts * rpt islands of ``pop`` members over integer instances, with
     duplicated members (fitness ties), exact F, key words, valid orders."""
-    C, M, *_ = _inputs(n, nv, shared, seed, device)
+    C, M, *_ = _inputs(n, nv, shared, seed, device, insts=insts)
     rng = np.random.default_rng(seed)
-    B = B0 * RPT
+    B = insts * rpt
     pops = np.tile(np.arange(n, dtype=np.int32), (B, pop, 1))
     for r in range(B):
         for j in range(pop):
@@ -136,8 +139,10 @@ def _islands(n, nv, shared, seed, device, pop=32):
 def test_qap_objective_kernel_matches_plain(cuda, n, nv, shared):
     C, M, pops, *_ = _islands(n, nv, shared, 3 * n + nv, cuda)
     before = ops.launch_counts()["qap_objective"]
+    branches = ops.branch_counts()
     got = ops.qap_objective(C, M, pops)
     assert ops.launch_counts()["qap_objective"] == before + 1
+    assert _launched_on("qap_objective", n, branches)
     assert torch.equal(got, qap_objective_plain(C, M, pops))
 
 
@@ -145,16 +150,42 @@ def test_qap_objective_kernel_matches_plain(cuda, n, nv, shared):
 @pytest.mark.parametrize("n,nv,shared", CASES)
 def test_qap_ga_step_kernel_matches_plain(cuda, n, nv, shared, crossover):
     C, M, pops, fits, keys, nvs = _islands(n, nv, shared, 5 * n + nv, cuda)
+    # 16 children: one warp each; 32: more children than the 16 warps
     for kw in (dict(n_off=16, tournament=2, p_crossover=1.0, p_mutation=0.001),
                dict(n_off=32, tournament=3, p_crossover=0.7, p_mutation=0.3)):
         before = ops.launch_counts()["qap_ga_step"]
+        branches = ops.branch_counts()
         got = ops.qap_ga_step(C, M, pops, fits, keys, nvs, crossover=crossover,
                               **kw)
         assert ops.launch_counts()["qap_ga_step"] == before + 1
+        assert _launched_on("qap_ga_step", n, branches, smem_branch(
+            pops.shape[1], n, kw["n_off"], kw["tournament"]))
         want = qap_ga_step_plain(C, M, pops, fits, keys, nvs,
                                  crossover=crossover, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,nv", [(64, 45), (32, 27)])
+def test_ga_kernels_at_a_three_request_wave(cuda, n, nv):
+    """K2 and K5 at the 64 and 32 buckets' 3-request waves: 3 instances
+    of 2 islands each, 32 members, 16 children, both on the shared-memory
+    branch."""
+    C, M, pops, fits, keys, nvs = _islands(n, nv, False, 7 * n + nv, cuda,
+                                           insts=3, rpt=2)
+    kids = pops[:, :16].contiguous()
+    branches = ops.branch_counts()
+    got = ops.qap_objective(C, M, kids)
+    assert _launched_on("qap_objective", n, branches, True)
+    assert torch.equal(got, qap_objective_plain(C, M, kids))
+    kw = dict(n_off=16, tournament=2, p_crossover=1.0, p_mutation=0.001)
+    before = ops.launch_counts()["qap_ga_step"]
+    branches = ops.branch_counts()
+    got = ops.qap_ga_step(C, M, pops, fits, keys, nvs, **kw)
+    assert ops.launch_counts()["qap_ga_step"] == before + 1
+    assert _launched_on("qap_ga_step", n, branches, True)
+    for g, w in zip(got, qap_ga_step_plain(C, M, pops, fits, keys, nvs, **kw)):
+        assert torch.equal(g, w)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

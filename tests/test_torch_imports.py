@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and neither
-``chip_smoke.py`` nor ``chip_kernels.py`` imports ``jax`` or the
-reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch`` and none of
+the scripts ``chip_smoke.py``, ``chip_kernels.py`` and ``chip_lm_tf.py``
+imports ``jax`` or the reference package ``repro``."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_kernels.py", ROOT / "chip_lm_tf.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -1,6 +1,7 @@
 """The port's MappingEngine against ``repro.serve.MappingEngine``: the
 same requests give the same permutations and objectives, bit for bit."""
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -134,6 +135,61 @@ def test_warmup_runs_each_algorithm():
     assert engine.stats.warmup_programs == 3
     with pytest.raises(ValueError, match="algorithm"):
         engine.warmup(algorithms=("bogus",))
+
+
+def test_warmup_signature_matches_reference():
+    want = inspect.signature(RefEngine.warmup).parameters
+    got = inspect.signature(MappingEngine.warmup).parameters
+    assert list(got) == list(want)
+    assert [p.default for p in got.values()] == \
+        [p.default for p in want.values()]
+
+
+def test_warmup_tiers_and_validation():
+    engine = MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                           **ENGINE_KW)
+    one = engine.warmup(buckets=(8,), tiers=("default",))
+    assert engine.warmup(buckets=(8,), tiers=("default", "tight")) == 2 * one
+    assert engine.stats.warmup_programs == 3 * one
+    # accepted and ignored: nothing is compiled per wave size on the card
+    assert engine.warmup(buckets=(8,), batch_sizes=(1, 4), warm_starts=(False,),
+                         execute=True) == one
+    ref = RefEngine(sa_cfg=jann.SAConfig(**SA_KW), **ENGINE_KW)
+    for eng in (ref, engine):
+        with pytest.raises(ValueError, match="tier must be one of"):
+            eng.warmup(tiers=("loose",))
+        with pytest.raises(ValueError, match="unknown bucket"):
+            eng.warmup(buckets=(64,))
+    for eng in (RefEngine(sa_cfg=jann.SAConfig(**SA_KW), pad_batches=False,
+                          **ENGINE_KW),
+                MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW), device="cpu",
+                              pad_batches=False, **ENGINE_KW)):
+        with pytest.raises(ValueError, match="pad_batches=False: pass "
+                                             "batch_sizes= explicitly"):
+            eng.warmup()
+
+
+@pytest.mark.parametrize("algorithm", ["psa", "pga", "pca"])
+def test_warmup_leaves_results_unchanged(algorithm):
+    """A request mapped after warming both tiers equals one from a cold
+    engine, and the reference's, bit for bit."""
+    def port():
+        return MappingEngine(sa_cfg=annealing.SAConfig(**SA_KW),
+                             ga_cfg=genetic.GAConfig(**GA_KW), device="cpu",
+                             **ENGINE_KW)
+
+    warmed = port()
+    warmed.warmup(buckets=(16,), algorithms=(algorithm,),
+                  tiers=("default", "tight"))
+    C, M = instance(12, 400)
+    got = warmed.map_one(C, M, algorithm, job_id="w")
+    cold = port().map_one(C, M, algorithm, job_id="w")
+    ref = RefEngine(sa_cfg=jann.SAConfig(**SA_KW),
+                    ga_cfg=jgen.GAConfig(**GA_KW),
+                    **ENGINE_KW).map_one(C, M, algorithm, job_id="w")
+    for other in (cold, ref):
+        np.testing.assert_array_equal(got.perm, other.perm)
+        assert got.objective == other.objective
 
 
 def test_max_pending_and_cancel():
