@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the dense mapping kernels of one checkout's port on one NVIDIA GPU,
-and probe which kernels equal their plain versions bit for bit on inputs
-that are not integer-valued.
+"""Time the kernels of one checkout's port on one NVIDIA GPU, and probe
+which kernels equal their plain versions bit for bit on inputs that are
+not integer-valued.
 
 Run from the root of a checkout:
 
-    python3 chip_kernels.py [--src DIR] [--probe]
+    python3 chip_kernels.py [--src DIR] [--probe] [--k7-mt]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be compared in one
@@ -18,12 +18,21 @@ candidates per instance) and K4 ``qap_sa_step`` (16 chains per instance,
 32 instances and the 64 and 32 buckets' waves of 3, and for K2
 ``qap_objective`` (16 children an island) and K5 ``qap_ga_step`` (islands
 of 32), 2 islands a request at the same waves (64 islands at the 128
-bucket, 6 at the others), it prints milliseconds per call by
-CUDA events over a loop of wrapper calls, in a CUDA graph of the same
-calls (device time alone), and their difference: what the host adds per
-call when it, and not the card, sets the pace.  ``--probe`` also runs
-each kernel of the port (K1, K2, K4-K8) and its plain version on random
-real-valued inputs and prints whether they agree bit for bit.
+bucket, 6 at the others), then for K7 ``qap_delta_sparse`` at the
+multilevel route's shapes (the 4096 torus's finest level, n=4096 and ELL
+width 6, and its coarsest, n=128 and width 46, at 4 chains x 16
+candidates; the polish's 1 x 256 on the finest) and K8
+``selective_scan`` at the Jamba prefill's 4 x 512 x 8192, d_state 16,
+it prints milliseconds per call by CUDA events over a loop of wrapper
+calls, in a CUDA graph of the same calls (device time alone), and their
+difference: what the host adds per call when it, and not the card, sets
+the pace.  ``--probe`` also runs each kernel of the port (K1, K2, K4-K8)
+and its plain version on random real-valued inputs and prints whether
+they agree bit for bit.  ``--k7-mt`` also times, in a CUDA graph at
+every level of the 4096 torus (4 chains x 16 candidates) and at the
+polish's 1 x 256, K7 as built (the column terms gathered down columns of
+``M``) against the same kernel with the column terms gathered along rows
+of ``M^T``, a copy of the package's source with only that changed.
 
 The shapes and helpers are those of ``chip_smoke.py``.  Prints the card's
 name and power limit; exits non-zero without a CUDA device.
@@ -62,9 +71,10 @@ def island_perms(order, bucket, islands, pop, device):
 
 
 def timings():
-    """(label, events ms, graph ms) of each dense kernel at the smoke's
-    shapes: K1, K4, K2 and K5 at the 128 bucket's 32-request wave and the
-    64 and 32 buckets' 3-request waves (2 islands a request for K2/K5)."""
+    """(label, events ms, graph ms) of each kernel at the smoke's shapes:
+    K1, K4, K2 and K5 at the 128 bucket's 32-request wave and the 64 and
+    32 buckets' 3-request waves (2 islands a request for K2/K5), then K7
+    and K8 at their routes' shapes."""
     import torch
     import chip_smoke as cs
     from repro_torch.core import annealing, keys, qap
@@ -119,8 +129,143 @@ def timings():
                         C, M, pops, fits, gkeys, gnv, n_off=cs.N_OFF,
                         tournament=2, p_crossover=1.0, p_mutation=0.001,
                         crossover="ox"), 100))
+    out += sparse_delta_rows(dev) + scan_rows(dev)
     return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
             for label, fn, reps in out]
+
+
+def sparse_delta_rows(dev):
+    """K7 at the multilevel route's shapes, as the engine calls it (one
+    instance, batched leaves): the 4096 torus's finest level (n=4096,
+    D=6) and coarsest (n=128, D=46) at the refinement's 4 chains x 16
+    candidates, and the final polish's 1 x 256 on the finest.  A package
+    whose K7 reads M^T gets it made once, outside the loop."""
+    import inspect
+    import chip_smoke as cs
+    from repro_torch.core import keys, qap
+    from repro_torch.kernels.qap_sparse import qap_delta_sparse_cuda
+    takes_mt = "MT" in inspect.signature(qap_delta_sparse_cuda).parameters
+    stack = cs.torus_levels()
+    rows = []
+    for level, chains, k in ((stack[0], cs.ML_CHAINS, cs.ML_K),
+                             (stack[-1], cs.ML_CHAINS, cs.ML_K),
+                             (stack[0], 1, cs.POLISH_K)):
+        C, M = level[0], level[1]
+        n = C.shape[0]
+        S, Mt = cs.flows_pair(C, M, 1, dev)
+        ck = keys.split(keys.prng_key(n + k, dev), chains)
+        p = qap.random_permutation(ck, n)
+        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n)
+        extra = (Mt.transpose(-2, -1).contiguous(),) if takes_mt else ()
+        rows.append((f"K7 N={n} D={S.max_degree} {chains}x{k}",
+                     lambda S=S, Mt=Mt, p=p, pairs=pairs, extra=extra:
+                     qap_delta_sparse_cuda(S, Mt, p, pairs, *extra), 200))
+    return rows
+
+
+def scan_rows(dev):
+    """K8 at the Jamba prefill's shape (4 x 512 x 8192, d_state 16)."""
+    import chip_smoke as cs
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    shape = (cs.LM_BATCH, cs.LM_PROMPT, 8192, 16)
+    args = cs.scan_inputs(shape, dev, sum(shape))
+    return [("K8 " + "x".join(map(str, shape)),
+             lambda: selective_scan_cuda(*args), 50)]
+
+
+# The M^T form of K7: each instance's M is followed by its transpose in
+# one buffer, and the column terms read M^T[v, p[k]] along a row in place
+# of M[p[k], v] down a column.  (old, new) pairs, each found exactly once.
+K7_MT_EDITS = (
+    ("  const float* m = M + inst * N * N;\n",
+     "  const float* m = M + 2 * inst * N * N;\n"
+     "  const float* mt = m + static_cast<size_t>(N) * N;\n"),
+    ("  const float* mv = m + static_cast<size_t>(v) * N;\n",
+     "  const float* mv = m + static_cast<size_t>(v) * N;\n"
+     "  const float* mtu = mt + static_cast<size_t>(u) * N;\n"
+     "  const float* mtv = mt + static_cast<size_t>(v) * N;\n"),
+    ("    const float* mka = m + static_cast<size_t>(prow[ka]) * N;\n"
+     "    const float* mkb = m + static_cast<size_t>(prow[kb]) * N;\n",
+     "    const int pka = prow[ka], pkb = prow[kb];\n"),
+    ("    const float gka = mka[v] - mka[u];\n"
+     "    const float gkb = mkb[v] - mkb[u];\n",
+     "    const float gka = mtv[pka] - mtu[pka];\n"
+     "    const float gkb = mtv[pkb] - mtu[pkb];\n"),
+)
+
+
+def k7_mt_library():
+    """Build the M^T form of this package's K7 into ``build/k7_mt/``
+    with the package's flags; returns it bound as the package binds K7."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build
+    out = os.path.join(ROOT, "build", "k7_mt")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(build.CSRC, out)
+    path = os.path.join(out, "qap_delta_sparse.cu")
+    with open(path) as f:
+        src = f.read()
+    for old, new in K7_MT_EDITS:
+        if src.count(old) != 1:
+            raise RuntimeError(f"K7 source has changed: {old.strip()!r}")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    lib = os.path.join(out, "libqap_delta_sparse.so")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", out, "-o", lib,
+                    path], check=True, capture_output=True, text=True)
+    return build._bind(ctypes.CDLL(lib), build.SIGNATURES["qap_delta_sparse"])
+
+
+def k7_mt_rows():
+    """(label, graph ms reading M, graph ms reading M^T, graph ms reading
+    M^T, graph ms reading M) of K7 at every level of the 4096 torus (4
+    chains x 16 candidates, shared leaves) and the polish's 1 x 256 on the
+    finest, both forms called through the same C entry point; raises if
+    either form differs from the plain version."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import keys, qap
+    from repro_torch.kernels import build
+    from repro_torch.kernels.qap_sparse import qap_delta_sparse_plain
+    dev = torch.device("cuda")
+    forms = {"M": build.library("qap_delta_sparse"), "MT": k7_mt_library()}
+    stack = cs.torus_levels()
+    shapes = [(level, cs.ML_CHAINS, cs.ML_K) for level in stack]
+    rows = []
+    for level, chains, k in shapes + [(stack[0], 1, cs.POLISH_K)]:
+        S, M = cs.flows_pair(level[0], level[1], 0, dev)
+        n = M.shape[-1]
+        ck = keys.split(keys.prng_key(n + k, dev), chains)
+        p = qap.random_permutation(ck, n)
+        pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n)
+        out = torch.empty((chains, k), device=dev)
+
+        def launch(form, M):
+            mat = M if form == "M" else torch.stack([M, M.T]).contiguous()
+            return lambda: build.check(forms[form].qap_delta_sparse_launch(
+                S.cols.data_ptr(), S.vals.data_ptr(), S.cols_t.data_ptr(),
+                S.vals_t.data_ptr(), mat.data_ptr(), p.data_ptr(),
+                pairs.data_ptr(), out.data_ptr(), chains, k, n, S.max_degree,
+                chains, dev.index or 0,
+                torch.cuda.current_stream(dev).cuda_stream), form)
+
+        # checked on an M made asymmetric (the torus's M equals its
+        # transpose, so it would not tell the two matrices apart)
+        skew = M + torch.ones_like(M).triu(1)
+        want = qap_delta_sparse_plain(S, skew, p, pairs)
+        for form in forms:
+            out.zero_()
+            launch(form, skew)()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"K7 reading {form} != plain at N={n}")
+        timed = {form: launch(form, M) for form in forms}
+        rows.append((f"K7 N={n} D={S.max_degree} {chains}x{k}",
+                     *(cs.graph_ms(timed[form], 200)
+                       for form in ("M", "MT", "MT", "M"))))
+    return rows
 
 
 def float_instances(n, count, seed, device):
@@ -203,8 +348,7 @@ def probe():
         record(f"K6 {tag}", ops.qap_objective(S, Md, perms),
                qap_objective_sparse_plain(S, Md, perms))
         pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), 16, n)
-        record(f"K7 {tag}", ops.qap_delta(S, Md, p, pairs, None,
-                                          Md.transpose(0, 1).contiguous()),
+        record(f"K7 {tag}", ops.qap_delta(S, Md, p, pairs),
                qap_delta_sparse_plain(S, Md, p, pairs))
     for shape in ((2, 130, 1024, 16), (2, 49, 200, 4)):
         scan = cs.scan_inputs(shape, dev, sum(shape))
@@ -217,6 +361,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--probe", action="store_true")
+    parser.add_argument("--k7-mt", action="store_true")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -242,6 +387,10 @@ def main():
         for label, same, err, scale in probe():
             print(f"probe {label:18s} bitwise {same}, max abs diff {err:.3e} "
                   f"(max |plain| {scale:.3e})", flush=True)
+    if args.k7_mt:
+        for label, m1, t1, t2, m2 in k7_mt_rows():
+            print(f"k7-mt {label:22s} graph ms reading M {m1:.5f}, M^T "
+                  f"{t1:.5f}, M^T {t2:.5f}, M {m2:.5f}", flush=True)
     return 0
 
 

@@ -577,21 +577,20 @@ def check_qap_delta_sparse(device):
             pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n)
             for mats, b0 in (("shared", 0), ("batched", min(2, chains))):
                 S, Mt = flows_pair(C, M, b0, device)
-                MT = Mt.transpose(-2, -1).contiguous()
-                got = qap_delta_sparse_cuda(S, Mt, p, pairs, MT)
+                launch = lambda: qap_delta_sparse_cuda(S, Mt, p, pairs)
+                got = launch()
                 want = qap_delta_sparse_plain(S, Mt, p, pairs)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 require(torch.equal(got, want), f"qap_delta_sparse {level}/"
                         f"{label}/{mats}: kernel != plain, max err {err}")
-                launch = lambda: qap_delta_sparse_cuda(S, Mt, p, pairs, MT)
                 ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
                 plain = cuda_ms(lambda: qap_delta_sparse_plain(S, Mt, p,
                                                                pairs), 20)
                 bound, by = bound_ms(*delta_sparse_work(S, Mt, p, pairs))
                 out[(level, label, mats)] = dict(
-                    err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=by)
+                    err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain,
+                    bound_ms=bound, bound_by=by)
                 print(f"qap_delta_sparse {level:8s} N={n} D={S.max_degree} "
                       f"{label:6s} {mats:7s} B={chains} K={k}: kernel "
                       f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain "
@@ -845,11 +844,25 @@ def scan_inputs(shape, device, seed):
             -(rand(d, n) * 0.9 + 0.1), randn(bsz, s, n), randn(bsz, s, n))
 
 
+def sfu_floor_ms(count):
+    """Least milliseconds for ``count`` special-function operations (one
+    ``ex2`` in each accurate ``expf``) at 16 a clock per SM, at the card's
+    SM count and its largest SM clock (``nvidia-smi clocks.max.sm``)."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return count / (16 * sms * mhz * 1e6) * 1e3, sms, mhz
+
+
 def check_selective_scan(device):
     """K8 against its plain version at the Jamba prefill's full-width
     shape and at a ragged one: ``y`` and ``h_last`` within 2e-4 of their
     largest magnitude (the reference's kernel-test bar); whether they are
-    bitwise equal is printed."""
+    bitwise equal is printed, and beside the byte bound the floor of its
+    ``expf`` count on the special-function units."""
     import torch
     from repro_torch.kernels.selective_scan import (selective_scan_cuda,
                                                     selective_scan_plain)
@@ -871,11 +884,14 @@ def check_selective_scan(device):
         bsz, s, d, n = shape
         nbytes = 4 * (3 * bsz * s * d + d * n + 2 * bsz * s * n + bsz * d * n)
         bound, by = bound_ms(nbytes, 7 * bsz * s * d * n + bsz * s * d)
-        out[label] = dict(err=err, err_h=err_h, ms=ms, plain_ms=plain,
-                          bound_ms=bound, bound_by=by)
+        sfu, sms, mhz = sfu_floor_ms(bsz * s * d * n)
+        out[label] = dict(err=err, err_h=err_h, ms=ms, graph_ms=dev_ms,
+                          plain_ms=plain, bound_ms=bound, bound_by=by)
         print(f"selective_scan {label:6s} B={bsz} S={s} D={d} N={n}: kernel "
               f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain {plain:.4f} "
-              f"ms, bound {bound:.4f} ms ({by}), max err y {err} h_last "
+              f"ms, bound {bound:.4f} ms ({by}); expf floor {sfu:.4f} ms ("
+              f"{bsz * s * d * n} special-function ops at 16 a clock on "
+              f"{sms} SMs at {mhz:.0f} MHz), max err y {err} h_last "
               f"{err_h}, bitwise y {torch.equal(y, want_y)} h_last "
               f"{torch.equal(h, want_h)}", flush=True)
     return out

@@ -11,8 +11,9 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math.  ``-fmad=false`` keeps
 each multiply and add rounded on its own, as the plain PyTorch versions
 round them.  That makes a kernel equal its plain version bit for bit on
 any input only where it also sums in the plain version's order: K8
-``selective_scan`` does, and so did K7 ``qap_delta_sparse`` on every
-real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4 (its
+``selective_scan``'s final state does (its ``y`` sums the states in
+another order and agrees to 2e-4), and so did K7 ``qap_delta_sparse`` on
+every real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4 (its
 shared-memory branch), K5 and K6 (at ELL width 46) sum in other orders
 and differed there in the last bits; they agree bit for bit on
 integer-valued instances, where every f32 sum is exact in any order,
@@ -59,8 +60,8 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
                     "qap_ga_step_smem_bytes": "i:iiii",
                     "qap_ga_step_smem_warps": "i:iiii"},
     "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiqip"},
-    "qap_delta_sparse": {"qap_delta_sparse_launch": "i:pppppppppiiiiip"},
-    "selective_scan": {"selective_scan_launch": "i:pppppppiiiip"},
+    "qap_delta_sparse": {"qap_delta_sparse_launch": "i:ppppppppiiiiiip"},
+    "selective_scan": {"selective_scan_launch": "i:pppppppiiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "f": ctypes.c_float}

@@ -71,14 +71,12 @@ def reset_launch_counts() -> None:
 def transposes(C, M: torch.Tensor
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(C^T, M^T)`` contiguous, as the kernels read them: made once per
-    solve on the card; ``(None, None)`` for the plain path.  Sparse flows
-    hold both orientations already: ``(None, M^T)``."""
-    if not _route(M):
+    solve on the card; ``(None, None)`` for the plain path and for sparse
+    flows, which hold both orientations of ``C`` already and whose kernel
+    K7 reads ``M`` alone."""
+    if not _route(M) or isinstance(C, SparseFlows):
         return None, None
-    MT = M.transpose(-2, -1).contiguous()
-    if isinstance(C, SparseFlows):
-        return None, MT
-    return C.transpose(-2, -1).contiguous(), MT
+    return C.transpose(-2, -1).contiguous(), M.transpose(-2, -1).contiguous()
 
 
 def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
@@ -91,7 +89,7 @@ def qap_delta(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
     ``SparseFlows`` ``C`` goes to :func:`qap_delta_sparse`.
     """
     if isinstance(C, SparseFlows):
-        return qap_delta_sparse(C, M, p, pairs, MT)
+        return qap_delta_sparse(C, M, p, pairs)
     if _route(p):
         return qap_delta_cuda(C, M, p, pairs, CT, MT)
     return qap_delta_plain(C, M, p, pairs)
@@ -123,14 +121,12 @@ def qap_objective_sparse(S: SparseFlows, M: torch.Tensor,
 
 
 def qap_delta_sparse(S: SparseFlows, M: torch.Tensor, p: torch.Tensor,
-                     pairs: torch.Tensor, MT: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     pairs: torch.Tensor) -> torch.Tensor:
     """Sparse swap deltas ``p (B, N)`` x ``pairs (B, K, 2)`` -> ``(B, K)``
     in O(max degree) each (K7 on the card); ``S``/``M`` as for
-    :func:`qap_objective_sparse`, ``MT`` (``M``'s transpose) used by the
-    kernel only.  Every order, no cap."""
+    :func:`qap_objective_sparse`.  Every order, no cap."""
     if _route(p):
-        return qap_delta_sparse_cuda(S, M, p, pairs, MT)
+        return qap_delta_sparse_cuda(S, M, p, pairs)
     return qap_delta_sparse_plain(S, M, p, pairs)
 
 

@@ -30,8 +30,6 @@ version agree bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from . import build
@@ -125,14 +123,17 @@ def qap_delta_sparse_plain(S, M: torch.Tensor, p: torch.Tensor,
     return col + row + corner
 
 
-def _check_flows(S, M: torch.Tensor, B: int, n: int, *names) -> int:
-    """Validate ``M`` and the named ELL leaves for a kernel; returns B0."""
+def _check_flows(S, M: torch.Tensor, B: int, n: int, leaves: int,
+                 *specs) -> int:
+    """Validate ``M``, the first ``leaves`` ELL leaves of ``S`` (``cols``,
+    ``vals``, ``cols_t``, ``vals_t``) and a kernel's other ``(name,
+    tensor, dtype, shape)`` specs in one pass; returns B0."""
     b0 = build.check_mats(B, n, M=M)
-    ell = (n, S.max_degree) if M.dim() == 2 else (b0, n, S.max_degree)
-    build.check_args(M.device, *(
-        (name, getattr(S, name),
-         torch.int32 if name.startswith("cols") else torch.float32, ell)
-        for name in names))
+    ell = M.shape[:-1] + (S.max_degree,)
+    i32, f32 = torch.int32, torch.float32
+    flows = (("cols", S.cols, i32, ell), ("vals", S.vals, f32, ell),
+             ("cols_t", S.cols_t, i32, ell), ("vals_t", S.vals_t, f32, ell))
+    build.check_args(M.device, *flows[:leaves], *specs)
     return b0
 
 
@@ -144,8 +145,7 @@ def qap_objective_sparse_cuda(S, M: torch.Tensor, perms: torch.Tensor
     if perms.dim() != 3:
         raise ValueError(f"perms must be (B, P, N), got {tuple(perms.shape)}")
     B, P, n = perms.shape
-    b0 = _check_flows(S, M, B, n, "cols", "vals")
-    build.check_args(M.device, ("perms", perms, torch.int32, (B, P, n)))
+    b0 = _check_flows(S, M, B, n, 2, ("perms", perms, torch.int32, (B, P, n)))
     out = torch.empty((B, P), dtype=torch.float32, device=perms.device)
     if B * P == 0:
         return out
@@ -161,30 +161,29 @@ def qap_objective_sparse_cuda(S, M: torch.Tensor, perms: torch.Tensor
 
 
 def qap_delta_sparse_cuda(S, M: torch.Tensor, p: torch.Tensor,
-                          pairs: torch.Tensor,
-                          MT: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          pairs: torch.Tensor) -> torch.Tensor:
     """Launch K7 on the card: same contract as
-    :func:`qap_delta_sparse_plain`, ``p``/``pairs`` int32 CUDA tensors;
-    ``MT`` (``M``'s transpose) defaults to a fresh one."""
-    MT = M.transpose(-2, -1).contiguous() if MT is None else MT
+    :func:`qap_delta_sparse_plain`, ``p``/``pairs`` int32 CUDA tensors
+    (``pairs`` on an 8-byte boundary: the kernel reads a pair as one
+    int2)."""
+    if p.dim() != 2 or pairs.dim() != 3:
+        raise ValueError(f"p must be (B, N) and pairs (B, K, 2), got "
+                         f"{tuple(p.shape)} and {tuple(pairs.shape)}")
     B, n = p.shape
-    if pairs.dim() != 3:
-        raise ValueError(f"pairs must be (B, K, 2), got {tuple(pairs.shape)}")
     k = pairs.shape[1]
-    build.check_mats(B, n, M=M, MT=MT)
-    b0 = _check_flows(S, M, B, n, "cols", "vals", "cols_t", "vals_t")
-    build.check_args(M.device, ("p", p, torch.int32, (B, n)),
-                     ("pairs", pairs, torch.int32, (B, k, 2)))
+    b0 = _check_flows(S, M, B, n, 4, ("p", p, torch.int32, (B, n)),
+                      ("pairs", pairs, torch.int32, (B, k, 2)))
+    if pairs.data_ptr() % 8:
+        raise ValueError("pairs must start on an 8-byte boundary (the kernel "
+                         "reads each pair as one int2)")
     out = torch.empty((B, k), dtype=torch.float32, device=p.device)
     if B * k == 0:
         return out
-    fn = build.library("qap_delta_sparse").qap_delta_sparse_launch
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(S.cols.data_ptr(), S.vals.data_ptr(), S.cols_t.data_ptr(),
-                 S.vals_t.data_ptr(), M.data_ptr(), MT.data_ptr(),
-                 p.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-                 B, k, n, S.max_degree, B // b0, stream)
+    err = build.library("qap_delta_sparse").qap_delta_sparse_launch(
+        S.cols.data_ptr(), S.vals.data_ptr(), S.cols_t.data_ptr(),
+        S.vals_t.data_ptr(), M.data_ptr(), p.data_ptr(), pairs.data_ptr(),
+        out.data_ptr(), B, k, n, S.max_degree, B // b0, p.device.index,
+        torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_delta_sparse")
     build.LAUNCHES["qap_delta_sparse"] += 1
     return out

@@ -72,12 +72,10 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h_last = torch.empty((B, D, N), dtype=f32, device=u.device)
     if B * D == 0:
         return y, h_last
-    fn = build.library("selective_scan").selective_scan_launch
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, D, N,
-                 stream)
+    err = build.library("selective_scan").selective_scan_launch(
+        u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        y.data_ptr(), h_last.data_ptr(), B, S, D, N, u.device.index,
+        torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "selective_scan")
     build.LAUNCHES["selective_scan"] += 1
     return y, h_last

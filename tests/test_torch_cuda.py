@@ -20,7 +20,8 @@ from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
 from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
 from repro_torch import configs
-from repro_torch.kernels.selective_scan import selective_scan_plain
+from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                selective_scan_plain)
 from repro_torch.models.api import Model
 from repro_torch.serve import Engine, MappingEngine, MapRequest, ServeConfig
 
@@ -254,18 +255,23 @@ def test_ga_engine_on_card_matches_engine_on_cpu(cuda, algorithm, ga_eval):
         assert g.objective == c.objective
 
 
-# (n, D): ragged lane edges (D = 1, 31, 33) and the multilevel route's
-# widths (D = 6 at its finest 4096 level, 46 at its coarsest).
-SPARSE_CASES = [(130, 1), (130, 33), (1000, 6), (1000, 31), (4096, 6),
+# (n, D): ragged lane edges (D = 1, 31, 33), both sides of K7's lane-group
+# edges (8 lanes a candidate up to D = 8, 16 up to 16, a warp above), and
+# the multilevel route's widths (D = 6 at its finest 4096 level, 46 at its
+# coarsest).
+SPARSE_CASES = [(130, 1), (130, 8), (130, 9), (130, 16), (130, 17),
+                (130, 33), (1000, 6), (1000, 31), (1000, 32), (4096, 6),
                 (4096, 46)]
 
 
-def _sparse_inputs(n, D, shared, seed, device, chains=8, perms=4):
+def _sparse_inputs(n, D, shared, seed, device, chains=8, perms=4, k=K,
+                   insts=2):
     """Integer ELL flows of max degree exactly D (a circulant with some
-    entries zeroed, row 0 kept full), integer distances, ``chains``
-    permutations, ``perms`` more per chain row, and K candidate pairs."""
+    entries zeroed, row 0 kept full), one shared instance or ``insts``,
+    integer distances, ``chains`` permutations, ``perms`` more per chain
+    row, and ``k`` candidate pairs each."""
     rng = np.random.default_rng(seed)
-    b0 = 1 if shared else 2
+    b0 = 1 if shared else insts
     offsets = rng.choice(np.arange(1, n), D, replace=False)
     rows = np.repeat(np.arange(n), D)
     cols = (rows + np.tile(offsets, n)) % n
@@ -282,11 +288,11 @@ def _sparse_inputs(n, D, shared, seed, device, chains=8, perms=4):
     ps = np.stack([rng.permutation(n) for _ in range(chains)]).astype(np.int32)
     many = np.stack([rng.permutation(n) for _ in range(chains * perms)])
     pairs = np.sort(np.stack([rng.choice(n, 2, replace=False)
-                              for _ in range(chains * K)]), axis=1)
+                              for _ in range(chains * k)]), axis=1)
     t = lambda x: torch.as_tensor(x, device=device)
     return (S, t(Ms[0] if shared else Ms), t(ps),
             t(many.astype(np.int32).reshape(chains, perms, n)),
-            t(pairs.reshape(chains, K, 2).astype(np.int32)))
+            t(pairs.reshape(chains, k, 2).astype(np.int32)))
 
 
 @pytest.mark.parametrize("shared", [True, False])
@@ -303,12 +309,34 @@ def test_qap_objective_sparse_kernel_matches_plain(cuda, n, D, shared):
 @pytest.mark.parametrize("n,D", SPARSE_CASES)
 def test_qap_delta_sparse_kernel_matches_plain(cuda, n, D, shared):
     S, M, p, _, pairs = _sparse_inputs(n, D, shared, 2 * n + D, cuda)
-    _, MT = ops.transposes(S, M)
     before = ops.launch_counts()["qap_delta_sparse"]
-    got = ops.qap_delta(S, M, p, pairs, None, MT)
+    got = ops.qap_delta(S, M, p, pairs)
     assert ops.launch_counts()["qap_delta_sparse"] == before + 1
     assert torch.equal(got, qap_delta_sparse_plain(S, M, p, pairs))
     assert torch.equal(ops.qap_delta_sparse(S, M, p, pairs), got)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n,D", [(130, 8), (130, 9), (1000, 32),
+                                 (4096, 6), (4096, 46)])
+def test_qap_delta_sparse_kernel_at_the_polish_shape(cuda, n, D, shared):
+    """K7 at the polish's one permutation x 256 candidates, shared leaves
+    and the engine's one-instance batch, bit for bit."""
+    S, M, p, _, pairs = _sparse_inputs(n, D, shared, 3 * n + D, cuda,
+                                       chains=1, k=256, insts=1)
+    before = ops.launch_counts()["qap_delta_sparse"]
+    got = ops.qap_delta_sparse(S, M, p, pairs)
+    assert ops.launch_counts()["qap_delta_sparse"] == before + 1
+    assert torch.equal(got, qap_delta_sparse_plain(S, M, p, pairs))
+
+
+def test_sparse_flows_take_no_transposes_on_the_card(cuda):
+    """K7 reads M alone: a solve on sparse flows makes no M^T."""
+    S, M, _, _, _ = _sparse_inputs(130, 6, False, 1, cuda)
+    assert ops.transposes(S, M) == (None, None)
+    C = sparse.to_dense(S)
+    CT, MT = ops.transposes(C, M)
+    assert torch.equal(CT, C.transpose(1, 2)) and torch.equal(MT, M.transpose(1, 2))
 
 
 def test_sparse_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -347,12 +375,7 @@ def test_multilevel_engine_on_card_matches_engine_on_cpu(cuda):
         assert float(r.C.sum()) <= g.objective <= g.baseline
 
 
-@pytest.mark.parametrize("shape", [(2, 49, 200, 4), (2, 130, 1024, 16)])
-def test_selective_scan_kernel_matches_plain(cuda, shape):
-    """K8 at a ragged shape (S and D not multiples of the kernel's 64-step
-    chunk and 128-channel block) and at Jamba's d_state of 16: within
-    2e-4 * max|y| of the plain version (the JAX kernel test's bar), the
-    final state too; both run the same f32 operations in one order."""
+def _scan_args(shape, device):
     bsz, s, d, n = shape
     rng = np.random.default_rng(sum(shape))
     u = torch.as_tensor(rng.standard_normal((bsz, s, d)), dtype=torch.float32)
@@ -361,7 +384,44 @@ def test_selective_scan_kernel_matches_plain(cuda, shape):
     a = torch.as_tensor(-rng.uniform(0.1, 1.0, (d, n)), dtype=torch.float32)
     b = torch.as_tensor(rng.standard_normal((bsz, s, n)), dtype=torch.float32)
     c = torch.as_tensor(rng.standard_normal((bsz, s, n)), dtype=torch.float32)
-    args = [x.to(cuda) for x in (u, dt, a, b, c)]
+    return [x.to(device) for x in (u, dt, a, b, c)]
+
+
+# (B, S, D, N) across K8's tiling (32-step chunks, 32-channel blocks): one
+# chunk and a ragged one, a single ragged channel block, B = 1, and both
+# d_states.
+SCAN_CASES = [(1, 31, 33, 16), (1, 32, 32, 4), (1, 65, 70, 16),
+              (3, 33, 8, 4), (2, 96, 1000, 16)]
+
+
+@pytest.mark.parametrize("shape", SCAN_CASES)
+def test_selective_scan_across_the_tiling_matches_plain(cuda, shape):
+    """K8 from aligned inputs and from a misaligned ``u``: y within
+    2e-4 * max|y| of the plain version, h_last equal to it (h is updated
+    in the plain version's order; only y's sum over the states is
+    reordered)."""
+    args = _scan_args(shape, cuda)
+    want_y, want_h = selective_scan_plain(*args)
+    # u one float past a 16-byte line: the kernel stages 4 bytes a copy
+    odd = torch.empty(args[0].numel() + 1, device=cuda)[1:].view(
+        args[0].shape).copy_(args[0])
+    for u in (args[0], odd):
+        before = ops.launch_counts()["selective_scan"]
+        y, h = selective_scan_cuda(u, *args[1:])
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["selective_scan"] == before + 1
+        assert float((y - want_y).abs().max()) <= \
+            2e-4 * float(want_y.abs().max())
+        assert torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("shape", [(2, 49, 200, 4), (2, 130, 1024, 16)])
+def test_selective_scan_kernel_matches_plain(cuda, shape):
+    """K8 at a ragged shape (S and D not multiples of the kernel's 32-step
+    chunk and 32-channel block) and at Jamba's d_state of 16: within
+    2e-4 * max|y| of the plain version (the JAX kernel test's bar), the
+    final state too."""
+    args = _scan_args(shape, cuda)
     before = ops.launch_counts()["selective_scan"]
     y, h = ops.selective_scan(*args)
     torch.cuda.synchronize()

@@ -20,7 +20,8 @@ from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
 from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                qap_objective_plain)
 from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
-from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+from repro_torch.kernels.qap_sparse import (qap_delta_sparse_cuda,
+                                            qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
 from repro_torch.kernels.selective_scan import (selective_scan_cuda,
                                                 selective_scan_plain)
@@ -255,7 +256,23 @@ def _malformed_calls():
     rng = np.random.default_rng(10)
     scan = [_t(rng.standard_normal(shape).astype(np.float32))
             for shape in ((2, 5, 8), (2, 5, 8), (8, 4), (2, 5, 4), (2, 5, 4))]
+    S = sparse.from_dense(Cs)
+    odd = torch.zeros(pairs.numel() + 1, dtype=torch.int32)[1:].view(
+        pairs.shape)                          # 4 bytes past an 8-byte line
     return {
+        "sparse-delta-pairs-misaligned": (lambda: qap_delta_sparse_cuda(
+            S, Ms, ps, odd), "8-byte"),
+        "sparse-delta-p-rank": (lambda: qap_delta_sparse_cuda(S, Ms, ps[0],
+                                                              pairs), "p must be"),
+        "sparse-delta-M-strided": (lambda: qap_delta_sparse_cuda(
+            S, Ms.transpose(1, 2), ps, pairs), "contiguous float32"),
+        "sparse-delta-vals-f64": (lambda: qap_delta_sparse_cuda(
+            S._replace(vals=S.vals.double()), Ms, ps, pairs), "vals must be"),
+        "sparse-delta-cols_t-f32": (lambda: qap_delta_sparse_cuda(
+            S._replace(cols_t=S.cols_t.float()), Ms, ps, pairs),
+            "cols_t must be"),
+        "scan-d-state": (lambda: selective_scan_cuda(
+            *scan[:2], scan[2].repeat(1, 2), *scan[3:]), "d_state"),
         "scan-u-f64": (lambda: selective_scan_cuda(scan[0].double(), *scan[1:]),
                        "u must be"),
         "scan-c-strided": (lambda: selective_scan_cuda(
