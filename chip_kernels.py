@@ -5,7 +5,7 @@ not integer-valued.
 
 Run from the root of a checkout:
 
-    python3 chip_kernels.py [--src DIR] [--probe] [--k7-mt]
+    python3 chip_kernels.py [--src DIR] [--probe] [--k7-mt] [--k6]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be compared in one
@@ -28,11 +28,20 @@ calls, in a CUDA graph of the same calls (device time alone), and their
 difference: what the host adds per call when it, and not the card, sets
 the pace.  ``--probe`` also runs each kernel of the port (K1, K2, K4-K8)
 and its plain version on random real-valued inputs and prints whether
-they agree bit for bit.  ``--k7-mt`` also times, in a CUDA graph at
-every level of the 4096 torus (4 chains x 16 candidates) and at the
-polish's 1 x 256, K7 as built (the column terms gathered down columns of
-``M``) against the same kernel with the column terms gathered along rows
-of ``M^T``, a copy of the package's source with only that changed.
+they agree bit for bit (and K6 against itself on a second call).
+``--k7-mt`` also times, in a CUDA graph at every level of the 4096 torus
+(4 chains x 16 candidates) and at the polish's 1 x 256, K7 as built (the
+column terms gathered down columns of ``M``) against the same kernel
+with the column terms gathered along rows of ``M^T``, a copy of the
+package's source with only that changed.  ``--k6`` adds K6
+``qap_objective_sparse`` at every level of the 4096 torus at the route's
+1 x 1 and 1 x 4, and at 64 x 4 on the finest and coarsest levels, to the
+timed kernels (any package, so old and new compare), and, for a package
+whose K6 runs one cluster a permutation, times in a CUDA graph its
+cluster capped at 4, 8 and 16 blocks and the variants of
+``K6_STAGE_EDITS`` (where the kernel keeps the permutation; copies of
+the package's source with only that changed, built into
+``build/k6_<i>/``), each checked bit for bit first.
 
 The shapes and helpers are those of ``chip_smoke.py``.  Prints the card's
 name and power limit; exits non-zero without a CUDA device.
@@ -70,11 +79,12 @@ def island_perms(order, bucket, islands, pop, device):
     return qap.masked_random_permutations(ck, pop, bucket, order).contiguous()
 
 
-def timings():
+def timings(k6=False):
     """(label, events ms, graph ms) of each kernel at the smoke's shapes:
     K1, K4, K2 and K5 at the 128 bucket's 32-request wave and the 64 and
     32 buckets' 3-request waves (2 islands a request for K2/K5), then K7
-    and K8 at their routes' shapes."""
+    and K8 at their routes' shapes; with ``k6``, then K6 at the shapes
+    of ``k6_cases``."""
     import torch
     import chip_smoke as cs
     from repro_torch.core import annealing, keys, qap
@@ -130,8 +140,190 @@ def timings():
                         tournament=2, p_crossover=1.0, p_mutation=0.001,
                         crossover="ox"), 100))
     out += sparse_delta_rows(dev) + scan_rows(dev)
+    if k6:
+        out += sparse_objective_rows(dev)
     return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
             for label, fn, reps in out]
+
+
+def k6_cases(dev):
+    """K6's inputs at every level of the 4096 torus at the route's two
+    shapes, 1 x 1 (``make_beta``, ``_seed_chain0``) and 1 x 4 (the chain
+    start), then chip_smoke's wide 64 x 4 on the finest and the coarsest
+    level, in the engine's form (one instance, batched leaves): (label,
+    S, M, perms)."""
+    import chip_smoke as cs
+    from repro_torch.core import keys, qap
+    stack = cs.torus_levels()
+    shapes = [(level, 1, per) for level in stack
+              for per in (1, cs.ML_CHAINS)]
+    cases = []
+    for level, rows, per in shapes + [(stack[0], 64, cs.ML_CHAINS),
+                                      (stack[-1], 64, cs.ML_CHAINS)]:
+        S, M = cs.flows_pair(level[0], level[1], 1, dev)
+        n = M.shape[-1]
+        pk = keys.split(keys.prng_key(n + rows * per, dev), rows * per)
+        perms = qap.random_permutation(pk, n).reshape(rows, per, n)
+        cases.append((f"K6 N={n} D={S.max_degree} {rows}x{per}", S, M,
+                      perms))
+    return cases
+
+
+def sparse_objective_rows(dev):
+    """K6 through the package's wrapper at every level x {1 x 1, 1 x 4}
+    and at 64 x 4 (``k6_cases``): works for any package, so old and new
+    compare."""
+    from repro_torch.kernels.qap_sparse import qap_objective_sparse_cuda
+    return [(label, lambda S=S, M=M, perms=perms:
+             qap_objective_sparse_cuda(S, M, perms), 200)
+            for label, S, M, perms in k6_cases(dev)]
+
+
+# Where K6 keeps the permutation, as edits of the package's source: (old,
+# new) pairs, each found exactly once.  The package reads p through L1.
+_K6_READ = "  auto pget = [&](int i) { return __ldg(p + i); };\n"
+_K6_LAUNCH = "  cfg.blockDim = dim3(kThreads);\n"
+_K6_SLICE_SMEM = (_K6_LAUNCH, _K6_LAUNCH + "  cfg.dynamicSmemBytes = "
+                  "static_cast<size_t>(N / cluster + 1) * sizeof(int);\n")
+K6_STAGE_EDITS = {
+    # each block stages its rows' slice; p[c] outside it through L1
+    "rows' slice": (
+        (_K6_READ,
+         "  extern __shared__ int sp[];\n"
+         "  for (int i = r0 + threadIdx.x; i < r1; i += kThreads)"
+         " sp[i - r0] = p[i];\n"
+         "  __syncthreads();\n"
+         "  auto pget = [&](int i) {\n"
+         "    return static_cast<unsigned>(i - r0) <"
+         " static_cast<unsigned>(r1 - r0) ? sp[i - r0] : __ldg(p + i);\n"
+         "  };\n"),
+        _K6_SLICE_SMEM),
+    # each block stages its rows' slice; every p[.] is read from the block
+    # that owns it over distributed shared memory, after a cluster barrier
+    # (which also stands for the first half of the end's barrier)
+    "DSMEM slices": (
+        ("  cluster_arrive_relaxed();", "  // cluster_arrive_relaxed();"),
+        ("  cluster_wait();  // every block has started",
+         "  // cluster_wait();  // every block has started"),
+        (_K6_READ,
+         "  extern __shared__ int sp[];\n"
+         "  for (int i = r0 + threadIdx.x; i < r1; i += kThreads)"
+         " sp[i - r0] = p[i];\n"
+         "  cluster_arrive();\n"
+         "  cluster_wait();\n"
+         "  auto pget = [&](int i) {\n"
+         "    const int owner = static_cast<int>("
+         "(static_cast<long long>(i + 1) * G - 1) / N);\n"
+         "    const int base = static_cast<int>("
+         "static_cast<long long>(owner) * N / G);\n"
+         "    return *cluster.map_shared_rank(sp + (i - base), owner);\n"
+         "  };\n"),
+        _K6_SLICE_SMEM),
+    # each block stages all of p (up to 48 KB: orders to 12 288)
+    "whole p": (
+        (_K6_READ,
+         "  extern __shared__ int sp[];\n"
+         "  for (int i = threadIdx.x; i < N; i += kThreads) sp[i] = p[i];\n"
+         "  __syncthreads();\n"
+         "  auto pget = [&](int i) { return sp[i]; };\n"),
+        (_K6_LAUNCH, _K6_LAUNCH + "  cfg.dynamicSmemBytes = "
+         "static_cast<size_t>(N) * sizeof(int);\n")),
+}
+
+
+def k6_stage_libraries():
+    """This package's K6 with each of ``K6_STAGE_EDITS`` applied, built
+    with the package's flags into ``build/k6_<i>/``, all at once; returns
+    them by name, bound as the package binds K6.  Raises if the source no
+    longer matches an edit."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build
+    procs = {}
+    for i, (name, edits) in enumerate(K6_STAGE_EDITS.items()):
+        out = os.path.join(ROOT, "build", f"k6_{i}")
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(build.CSRC, out)
+        path = os.path.join(out, "qap_objective_sparse.cu")
+        with open(path) as f:
+            src = f.read()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"K6 source has changed: {old.strip()!r}")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        lib = os.path.join(out, "libqap_objective_sparse.so")
+        procs[name] = (lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", out, "-o", lib, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc K6 {name}:\n{log}")
+        libs[name] = build._bind(ctypes.CDLL(lib),
+                                 build.SIGNATURES["qap_objective_sparse"])
+    return libs
+
+
+def k6_configs():
+    """(label, library, cluster cap) of the K6 variants ``--k6`` times:
+    the package's kernel with its cluster capped at 4, 8 and 16 blocks
+    (16 is the package's own), and the staging variants of
+    ``K6_STAGE_EDITS`` uncapped."""
+    from repro_torch.kernels import build
+    lib = build.library("qap_objective_sparse")
+    configs = [(f"L1 cap {cap}", lib, cap) for cap in (4, 8, 16)]
+    return configs + [(name, stage_lib, 16)
+                      for name, stage_lib in k6_stage_libraries().items()]
+
+
+def k6_rows(configs):
+    """(label, [(config label, G, graph ms, graph ms)]) of K6 at every
+    level x {1 x 1, 1 x 4} and at 64 x 4 (``k6_cases``; G = 1 there
+    whatever the cap): each config checked bit for bit against the
+    plain version, then timed in a CUDA graph in config order and again
+    in reverse; each launch through the C entry point with the cluster
+    ``objective_sparse_launch`` gives, capped at the config's cap."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.qap_sparse import (objective_sparse_launch,
+                                                qap_objective_sparse_plain)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for label, S, M, perms in k6_cases(dev):
+        B, P, n = perms.shape
+        q, d = B * P, S.max_degree
+        want = qap_objective_sparse_plain(S, M, perms)
+        out = torch.empty_like(want)
+
+        def launch(lib, cap):
+            cluster = min(cap, objective_sparse_launch(n, q, sms)[1])
+            grid = q * cluster
+            return cluster, lambda: build.check(
+                lib.qap_objective_sparse_launch(
+                    S.cols.data_ptr(), S.vals.data_ptr(), M.data_ptr(),
+                    perms.data_ptr(), out.data_ptr(), grid, cluster, n, d,
+                    q, dev.index or 0,
+                    torch.cuda.current_stream(dev).cuda_stream), label)
+
+        fns = []
+        for name, lib, cap in configs:
+            cluster, fn = launch(lib, cap)
+            out.zero_()
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"K6 {name} != plain at {label}")
+            fns.append((name, cluster, fn))
+        first = [cs.graph_ms(fn, 200) for _, _, fn in fns]
+        second = [cs.graph_ms(fn, 200) for _, _, fn in reversed(fns)][::-1]
+        rows.append((label, [(name, cluster, a, b) for (name, cluster, _), a, b
+                             in zip(fns, first, second)]))
+    return rows
 
 
 def sparse_delta_rows(dev):
@@ -345,8 +537,9 @@ def probe():
         p = qap.random_permutation(ck, n)
         perms = p.reshape(1, 4, n)
         tag = f"N={n} D={S.max_degree}"
-        record(f"K6 {tag}", ops.qap_objective(S, Md, perms),
-               qap_objective_sparse_plain(S, Md, perms))
+        got = ops.qap_objective(S, Md, perms)
+        record(f"K6 {tag}", got, qap_objective_sparse_plain(S, Md, perms))
+        record(f"K6 {tag} again", ops.qap_objective(S, Md, perms), got)
         pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), 16, n)
         record(f"K7 {tag}", ops.qap_delta(S, Md, p, pairs),
                qap_delta_sparse_plain(S, Md, p, pairs))
@@ -362,6 +555,7 @@ def main():
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--probe", action="store_true")
     parser.add_argument("--k7-mt", action="store_true")
+    parser.add_argument("--k6", action="store_true")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -373,20 +567,25 @@ def main():
         return 1
     sys.path.insert(0, src)
     sys.path.insert(1, ROOT)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, qap_sparse
     build.build_all()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; package {src}", flush=True)
-    for label, ev, gr in timings():
-        print(f"{label:26s} events {ev:.4f} ms, graph {gr:.4f} ms, events - "
+    for label, ev, gr in timings(args.k6):
+        print(f"{label:26s} events {ev:.4f} ms, graph {gr:.5f} ms, events - "
               f"graph {ev - gr:.4f} ms", flush=True)
     if args.probe:
         for label, same, err, scale in probe():
             print(f"probe {label:18s} bitwise {same}, max abs diff {err:.3e} "
                   f"(max |plain| {scale:.3e})", flush=True)
+    if args.k6 and hasattr(qap_sparse, "objective_sparse_launch"):
+        for label, cells in k6_rows(k6_configs()):
+            print(f"k6 {label:20s} graph ms " + "; ".join(
+                f"{name} (G={g}) {a:.5f}, {b:.5f}"
+                for name, g, a, b in cells), flush=True)
     if args.k7_mt:
         for label, m1, t1, t2, m2 in k7_mt_rows():
             print(f"k7-mt {label:22s} graph ms reading M {m1:.5f}, M^T "

@@ -15,7 +15,11 @@ Phases, each of which must pass:
    card, at the shapes the engine gives it (bitwise: the instances are
    integer-valued), and time both, by CUDA events and (the kernel) in a
    CUDA graph; K1, K4, K2 and K5 on both branches, the shared-memory
-   one at the 128 bucket and the L2 one at order 256; then K8
+   one at the 128 bucket and the L2 one at order 256; K6 at every level
+   of the 4096 torus (orders 4096 ... 128, ELL widths 6 ... 46) at the
+   route's 1 x 1 and 1 x 4 and at 64 x 4 on the finest, shared and
+   batched, then on real-valued flows: the same bits on two calls and for
+   a permutation alone, within 1e-5 of the plain version; then K8
    ``selective_scan`` at the Jamba prefill's full-width shape (4 x 512 x
    8192, d_state 16) and a ragged one (2 x 49 x 200, d_state 4), ``y`` and the final state
    within 2e-4 of their largest magnitude;
@@ -600,19 +604,25 @@ def check_qap_delta_sparse(device):
 
 
 def check_qap_objective_sparse(device):
-    """K6 against its plain version on the 4096 torus (D=6): the chain
-    start's shape (1 x 4 permutations, shared leaves and the engine's
-    one-instance batch) and a wider 64 x 4 batch (shared, two
-    instances)."""
+    """K6 against its plain version, bit for bit: at every level of the
+    4096 torus (n 4096 ... 128, D 6 ... 46) at the route's two shapes, 1
+    x 1 (``make_beta``, ``_seed_chain0``) and 1 x 4 (the chain start), and
+    at a wider 64 x 4 batch on the finest level; shared leaves and
+    batched ones (the engine's one instance; two at 64 x 4).  Then on
+    real-valued flows at the finest and coarsest levels: two calls give
+    the same bits, a permutation alone the same bits as in the batch,
+    within 1e-5 of the plain version's largest |F|."""
     import torch
-    from repro_torch.core import keys, qap
+    from repro_torch.core import keys, qap, sparse
     from repro_torch.kernels.qap_sparse import (qap_objective_sparse_cuda,
                                                 qap_objective_sparse_plain)
-    C, M, _, _ = torus_levels()[0]
-    n = C.shape[0]
+    stack = torus_levels()
     out = {}
-    for label, rows, per in (("init", 1, ML_CHAINS), ("wide", 64, ML_CHAINS)):
-        pk = keys.split(keys.prng_key(rows, device), rows * per)
+    cases = [(level, 1, per) for level in stack for per in (1, ML_CHAINS)]
+    for level, rows, per in cases + [(stack[0], 64, ML_CHAINS)]:
+        C, M = level[0], level[1]
+        n = C.shape[0]
+        pk = keys.split(keys.prng_key(rows + per + n, device), rows * per)
         perms = qap.random_permutation(pk, n).reshape(rows, per, n)
         for mats, b0 in (("shared", 0), ("batched", min(2, rows))):
             S, Mt = flows_pair(C, M, b0, device)
@@ -620,19 +630,46 @@ def check_qap_objective_sparse(device):
             want = qap_objective_sparse_plain(S, Mt, perms)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            require(torch.equal(got, want), f"qap_objective_sparse {label}/"
-                    f"{mats}: kernel != plain, max err {err}")
+            require(torch.equal(got, want), f"qap_objective_sparse N={n} "
+                    f"{rows}x{per}/{mats}: kernel != plain, max err {err}")
             launch = lambda: qap_objective_sparse_cuda(S, Mt, perms)
             ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
             plain = cuda_ms(lambda: qap_objective_sparse_plain(S, Mt, perms),
                             20)
             bound, by = bound_ms(*objective_sparse_work(S, Mt, perms))
-            out[(label, mats)] = dict(err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=bound, bound_by=by)
-            print(f"qap_objective_sparse {label:4s} {mats:7s} N={n} "
-                  f"D={S.max_degree} {rows}x{per}: kernel {ms:.4f} ms "
-                  f"({dev_ms:.4f} ms in a graph), plain {plain:.4f} ms, bound "
-                  f"{bound:.6f} ms ({by}), max err {err}", flush=True)
+            out[(n, rows, per, mats)] = dict(err=err, ms=ms, plain_ms=plain,
+                                             bound_ms=bound, bound_by=by)
+            print(f"qap_objective_sparse N={n} D={S.max_degree} {rows}x{per} "
+                  f"{mats:7s}: kernel {ms:.4f} ms ({dev_ms:.5f} ms in a "
+                  f"graph), plain {plain:.4f} ms, bound {bound:.6f} ms "
+                  f"({by}), max err {err}", flush=True)
+    g = torch.Generator().manual_seed(19)
+    for level in (stack[0], stack[-1]):
+        C, M = level[0], level[1]
+        n = C.shape[0]
+        S = sparse.from_dense(C * torch.rand(C.shape, generator=g).numpy(),
+                              device=device)
+        Mr = torch.as_tensor(M, device=device) * torch.rand(
+            M.shape, generator=g).to(device)
+        pk = keys.split(keys.prng_key(n, device), ML_CHAINS)
+        perms = qap.random_permutation(pk, n).reshape(1, ML_CHAINS, n)
+        got = qap_objective_sparse_cuda(S, Mr, perms)
+        again = qap_objective_sparse_cuda(S, Mr, perms)
+        alone = qap_objective_sparse_cuda(S, Mr, perms[:, :1].contiguous())
+        want = qap_objective_sparse_plain(S, Mr, perms)
+        torch.cuda.synchronize()
+        err, scale = (float((got - want).abs().max()),
+                      float(want.abs().max()))
+        require(torch.equal(got, again) and torch.equal(alone[0, 0],
+                                                        got[0, 0]),
+                f"qap_objective_sparse N={n}: real-valued flows gave other "
+                f"bits on another call or alone")
+        require(err <= 1e-5 * scale, f"qap_objective_sparse N={n}: real-"
+                f"valued max err {err} > 1e-5 * {scale}")
+        print(f"qap_objective_sparse N={n} D={S.max_degree} real-valued "
+              f"1x{ML_CHAINS}: the same bits on two calls and alone, max err "
+              f"{err:.3e} against the plain version (max |F| {scale:.4e})",
+              flush=True)
     return out
 
 
@@ -1184,7 +1221,7 @@ def main():
              replaces="src/repro/kernels/qap_sparse.py:78",
              launches=runs["multilevel"]["qap_objective_sparse"],
              max_abs_err=max(v["err"] for v in osp.values()),
-             **{k: osp[("init", "batched")][k]
+             **{k: osp[(4096, 1, ML_CHAINS, "batched")][k]
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              library_ms=None),
         dict(name="qap_delta_sparse", route="cuda",

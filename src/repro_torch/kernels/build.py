@@ -14,8 +14,8 @@ any input only where it also sums in the plain version's order: K8
 ``selective_scan``'s final state does (its ``y`` sums the states in
 another order and agrees to 2e-4), and so did K7 ``qap_delta_sparse`` on
 every real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4 (its
-shared-memory branch), K5 and K6 (at ELL width 46) sum in other orders
-and differed there in the last bits; they agree bit for bit on
+shared-memory branch), K5 and K6 sum in other orders and differed there
+in the last bits; they agree bit for bit on
 integer-valued instances, where every f32 sum is exact in any order,
 and those are what the engine's parity rests on.  ``-Xptxas -v`` leaves
 each kernel's register and shared-memory use in the build log.
@@ -59,7 +59,7 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffiip",
                     "qap_ga_step_smem_bytes": "i:iiii",
                     "qap_ga_step_smem_warps": "i:iiii"},
-    "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiqip"},
+    "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiiqip"},
     "qap_delta_sparse": {"qap_delta_sparse_launch": "i:ppppppppiiiiiip"},
     "selective_scan": {"selective_scan_launch": "i:pppppppiiiiip"},
 }

@@ -27,17 +27,45 @@ objective fell back to its plain version.  The CUDA kernels
 ragged edge instead, take every order, and never fall back.  On
 integer-valued instances every f32 sum is exact, so kernel and plain
 version agree bit for bit.
+
+K6 scores each permutation with one thread-block cluster: G blocks, block
+g the rows ``[g N / G, (g + 1) N / G)``, whose sums rank 0 adds in rank
+order over distributed shared memory, so a result has the same bits on
+every call.  The host picks G from ``N``, the batch and the card's SMs
+(:func:`objective_sparse_launch`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
 
-# K6 stages the permutation in shared memory up to the default 48 KB of
-# dynamic shared memory a block may use; above it, it reads it from
-# global memory (through L1).
-_SMEM_LIMIT = 48 * 1024
+# The most blocks a K6 cluster takes: 16, the largest an H100 schedules
+# (above the portable 8 the launcher allows the non-portable size).  On
+# the 4096 torus's levels at 1 x 1 and 1 x 4, 16 blocks a permutation were
+# the fastest of 4, 8 and 16 (PERF.md).
+K6_MAX_CLUSTER = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def objective_sparse_launch(n: int, perms: int, sms: int):
+    """K6's ``(grid, cluster)`` for ``perms`` permutations of order ``n``
+    on a card of ``sms`` SMs: a cluster of G blocks a permutation, as
+    many as spread the batch over the SMs, ``sms // perms``, at least 1
+    and at most ``K6_MAX_CLUSTER`` and ``n`` (every block has a row).  A
+    batch of up to 8 permutations gets 16 blocks each on an H100 (132
+    SMs); a wide one gets one block each, which keeps every SM busy
+    without blocks that have next to no entries.  The order of the sum
+    follows G, so a permutation's F has the same bits in any batch with
+    the same G (the route's 1 x 1 and 1 x 4 on an H100)."""
+    cluster = max(1, min(K6_MAX_CLUSTER, n, sms // max(perms, 1)))
+    return perms * cluster, cluster
 
 
 def _leaves(S, b0: int, n: int):
@@ -145,16 +173,20 @@ def qap_objective_sparse_cuda(S, M: torch.Tensor, perms: torch.Tensor
     if perms.dim() != 3:
         raise ValueError(f"perms must be (B, P, N), got {tuple(perms.shape)}")
     B, P, n = perms.shape
+    d = S.max_degree
     b0 = _check_flows(S, M, B, n, 2, ("perms", perms, torch.int32, (B, P, n)))
+    if n * d >= 2 ** 31:
+        raise ValueError(f"N * D = {n * d} ELL entries: K6 indexes them "
+                         f"with 32-bit ints")
     out = torch.empty((B, P), dtype=torch.float32, device=perms.device)
     if B * P == 0:
         return out
-    fn = build.library("qap_objective_sparse").qap_objective_sparse_launch
-    with torch.cuda.device(perms.device):
-        stream = torch.cuda.current_stream(perms.device).cuda_stream
-        err = fn(S.cols.data_ptr(), S.vals.data_ptr(), M.data_ptr(),
-                 perms.data_ptr(), out.data_ptr(), B * P, n, S.max_degree,
-                 (B * P) // b0, int(4 * n <= _SMEM_LIMIT), stream)
+    grid, cluster = objective_sparse_launch(n, B * P,
+                                            _sm_count(perms.device.index))
+    err = build.library("qap_objective_sparse").qap_objective_sparse_launch(
+        S.cols.data_ptr(), S.vals.data_ptr(), M.data_ptr(), perms.data_ptr(),
+        out.data_ptr(), grid, cluster, n, d, (B * P) // b0,
+        perms.device.index, torch.cuda.current_stream(perms.device).cuda_stream)
     build.check(err, "qap_objective_sparse")
     build.LAUNCHES["qap_objective_sparse"] += 1
     return out

@@ -6,6 +6,8 @@ dependencies:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,9 @@ from repro_torch.kernels.qap_delta import qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_plain, smem_branch
 from repro_torch.kernels.qap_objective import qap_objective_plain
 from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
-from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+from repro_torch.kernels.qap_sparse import (objective_sparse_launch,
+                                            qap_delta_sparse_plain,
+                                            qap_objective_sparse_cuda,
                                             qap_objective_sparse_plain)
 from repro_torch import configs
 from repro_torch.kernels.selective_scan import (selective_scan_cuda,
@@ -303,6 +307,70 @@ def test_qap_objective_sparse_kernel_matches_plain(cuda, n, D, shared):
     got = ops.qap_objective(S, M, perms)
     assert ops.launch_counts()["qap_objective_sparse"] == before + 1
     assert torch.equal(got, qap_objective_sparse_plain(S, M, perms))
+
+
+@functools.lru_cache(maxsize=None)
+def _torus_levels():
+    """The multilevel route's 4096 torus, coarsened at the default
+    MultilevelConfig: ``[(C, M, ...), ...]``, orders 4096 ... 128 with
+    ELL widths 6, 12, 22, 30, 38, 46."""
+    inst = exact.make_torus((16, 16, 16))
+    return multilevel.coarsen_levels(inst.C, inst.M,
+                                     multilevel.MultilevelConfig())[0]
+
+
+def _level_inputs(level, per, shared, device, real=False):
+    """Level ``level`` of the torus as shared leaves or the engine's
+    one-instance batch, and ``per`` random permutations ``(1, per, N)``;
+    ``real`` scales C and M by uniform weights (no sum exact)."""
+    C, M = _torus_levels()[level][:2]
+    n = C.shape[0]
+    rng = np.random.default_rng(n + per)
+    if real:
+        C = C * rng.random(C.shape).astype(np.float32)
+        M = M * rng.random(M.shape).astype(np.float32)
+    S = sparse.from_dense(C if shared else C[None], device=device)
+    Mt = torch.as_tensor(M if shared else M[None], device=device)
+    perms = np.stack([rng.permutation(n) for _ in range(per)])
+    return S, Mt, torch.as_tensor(perms.astype(np.int32).reshape(1, per, n),
+                                  device=device)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("per", [1, 4, 256])
+@pytest.mark.parametrize("level", range(6))
+def test_qap_objective_sparse_kernel_at_the_torus_levels(cuda, level, per,
+                                                         shared):
+    """K6 at every level of the multilevel route's 4096 torus, at the
+    route's 1 x 1 (``make_beta``, ``_seed_chain0``) and 1 x 4 (chain
+    start), which take 16-block clusters, and at 1 x 256, which takes one
+    block a permutation; shared and batched: one launch a call, equal to
+    the plain version bit for bit."""
+    S, M, perms = _level_inputs(level, per, shared, cuda)
+    before = ops.launch_counts()["qap_objective_sparse"]
+    got = ops.qap_objective_sparse(S, M, perms)
+    assert ops.launch_counts()["qap_objective_sparse"] == before + 1
+    assert torch.equal(got, qap_objective_sparse_plain(S, M, perms))
+
+
+@pytest.mark.parametrize("level", [0, 5])
+def test_qap_objective_sparse_kernel_is_deterministic(cuda, level):
+    """On real-valued flows and distances K6 sums in a fixed order: two
+    calls give the same bits, a permutation scored alone the same bits
+    as in a batch of four (the same cluster on the card), and the result
+    is within 1e-5 of the plain version's largest |F|."""
+    S, M, perms = _level_inputs(level, 4, False, cuda, real=True)
+    n = perms.shape[-1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert objective_sparse_launch(n, 1, sms)[1] == \
+        objective_sparse_launch(n, 4, sms)[1]
+    got = qap_objective_sparse_cuda(S, M, perms)
+    assert torch.equal(qap_objective_sparse_cuda(S, M, perms), got)
+    for j in range(4):
+        one = qap_objective_sparse_cuda(S, M, perms[:, j:j + 1].contiguous())
+        assert torch.equal(one[0, 0], got[0, j])
+    want = qap_objective_sparse_plain(S, M, perms)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("shared", [True, False])

@@ -7,6 +7,7 @@ scan loops, masked and warm-started batches, PGA, polish).  The CUDA
 kernels against the plain versions on the card:
 ``tests/test_torch_cuda.py``."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -24,9 +25,12 @@ from repro.core import sparse as jsparse
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch import convert
-from repro_torch.core import annealing, genetic, mapping, qap, sparse
+from repro_torch.core import (annealing, exact, genetic, mapping, multilevel,
+                              qap, sparse)
 from repro_torch.kernels import ops
-from repro_torch.kernels.qap_sparse import (qap_delta_sparse_plain,
+from repro_torch.kernels.qap_sparse import (K6_MAX_CLUSTER,
+                                            objective_sparse_launch,
+                                            qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
 
 from _fixtures import GA_SMALL, SA_SMALL
@@ -184,6 +188,79 @@ def test_qap_objective_sparse_plain_matches_ref_and_pallas(n, names, shared):
     dense = sparse.to_dense(S)
     assert torch.equal(ops.qap_objective(dense, _t(Ms), _t(perms)), got)
     assert torch.equal(qap.objective(S, _t(Ms), _t(perms)), got)
+
+
+# (N, D) of every level of the multilevel route's 4096 torus, finest first
+# (its coarsening at the default MultilevelConfig).
+TORUS_LEVELS = [(4096, 6), (2048, 12), (1024, 22), (512, 30), (256, 38),
+                (128, 46)]
+
+
+@functools.lru_cache(maxsize=None)
+def _torus_levels():
+    """The (16, 16, 16) torus's level stack, as the multilevel route and
+    ``chip_smoke.torus_levels`` build it: ``[(C, M, ...), ...]``."""
+    inst = exact.make_torus((16, 16, 16))
+    stack, _ = multilevel.coarsen_levels(inst.C, inst.M,
+                                         multilevel.MultilevelConfig())
+    return stack
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("per", [1, 4])
+@pytest.mark.parametrize("level", [-2, -1])
+def test_qap_objective_sparse_plain_at_the_route_shapes(level, per, shared):
+    """K6's plain version on the 4096 torus's two coarsest levels (orders
+    256 and 128, ELL widths 38 and 46) at the route's shapes, 1 x 1 and
+    1 x 4, shared leaves and the engine's one-instance batch: equal to
+    ``ref.qap_objective_sparse_ref`` and the Pallas kernel in interpret
+    mode bit for bit (integer flows)."""
+    stack = _torus_levels()
+    assert [(c.shape[0], sparse.max_degree(c)) for c, *_ in stack] == \
+        TORUS_LEVELS
+    C, M = stack[level][0], stack[level][1]
+    n = C.shape[0]
+    rng = np.random.default_rng(n + per)
+    perms = np.stack([rng.permutation(n) for _ in range(per)]
+                     ).astype(np.int32).reshape(1, per, n)
+    S_ref = jsparse.from_dense(C if shared else C[None])
+    Ms = M if shared else M[None]
+    got = qap_objective_sparse_plain(_port_sparse(S_ref), _t(Ms), _t(perms))
+    pallas = lambda s, m, p: jops.qap_objective_sparse(
+        s, m, p, force_pallas=True, interpret=True)
+    oracle = ref.qap_objective_sparse_ref
+    args = (S_ref, jnp.asarray(Ms), jnp.asarray(perms))
+    if not shared:
+        pallas, oracle = jax.vmap(pallas), jax.vmap(oracle)
+        args = (S_ref, jnp.asarray(Ms), jnp.asarray(perms)[None])
+    assert got.shape == (1, per)
+    want_p = np.asarray(pallas(*args)).reshape(got.shape)
+    want_r = np.asarray(oracle(*args)).reshape(got.shape)
+    assert got.numpy().tobytes() == want_p.tobytes() == want_r.tobytes()
+
+
+@pytest.mark.parametrize("perms", [1, 4, 256])
+@pytest.mark.parametrize("n,d", TORUS_LEVELS + [(130, 8), (5, 3), (1, 1)])
+def test_k6_launch_covers_every_row_once(n, d, perms):
+    """K6's grid is a whole number of clusters, one per permutation, of
+    1 to 16 blocks and at most N; the blocks of a cluster take every row
+    exactly once by the kernel's split (block g the rows [g N / G, (g +
+    1) N / G)), each block at least one, so D or more of the N x D
+    entries.  On an H100 (132 SMs) the route's 1 x 1 and 1 x 4 get the
+    same, largest cluster, and a 256-wide batch one block a
+    permutation."""
+    grid, cluster = objective_sparse_launch(n, perms, 132)
+    assert 1 <= cluster <= min(16, K6_MAX_CLUSTER, n)
+    assert grid % cluster == 0 and grid == perms * cluster
+    assert cluster == (1 if perms == 256 else min(16, n))
+    ranges = [(g * n // cluster, (g + 1) * n // cluster)
+              for g in range(cluster)]
+    assert all(r1 > r0 for r0, r1 in ranges)
+    rows = np.concatenate([np.arange(r0, r1) for r0, r1 in ranges])
+    np.testing.assert_array_equal(rows, np.arange(n))
+    assert sum((r1 - r0) * d for r0, r1 in ranges) == n * d
+    # a card with fewer SMs than the batch still gets one block each
+    assert objective_sparse_launch(n, perms, 1) == (perms, 1)
 
 
 @pytest.mark.parametrize("n,names,shared", KERNEL_CASES)
