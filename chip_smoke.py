@@ -34,7 +34,19 @@ Phases, each of which must pass:
    are set to 0 just before each wave or request and read just after,
    and every K1, K2, K4 and K5 launch there must have taken the
    shared-memory branch;
-   then a seventh route, ``lm-serve``: Jamba-v0.1-52B at full width, 8 of
+   then a seventh route, ``rm-replay``, the control plane: a 24-job
+   ``synthetic_trace`` on the 512-node 8 x 8 x 8 torus through
+   ``ResourceManager``'s defaults (3 candidates, EASY backfilling, psa)
+   over ``MappingEngine(warm_start=False)`` (K1, every launch on the
+   shared-memory branch, one batch a wave); the same trace through a
+   subprocess ``EngineFleet`` of two workers on the card whose worker 0
+   SIGKILLs itself after 4 requests (the same decisions job for job, one
+   death, no failure, free device memory down by at least one CUDA
+   context per child while both live); its first 8 jobs through one
+   engine and a thread fleet under a kill on the card and one engine on
+   the CPU (all three equal); and ``PlacementService.solve_batch`` of the
+   first job's candidates, card == CPU;
+   then an eighth route, ``lm-serve``: Jamba-v0.1-52B at full width, 8 of
    its 32 layers (one ``mMmMaMmM`` super-block), bf16 weights drawn on the
    card from a seeded generator, dropless MoE, served through the port's
    ``Engine.generate``: 4 prompts of 512 tokens, 16 greedy tokens (K8
@@ -84,6 +96,18 @@ N_OFF = GA_KW["pop_size"] // 2
 # polish 1 x 256; the chain start scores 4 permutations per K6 launch.
 ML_TORI = ((8, 8, 8), (32, 32), (16, 16, 16))
 ML_CHAINS, ML_K = 4, 16
+
+# The rm-replay route: the resource manager's defaults (3 candidates from
+# compact/slab/scatter, EASY backfilling, psa) over the engine's default
+# budgets, replaying a synthetic trace on the 512-node 8 x 8 x 8 torus.
+# Offered load about 0.5 x 60 x 41.6 / 512 = 2.4 machines, so a queue
+# builds and backfilling has work; flows are default_flows (integers).
+RM_TORUS = (8, 8, 8)
+RM_TRACE = dict(sizes=(16, 32, 64, 128), weights=(4, 3, 2, 1),
+                arrival_rate=0.5, mean_run_s=60.0, seed=0)
+RM_JOBS, RM_CPU_JOBS = 24, 8
+RM_TIMEOUT_S = 120.0     # children dying in a loop fail the route
+RM_MAX_RESPAWNS = 2
 
 # The lm-serve route: 4 prompts of 512 tokens, 16 new tokens, greedy.
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 16
@@ -869,6 +893,261 @@ def check_multilevel_against_cpu(resps):
           f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
 
 
+def device_memory_used_mib():
+    """The card's used memory by ``nvidia-smi`` (MiB): readable before
+    this process has a CUDA context, unlike ``torch.cuda.mem_get_info``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0])
+
+
+def context_bytes():
+    """Device memory one CUDA context takes: the card's used memory
+    before and after this process creates its own (one 4-byte tensor)."""
+    import torch
+    before = device_memory_used_mib()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    ctx = (device_memory_used_mib() - before) * 2 ** 20
+    require(ctx > 0, f"[rm-replay] a CUDA context measured {ctx} bytes")
+    return ctx
+
+
+def rm_trace(num_jobs):
+    from repro_torch.serve import synthetic_trace
+    return synthetic_trace(num_jobs, **RM_TRACE)
+
+
+def rm_replay(engine, num_jobs):
+    """Replay the trace through ``ResourceManager`` over ``engine``, the
+    launch counts set to 0 just before ``run`` and read just after;
+    returns the manager, its report, the run's wall and the counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ResourceManager
+    rm = ResourceManager(torus(RM_TORUS).M, engine,
+                         map_timeout_s=RM_TIMEOUT_S)
+    for spec in rm_trace(num_jobs):
+        rm.submit_job(spec)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    rep = rm.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return rm, rep, wall, (ops.launch_counts(), ops.branch_counts())
+
+
+def rm_decisions(rm):
+    """Each job's decisions: start and finish, candidate policy, backfill,
+    nodes, permutation and objective."""
+    return {h.job_id: (h.start_s, h.finish_s, h.candidate_policy,
+                       h.backfilled, h.allocation.nodes.tolist(),
+                       h.response.perm.tolist(), h.response.objective)
+            for h in rm.handles}
+
+
+def check_rm_replay(label, rm, rep, wall, counts, num_jobs):
+    """Every job finished with a permutation of its size whose objective
+    is F(perm) recomputed in numpy and no worse than the identity; jobs
+    whose run intervals overlap hold disjoint nodes.  Prints the
+    replay's metrics."""
+    import numpy as np
+    require(rep.jobs == num_jobs and all(h.done() for h in rm.handles),
+            f"[rm-replay] {label}: {rep.jobs} of {num_jobs} jobs finished")
+    for h in rm.handles:
+        n, perm = h.spec.size, np.asarray(h.response.perm)
+        require(perm.shape == (n,) and (np.sort(perm) == np.arange(n)).all(),
+                f"[rm-replay] {label} {h.job_id}: infeasible permutation")
+        M_sub = np.asarray(h.allocation.M_sub, np.float64)
+        f = float((np.asarray(h.C, np.float64)
+                   * M_sub[np.ix_(perm, perm)]).sum())
+        require(f == h.response.objective <= h.response.baseline,
+                f"[rm-replay] {label} {h.job_id}: objective "
+                f"{h.response.objective}, F(perm) {f}, baseline "
+                f"{h.response.baseline}")
+    for i, a in enumerate(rm.handles):
+        for b in rm.handles[i + 1:]:
+            if a.start_s < b.finish_s and b.start_s < a.finish_s:
+                require(not set(a.allocation.nodes.tolist())
+                        & set(b.allocation.nodes.tolist()),
+                        f"[rm-replay] {label}: {a.job_id} and {b.job_id} "
+                        f"overlap in time and share nodes")
+    print(f"[rm-replay] {label}: {rep.jobs} jobs, makespan "
+          f"{rep.makespan_s:.4f} s (virtual), utilization "
+          f"{rep.utilization:.4f}, wait mean / p50 / p99 "
+          f"{rep.mean_wait_s:.4f} / {rep.wait_p50_s:.4f} / "
+          f"{rep.wait_p99_s:.4f} s, backfilled {rep.backfilled}, mean "
+          f"objective {rep.mean_objective:.4f}, mean improvement "
+          f"{rep.mean_improvement:.4f}, candidate waves "
+          f"{rep.candidate_waves}, max batches per wave "
+          f"{rep.max_batches_per_wave}", flush=True)
+    print(f"[rm-replay] {label}: map wall per wave p50 "
+          f"{rep.map_wall_p50_ms:.4f} ms, p99 {rep.map_wall_p99_ms:.4f} ms "
+          f"(host clock; each wave ends in a copy to the host); replay wall "
+          f"{wall:.4f} s; launches {counts[0]}, branches {counts[1]}",
+          flush=True)
+
+
+class MemoryProbe:
+    """A fleet as the manager calls it, reading the card's free memory
+    just before the third wave is submitted: both workers alive, each
+    past its first wave (worker 0 dies in its second, the third overall)."""
+
+    def __init__(self, fleet):
+        self.fleet, self.free, self.apps = fleet, None, None
+
+    def __getattr__(self, name):
+        return getattr(self.fleet, name)
+
+    def submit(self, req):
+        import torch
+        f = self.fleet
+        if (self.free is None and f.stats.dispatched_waves >= 2
+                and all(w.alive and w.completed > 0 for w in f.workers)):
+            self.free = torch.cuda.mem_get_info()[0]
+            self.apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip()
+        return f.submit(req)
+
+
+def fleet_line(label, stats):
+    print(f"[rm-replay] {label} fleet: deaths {stats.worker_deaths}, "
+          f"respawns {stats.respawns}, requeued {stats.requeued}, failed "
+          f"{stats.failed}, first_recovery_s {stats.first_recovery_s}, "
+          f"dispatched waves {stats.dispatched_waves}, solver batches "
+          f"{stats.solver_batches}", flush=True)
+
+
+def drive_rm_replay(ctx_bytes):
+    """The resource manager on the card: (1) the 24-job trace through one
+    engine; (2) through a subprocess fleet of two workers on the card,
+    worker 0 SIGKILLing itself after 4 requests: per job equal to (1),
+    one death, no failure, free device memory down by at least one CUDA
+    context per child while both live; (3) the first 8 jobs through one
+    engine on the card, a thread fleet under a kill on the card and one
+    engine on the CPU: all three equal; (4) ``PlacementService`` on the
+    first job's three candidates, card == CPU.  Returns replay 1's
+    launch counts."""
+    import torch
+    from repro_torch.launch.placement import PlacementService
+    from repro_torch.serve import (ClusterState, EngineFleet, FaultPlan,
+                                   MappingEngine, default_flows)
+    t_route = time.perf_counter()
+    print(f"[rm-replay] {RM_JOBS}-job synthetic_trace({RM_TRACE}) on the "
+          f"{'x'.join(map(str, RM_TORUS))} torus, ResourceManager defaults, "
+          f"MappingEngine(warm_start=False) at the default budgets",
+          flush=True)
+
+    engine = MappingEngine(warm_start=False)
+    t = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"[rm-replay] single engine warmup {time.perf_counter() - t:.3f} "
+          f"s", flush=True)
+    rm1, rep1, wall, counts = rm_replay(engine, RM_JOBS)
+    check_rm_replay("single engine", rm1, rep1, wall, counts, RM_JOBS)
+    require(rep1.max_batches_per_wave == 1,
+            f"[rm-replay] {rep1.max_batches_per_wave} batches in a wave")
+    require(counts[0]["qap_delta"] > 0, "[rm-replay] launched no qap_delta")
+    require_smem_branch("rm-replay", *counts)
+    first = rm_decisions(rm1)
+
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    fleet = EngineFleet(workers=2, transport="subprocess",
+                        fault_plan=FaultPlan(sigkill_worker_at={0: 4}),
+                        warm_start=False).start()
+    probe = MemoryProbe(fleet)
+    try:
+        rm2, rep2, wall, counts2 = rm_replay(probe, RM_JOBS)
+    finally:
+        fleet.stop()
+    free_after = torch.cuda.mem_get_info()[0]
+    check_rm_replay("subprocess fleet, SIGKILL", rm2, rep2, wall, counts2,
+                    RM_JOBS)
+    print("[rm-replay] (the subprocess fleet's launches are counted in its "
+          "children, not here)", flush=True)
+    fleet_line("subprocess", fleet.stats)
+    require(probe.free is not None, "[rm-replay] memory probe never ran")
+    drop = free0 - probe.free
+    print(f"[rm-replay] free device memory {free0 / 2 ** 30:.3f} GiB before "
+          f"the fleet, {probe.free / 2 ** 30:.3f} GiB with both children "
+          f"alive (down {drop / 2 ** 20:.1f} MiB; one CUDA context "
+          f"{ctx_bytes / 2 ** 20:.1f} MiB), {free_after / 2 ** 30:.3f} GiB "
+          f"after stop; nvidia-smi compute apps: {probe.apps!r}", flush=True)
+    require(drop >= 2 * ctx_bytes, f"[rm-replay] free memory down "
+            f"{drop} bytes with two children alive, less than two CUDA "
+            f"contexts ({ctx_bytes} bytes each): the children are not on "
+            f"the card")
+    st = fleet.stats
+    require(st.worker_deaths == 1 and st.failed == 0
+            and st.respawns <= RM_MAX_RESPAWNS,
+            f"[rm-replay] subprocess fleet: deaths {st.worker_deaths}, "
+            f"failed {st.failed}, respawns {st.respawns}")
+    require(rm_decisions(rm2) == first,
+            "[rm-replay] subprocess fleet decisions != single engine's")
+    skip = ("map_wall_p50_ms", "map_wall_p99_ms", "max_batches_per_wave")
+    require({k: v for k, v in rep2.asdict().items() if k not in skip}
+            == {k: v for k, v in rep1.asdict().items() if k not in skip},
+            "[rm-replay] subprocess fleet report != single engine's")
+
+    short = {}
+    rm3, rep3, wall, counts3 = rm_replay(MappingEngine(warm_start=False),
+                                         RM_CPU_JOBS)
+    check_rm_replay(f"{RM_CPU_JOBS} jobs, single engine", rm3, rep3, wall,
+                    counts3, RM_CPU_JOBS)
+    short["card"] = rm_decisions(rm3)
+    fleet = EngineFleet(workers=2, fault_plan=FaultPlan(kill_worker_at={1: 2}),
+                        warm_start=False)
+    try:
+        rm4, rep4, wall, counts4 = rm_replay(fleet, RM_CPU_JOBS)
+    finally:
+        fleet.stop()
+    check_rm_replay(f"{RM_CPU_JOBS} jobs, thread fleet, kill", rm4, rep4,
+                    wall, counts4, RM_CPU_JOBS)
+    fleet_line("thread", fleet.stats)
+    require(fleet.stats.worker_deaths == 1 and fleet.stats.failed == 0,
+            "[rm-replay] thread fleet: deaths or failures off the plan")
+    require(counts4[0]["qap_delta"] > 0,
+            "[rm-replay] thread fleet launched no qap_delta")
+    short["thread fleet"] = rm_decisions(rm4)
+    rm5, rep5, wall, _ = rm_replay(MappingEngine(warm_start=False,
+                                                 device="cpu"), RM_CPU_JOBS)
+    print(f"[rm-replay] {RM_CPU_JOBS} jobs on the cpu: {wall:.1f} s",
+          flush=True)
+    short["cpu"] = rm_decisions(rm5)
+    require(short["card"] == short["thread fleet"] == short["cpu"],
+            "[rm-replay] 8-job trace: card, thread fleet and cpu disagree")
+    print(f"[rm-replay] {RM_CPU_JOBS}-job trace: card == thread fleet == cpu",
+          flush=True)
+
+    spec = rm_trace(1)[0]
+    cands = ClusterState(torus(RM_TORUS).M).candidate_subsets(spec.size)
+    insts = [(default_flows(spec.size, spec.seed), c.M_sub) for c in cands]
+    placed = {}
+    for device in ("cuda", "cpu"):
+        svc = PlacementService(device=device)
+        t = time.perf_counter()
+        placed[device] = [(r.perm.tolist(), r.cost_before, r.cost_after)
+                          for r in svc.solve_batch(insts)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        print(f"[rm-replay] placement of {spec.job_id}'s {len(insts)} "
+              f"candidates (order {spec.size}) on {device}: "
+              f"{time.perf_counter() - t:.3f} s, F {[p[2] for p in placed[device]]}"
+              f" of identity {[p[1] for p in placed[device]]}", flush=True)
+        svc.close()
+    require(placed["cuda"] == placed["cpu"],
+            "[rm-replay] placement: card != cpu")
+    print(f"[rm-replay] route wall {time.perf_counter() - t_route:.1f} s",
+          flush=True)
+    return counts[0]
+
+
 def scan_inputs(shape, device, seed):
     """u, dt, a, b, c for K8 in the ranges of the reference's kernel test
     (dt in [0.001, 0.1], a in [-1, -0.1]), drawn on the card."""
@@ -1161,6 +1440,7 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
+    ctx_bytes = context_bytes()
     device = torch.device("cuda")
     delta = check_qap_delta(device)
     sa = check_qap_sa_step(device)
@@ -1184,6 +1464,7 @@ def main():
         require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
     ml_resps, runs["multilevel"] = drive_multilevel()
     check_multilevel_against_cpu(ml_resps)
+    runs["rm-replay"] = drive_rm_replay(ctx_bytes)
     runs["lm-serve"] = drive_lm_serve()
     check_lm_against_cpu()
 

@@ -20,8 +20,10 @@ integer-valued instances, where every f32 sum is exact in any order,
 and those are what the engine's parity rests on.  ``-Xptxas -v`` leaves
 each kernel's register and shared-memory use in the build log.
 
-Every launch also adds one to ``LAUNCHES[name]``: the count a run reads
-to show that its work went through the kernel.  The wrappers validate
+Every launch also adds one to ``LAUNCHES[name]`` (:func:`count_launch`,
+under a lock, since engines of a thread-backed fleet launch from several
+threads): the count a run reads to show that its work went through the
+kernel.  The wrappers validate
 what they hand a kernel with :func:`check_mats` and :func:`check_args`
 before any pointer leaves Python.
 """
@@ -36,7 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -70,6 +72,9 @@ LAUNCHES: "collections.Counter[str]" = collections.Counter()
 # Launches by branch, for the kernels with two (K1, K2, K4, K5:
 # "qap_delta/smem", "qap_delta/l2", ...); cleared with LAUNCHES.
 BRANCH_LAUNCHES: "collections.Counter[str]" = collections.Counter()
+# Guards both counters: a Counter increment is a read then a write, so two
+# threads launching at once would lose counts without it.
+COUNT_LOCK = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _log: Dict[str, str] = {}
@@ -153,6 +158,15 @@ def dense_smem_max_n() -> int:
     their L2 branch (K1 and K4 read the transposes there too).  K5's
     threshold also counts the population (``qap_ga_step.smem_branch``)."""
     return library("qap_delta").qap_delta_smem_max_n()
+
+
+def count_launch(name: str, branch: Optional[str] = None) -> None:
+    """Add one launch of kernel ``name`` (and of its ``branch``, for the
+    kernels with two) to the counts, under :data:`COUNT_LOCK`."""
+    with COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if branch is not None:
+            BRANCH_LAUNCHES[f"{name}/{branch}"] += 1
 
 
 def check(err: int, name: str) -> None:

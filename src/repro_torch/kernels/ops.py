@@ -50,22 +50,25 @@ def _route(t: torch.Tensor) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: build.LAUNCHES[name] for name in build.KERNELS}
+    with build.COUNT_LOCK:
+        return {name: build.LAUNCHES[name] for name in build.KERNELS}
 
 
 def branch_counts() -> Dict[str, int]:
     """Launches of K1, K4, K2 and K5 by branch (``"qap_delta/smem"``,
     ``"qap_delta/l2"``, ..., ``"qap_ga_step/l2"``) since the last
     :func:`reset_launch_counts`."""
-    return {f"{name}/{branch}": build.BRANCH_LAUNCHES[f"{name}/{branch}"]
-            for name in ("qap_delta", "qap_sa_step", "qap_objective",
-                         "qap_ga_step")
-            for branch in ("smem", "l2")}
+    with build.COUNT_LOCK:
+        return {f"{name}/{branch}": build.BRANCH_LAUNCHES[f"{name}/{branch}"]
+                for name in ("qap_delta", "qap_sa_step", "qap_objective",
+                             "qap_ga_step")
+                for branch in ("smem", "l2")}
 
 
 def reset_launch_counts() -> None:
-    build.LAUNCHES.clear()
-    build.BRANCH_LAUNCHES.clear()
+    with build.COUNT_LOCK:
+        build.LAUNCHES.clear()
+        build.BRANCH_LAUNCHES.clear()
 
 
 def transposes(C, M: torch.Tensor

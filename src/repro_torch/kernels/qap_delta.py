@@ -103,6 +103,5 @@ def qap_delta_cuda(C: torch.Tensor, M: torch.Tensor, p: torch.Tensor,
         out.data_ptr(), B, k, n, B // b0, p.device.index,
         torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_delta")
-    build.LAUNCHES["qap_delta"] += 1
-    build.BRANCH_LAUNCHES["qap_delta/smem" if smem else "qap_delta/l2"] += 1
+    build.count_launch("qap_delta", "smem" if smem else "l2")
     return out

@@ -94,7 +94,5 @@ def qap_ga_step_cuda(C, M, pop, fit, keys, n_valid, *, n_off: int,
         int(crossover == "oxs"), pop.device.index,
         torch.cuda.current_stream(pop.device).cuda_stream)
     build.check(err, "qap_ga_step")
-    build.LAUNCHES["qap_ga_step"] += 1
-    build.BRANCH_LAUNCHES["qap_ga_step/smem" if warps > 0
-                          else "qap_ga_step/l2"] += 1
+    build.count_launch("qap_ga_step", "smem" if warps > 0 else "l2")
     return pop_out, fit_out

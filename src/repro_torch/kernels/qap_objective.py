@@ -68,7 +68,5 @@ def qap_objective_cuda(C: torch.Tensor, M: torch.Tensor,
         n, (B * P) // b0, perms.device.index,
         torch.cuda.current_stream(perms.device).cuda_stream)
     build.check(err, "qap_objective")
-    build.LAUNCHES["qap_objective"] += 1
-    build.BRANCH_LAUNCHES["qap_objective/smem" if smem
-                          else "qap_objective/l2"] += 1
+    build.count_launch("qap_objective", "smem" if smem else "l2")
     return out

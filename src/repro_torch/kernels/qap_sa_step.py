@@ -129,9 +129,7 @@ def qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
         max_neighbors, max_success, p.device.index,
         torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_sa_step")
-    build.LAUNCHES["qap_sa_step"] += 1
-    build.BRANCH_LAUNCHES["qap_sa_step/smem" if smem
-                          else "qap_sa_step/l2"] += 1
+    build.count_launch("qap_sa_step", "smem" if smem else "l2")
     p_out, bp_out = perms.unbind(0)
     f_out, bf_out = fs.unbind(0)
     return p_out, f_out, bp_out, bf_out

@@ -188,7 +188,7 @@ def qap_objective_sparse_cuda(S, M: torch.Tensor, perms: torch.Tensor
         out.data_ptr(), grid, cluster, n, d, (B * P) // b0,
         perms.device.index, torch.cuda.current_stream(perms.device).cuda_stream)
     build.check(err, "qap_objective_sparse")
-    build.LAUNCHES["qap_objective_sparse"] += 1
+    build.count_launch("qap_objective_sparse")
     return out
 
 
@@ -217,5 +217,5 @@ def qap_delta_sparse_cuda(S, M: torch.Tensor, p: torch.Tensor,
         out.data_ptr(), B, k, n, S.max_degree, B // b0, p.device.index,
         torch.cuda.current_stream(p.device).cuda_stream)
     build.check(err, "qap_delta_sparse")
-    build.LAUNCHES["qap_delta_sparse"] += 1
+    build.count_launch("qap_delta_sparse")
     return out

@@ -77,5 +77,5 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         y.data_ptr(), h_last.data_ptr(), B, S, D, N, u.device.index,
         torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "selective_scan")
-    build.LAUNCHES["selective_scan"] += 1
+    build.count_launch("selective_scan")
     return y, h_last

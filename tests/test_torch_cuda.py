@@ -443,6 +443,40 @@ def test_multilevel_engine_on_card_matches_engine_on_cpu(cuda):
         assert float(r.C.sum()) <= g.objective <= g.baseline
 
 
+def test_resource_manager_on_card_matches_cpu(cuda):
+    """A small trace through the manager: one engine on the card, a
+    subprocess fleet on the card whose worker 0 SIGKILLs itself, and one
+    engine on the CPU make the same decisions."""
+    from repro_torch.serve import (EngineFleet, FaultPlan, ResourceManager,
+                                   synthetic_trace)
+    kw = dict(sa_cfg=annealing.SAConfig(max_neighbors=10, iters_per_exchange=8,
+                                        num_exchanges=4, solvers=4),
+              buckets=(8, 16), polish_rounds=20, warm_start=False)
+    M = exact.torus_distance_matrix((4, 4, 2))
+
+    def replay(engine):
+        rm = ResourceManager(M, engine, map_timeout_s=120.0)
+        for spec in synthetic_trace(6, sizes=(4, 8, 16), arrival_rate=0.5,
+                                    mean_run_s=20.0, seed=1):
+            rm.submit_job(spec)
+        rm.run()
+        return {h.job_id: (h.start_s, h.allocation.nodes.tolist(),
+                           h.response.perm.tolist(), h.response.objective)
+                for h in rm.handles}
+
+    ops.reset_launch_counts()
+    card = replay(MappingEngine(**kw))
+    assert ops.launch_counts()["qap_delta"] > 0
+    fleet = EngineFleet(workers=2, transport="subprocess",
+                        fault_plan=FaultPlan(sigkill_worker_at={0: 2}), **kw)
+    try:
+        assert replay(fleet) == card
+    finally:
+        fleet.stop()
+    assert fleet.stats.worker_deaths == 1 and fleet.stats.failed == 0
+    assert replay(MappingEngine(device="cpu", **kw)) == card
+
+
 def _scan_args(shape, device):
     bsz, s, d, n = shape
     rng = np.random.default_rng(sum(shape))

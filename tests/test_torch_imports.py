@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.exact, repro_torch.core.multilevel, "
             "repro_torch.core.sparse, repro_torch.kernels.ops, "
             "repro_torch.models.transformer, repro_torch.serve.engine, "
-            "repro_torch.configs, repro_torch.launch.serve; "
+            "repro_torch.configs, repro_torch.launch.serve, "
+            "repro_torch.serve.cluster, repro_torch.serve.transport, "
+            "repro_torch.serve.fleet, repro_torch.serve.rm, "
+            "repro_torch.serve.trace, repro_torch.launch.placement; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -45,3 +48,22 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_subprocess_worker_child_runs_the_port():
+    """The code ``SubprocessWorker.start`` hands ``python -c``: its import
+    part, run in a fresh interpreter, loads the port's transport module as
+    the worker, and neither JAX nor the reference package."""
+    from repro_torch.serve import transport
+    imports, call = transport.WORKER_COMMAND.rsplit("; ", 1)
+    assert call == "sys.exit(worker_main())"
+    code = (imports + "; import sys; "
+            "print(worker_main.__module__); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split("\n")[0] == "repro_torch.serve.transport"
