@@ -51,6 +51,13 @@ Phases, each of which must pass:
    card from a seeded generator, dropless MoE, served through the port's
    ``Engine.generate``: 4 prompts of 512 tokens, 16 greedy tokens (K8
    once per Mamba layer of the prefill: 7 launches);
+   then a ninth route, ``paper``: the port's harness (``benchmarks_torch``)
+   on the card -- Table 1 at all seven taiXe orders 27-729
+   (``PAPER_SCALE``, one run a cell; orders 175/343/729 run K1 and K2 on
+   their L2 branches, which must launch), Figs 1-7 at the harness's
+   default scale, the dry runs of ``scheduler_sim``, ``mapper_throughput``
+   and ``sparse_scale``, and ``kernel_micro``; before it, K1 and K2 on
+   Table 1's tai343 and tai729 against their plain versions;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -61,13 +68,18 @@ Phases, each of which must pass:
    within 1e-3 of their largest magnitude; the served bf16 arithmetic's
    agreement over 16 prompts is printed), and Jamba's ``SMOKE`` width
    in f32 on the card against the CPU (the same greedy tokens, prefill
-   logits within 1e-4 of their largest magnitude).
+   logits within 1e-4 of their largest magnitude); on ``paper``, every
+   Table 1 and figure row's permutation scoring its reported F in numpy
+   float64 (exactly while F < 2^24, else within n * 2^-24 of F, f32's
+   rounding) and no better than F0, and Table 1's rows at orders 27 and
+   45 and ``scheduler_sim``'s dry-run replay card == CPU.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  It exits non-zero, printing
 no result, when there is no CUDA device or no ``src/repro_torch`` beside
 it.  It imports nothing of JAX or of the reference package.
 """
+import contextlib
 import functools
 import json
 import os
@@ -112,6 +124,18 @@ RM_MAX_RESPAWNS = 2
 # The lm-serve route: 4 prompts of 512 tokens, 16 new tokens, greedy.
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 16
 LM_TF_ROWS = 16          # prompts in the bf16 teacher-forcing measurement
+
+# The paper route: the port's harness (benchmarks_torch/) -- Table 1 at
+# all seven taiXe orders at PAPER_SCALE with one run a cell, Figs 1-7 at
+# the harness's default scale, the service benchmarks' dry runs and the
+# kernel microbenchmarks.  Table 1's orders 175/343/729 run K1 and K2 on
+# their L2 branches.  Card == CPU on Table 1's orders 27 and 45 at
+# PAPER_CPU_SCALE and on scheduler_sim's dry-run replay.
+PAPER_SCALE = 0.25
+PAPER_FIG_SCALE = 0.02
+PAPER_CPU_SCALE, PAPER_CPU_ORDERS = 0.02, (27, 45)
+F32_EXACT = 2 ** 24      # integers above it are not all f32 numbers
+PAPER_KERNEL_ORDERS = (343, 729)
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -1414,6 +1438,203 @@ def check_lm_against_cpu():
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
+def paper_modules():
+    """The port's harness, imported from the checkout's root."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import importlib
+    names = ("common", "table1_accuracy", "fig1_2_maxneighbors",
+             "fig3_temperature", "fig4_exchange_period", "fig5_solvers",
+             "fig6_7_processes", "scheduler_sim", "mapper_throughput",
+             "sparse_scale", "kernel_micro")
+    return {n: importlib.import_module(f"benchmarks_torch.{n}") for n in names}
+
+
+@contextlib.contextmanager
+def bench_budget(common, scale, runs):
+    """``common.SCALE``/``RUNS`` set for a block, restored after it."""
+    old = common.SCALE, common.RUNS
+    common.SCALE, common.RUNS = scale, runs
+    try:
+        yield
+    finally:
+        common.SCALE, common.RUNS = old
+
+
+def f_rtol(n, f):
+    """How far a reported f32 objective may lie from the exact F: none
+    while F is below 2^24 (every partial sum an exact f32 integer), else
+    n * 2^-24 of F (the roundings of summing n exact row sums, or of a
+    chain's running F plus exact deltas)."""
+    return 0.0 if f < F32_EXACT else n * 2.0 ** -24 * f
+
+
+def check_paper_row(row):
+    """A harness row's permutation is feasible, its exact F(perm) (numpy
+    float64) is the reported F (see ``f_rtol``) and no better than the
+    instance's known optimum."""
+    import numpy as np
+    from repro_torch.core import instances
+    inst = instances.get_instance(row.order)
+    n = row.order
+    perm = np.asarray(row.perm)
+    require(perm.shape == (n,) and (np.sort(perm) == np.arange(n)).all(),
+            f"[paper] {row.name}: infeasible permutation")
+    f = float((inst.C.astype(np.float64)
+               * inst.M.astype(np.float64)[np.ix_(perm, perm)]).sum())
+    require(abs(f - row.f) <= f_rtol(n, f),
+            f"[paper] {row.name}: reported F {row.f} != F(perm) {f}")
+    require(inst.optimum <= f and inst.optimum <= row.f,
+            f"[paper] {row.name}: F {row.f} (F(perm) {f}) below F0 "
+            f"{inst.optimum}")
+    print(f"[paper] {row.name}: T {row.seconds:.4f} s, {row.derived}, "
+          f"F(perm) {f:.0f}", flush=True)
+
+
+def check_paper_kernels(device):
+    """K1 and K2 against their plain versions on Table 1's real taiXe
+    instances at orders 343 and 729 (the L2 branches), at the shapes
+    Table 1 gives them: PSA's 4 x 8 chains x 50 candidates and PGA's 4
+    islands x 64 children (pop 128); K1 bitwise, K2 within ``f_rtol``;
+    timed by CUDA events and in a CUDA graph, beside their bounds."""
+    import torch
+    from repro_torch.core import instances, keys, qap
+    from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
+    from repro_torch.kernels.qap_objective import (qap_objective_cuda,
+                                                   qap_objective_plain)
+    out = {}
+    for n in PAPER_KERNEL_ORDERS:
+        inst = instances.get_instance(n)
+        C = torch.as_tensor(inst.C, device=device)
+        M = torch.as_tensor(inst.M, device=device)
+        CT, MT = C.t().contiguous(), M.t().contiguous()
+        base = keys.prng_key(n, device)
+        p = qap.random_permutations(base, 32, n)
+        pairs = qap.random_swap_pairs(keys.split(keys.fold_in(base, 1), 32),
+                                      50, n)
+        pops = qap.random_permutations(keys.split(keys.fold_in(base, 2), 4),
+                                       64, n)
+        io = 32 * n + 32 * 50 * 3                # p; pairs in, deltas out
+        for kernel, launch, plain, (nbytes, flops) in (
+                ("qap_delta", lambda: qap_delta_cuda(C, M, p, pairs, CT, MT),
+                 lambda: qap_delta_plain(C, M, p, pairs),
+                 (4 * (2 * n * n + io), 8 * n * 32 * 50)),
+                ("qap_objective", lambda: qap_objective_cuda(C, M, pops),
+                 lambda: qap_objective_plain(C, M, pops),
+                 (4 * (2 * n * n + 256 * n + 256), 2 * n * n * 256))):
+            got = branch_launched(kernel, "l2", launch)
+            want = plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = 0.0 if kernel == "qap_delta" else f_rtol(
+                n, float(want.abs().max()))
+            require(err <= tol, f"[paper] {kernel} at tai{n}: kernel != "
+                    f"plain, max err {err} (allowed {tol})")
+            ms, dev_ms = cuda_ms(launch, 50), graph_ms(launch, 50)
+            bound, by = bound_ms(nbytes, flops)
+            out[(kernel, n)] = dict(err=err, ms=ms, graph_ms=dev_ms,
+                                    bound_ms=bound, bound_by=by)
+            print(f"[paper] {kernel} on tai{n}e01s {tuple(got.shape)} (l2 "
+                  f"branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms in a "
+                  f"graph), bound {bound:.4f} ms ({by}), max err {err} "
+                  f"(allowed {tol})", flush=True)
+    return out
+
+
+def drive_paper():
+    """The port's harness on the card: Table 1 at all seven orders
+    (PAPER_SCALE, one run a cell), Figs 1-7 (PAPER_FIG_SCALE), the dry
+    runs of scheduler_sim, mapper_throughput and sparse_scale, and
+    kernel_micro, with the launch counts set to 0 just before and read
+    just after; every Table 1 and figure row checked against F(perm) and
+    F0; then Table 1 at orders 27 and 45 and scheduler_sim's dry-run
+    replay on the card and on the CPU, equal.  Returns the launch
+    counts."""
+    import torch
+    from repro_torch.kernels import ops
+    mods = paper_modules()
+    common = mods["common"]
+    t_route = time.perf_counter()
+    walls = {}
+
+    def timed(part, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t
+        return out
+
+    ops.reset_launch_counts()
+    with bench_budget(common, PAPER_SCALE, 1):
+        table = timed("table1", lambda: mods["table1_accuracy"].rows("cuda"))
+    figs = []
+    with bench_budget(common, PAPER_FIG_SCALE, 1):
+        for name in ("fig1_2_maxneighbors", "fig3_temperature",
+                     "fig4_exchange_period", "fig5_solvers",
+                     "fig6_7_processes"):
+            figs += timed(name, lambda: mods[name].rows("cuda"))
+    dry = ["--dry-run", "--device", "cuda", "--json", ""]
+    sched = timed("scheduler_sim", lambda: mods["scheduler_sim"].main(dry))
+    timed("mapper_throughput", lambda: mods["mapper_throughput"].main(dry))
+    timed("sparse_scale", lambda: mods["sparse_scale"].main(dry))
+    micro = timed("kernel_micro", lambda: mods["kernel_micro"].run(None, "cuda"))
+    counts, branches = ops.launch_counts(), ops.branch_counts()
+    for kernel in ("qap_delta", "qap_objective"):
+        require(counts[kernel] > 0, f"[paper] launched no {kernel}")
+        require(branches[f"{kernel}/l2"] > 0,
+                f"[paper] no {kernel} launch on the L2 branch")
+
+    print(f"[paper] Table 1 at REPRO_BENCH_SCALE={PAPER_SCALE}, "
+          f"REPRO_BENCH_RUNS=1:", flush=True)
+    for row in table:
+        check_paper_row(row)
+    require([r.order for r in table][::3] == list(
+        mods["table1_accuracy"].ORDERS), "[paper] Table 1 lacks an order")
+    print(f"[paper] Figs 1-7 at REPRO_BENCH_SCALE={PAPER_FIG_SCALE}:",
+          flush=True)
+    for row in figs:
+        check_paper_row(row)
+    for line in micro:
+        print(f"[paper] {line}", flush=True)
+
+    with bench_budget(common, PAPER_CPU_SCALE, 1):
+        t1 = mods["table1_accuracy"]
+        orders, t1.ORDERS = t1.ORDERS, PAPER_CPU_ORDERS
+        try:
+            small = {dev: timed(f"table1 {PAPER_CPU_ORDERS} {dev}",
+                                lambda: t1.rows(dev))
+                     for dev in ("cuda", "cpu")}
+        finally:
+            t1.ORDERS = orders
+    require(len(small["cuda"]) == len(small["cpu"]) == 3 * len(
+        PAPER_CPU_ORDERS), "[paper] card or cpu Table 1 lacks a row")
+    for a, b in zip(small["cuda"], small["cpu"]):
+        require(a.name == b.name and (a.perm == b.perm).all() and a.f == b.f,
+                f"[paper] {a.name}: card F={a.f} != cpu F={b.f}")
+    cpu_dry = ["--dry-run", "--device", "cpu", "--json", ""]
+    sched_cpu = timed("scheduler_sim cpu",
+                      lambda: mods["scheduler_sim"].main(cpu_dry))
+    wall_keys = ("wall_s", "map_wall_p50_ms", "map_wall_p99_ms")
+
+    def decisions(payload):
+        rm = payload["scheduler_rm"]
+        return {k: ({f: v for f, v in rm[k].items() if f not in wall_keys}
+                    if isinstance(rm[k], dict) else rm[k])
+                for k in ("first_fit", "co_opt", "objective_improvement",
+                          "makespan_ratio")}
+
+    require(decisions(sched) == decisions(sched_cpu),
+            "[paper] scheduler_sim dry run: card != cpu")
+    print(f"[paper] card == cpu: Table 1 at orders {PAPER_CPU_ORDERS} "
+          f"(scale {PAPER_CPU_SCALE}, perm and F), scheduler_sim dry-run "
+          f"replay (objective_improvement "
+          f"{sched['scheduler_rm']['objective_improvement']})", flush=True)
+    print(f"[paper] launches {counts}, branches {branches}; walls (s) "
+          f"{ {k: f'{v:.4f}' for k, v in walls.items()} }, route wall "
+          f"{time.perf_counter() - t_route:.1f} s", flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1449,6 +1670,7 @@ def main():
     dsp = check_qap_delta_sparse(device)
     osp = check_qap_objective_sparse(device)
     scan = check_selective_scan(device)
+    check_paper_kernels(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1467,6 +1689,7 @@ def main():
     runs["rm-replay"] = drive_rm_replay(ctx_bytes)
     runs["lm-serve"] = drive_lm_serve()
     check_lm_against_cpu()
+    runs["paper"] = drive_paper()
 
     d = delta[("event", "batched")]
     o = obj[("generation", "smem", "batched")]

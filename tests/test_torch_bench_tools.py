@@ -1,0 +1,110 @@
+"""The port's mapper_throughput, sparse_scale, kernel_micro and run
+against the reference harness on the CPU: the dry runs' objectives and
+per-level orders equal the reference's, kernel_micro's inputs are the
+reference's draws, and the outputs go where they are pointed (here
+``tmp_path``)."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from _torch_serve import one_torch_thread  # noqa: F401
+from test_torch_bench_common import (port_common, redirect_get, run_ref_main,
+                                     set_budget)
+from benchmarks import mapper_throughput as ref_mt
+from benchmarks import sparse_scale as ref_ss
+from benchmarks_torch import fig5_solvers, kernel_micro
+from benchmarks_torch import mapper_throughput as port_mt
+from benchmarks_torch import run as port_run
+from benchmarks_torch import sparse_scale as port_ss
+from repro.core import annealing as ref_annealing
+
+
+def test_mapper_throughput_dry_run_matches_reference(tmp_path):
+    out = port_mt.main(["--dry-run", "--device", "cpu",
+                        "--json", str(tmp_path / "t.json")])
+    # The reference's dry run: the same instances, keys and budget.
+    insts = [ref_mt.random_instance(8, 100 + i) for i in range(2)]
+    Cs, Ms, nvs = ref_mt.pad_batch(insts, 8)
+    ks = jnp.stack([jax.random.PRNGKey(i) for i in range(2)])
+    cfg = ref_annealing.SAConfig(max_neighbors=4, iters_per_exchange=2,
+                                 num_exchanges=2, solvers=2)
+    _, want, _ = ref_annealing.run_psa_batch(Cs, Ms, ks, cfg, 2, n_valid=nvs)
+    assert out["objectives"] == np.asarray(want).tolist()
+    saved = json.loads((tmp_path / "t.json").read_text())["throughput"]
+    assert saved["config"]["device"] == "cpu"
+    assert saved["batched_mappings_per_s"] > 0
+
+
+def test_sparse_scale_dry_run_matches_reference(tmp_path, monkeypatch):
+    ref_json = tmp_path / "ref.json"
+    run_ref_main(ref_ss, ["--dry-run", "--json", str(ref_json)], monkeypatch)
+    ref = json.loads(ref_json.read_text())["sparse_scale"]
+    port = port_ss.main(["--dry-run", "--device", "cpu",
+                         "--json", str(tmp_path / "port.json")])
+    for got, want in zip(port["eval"], ref["eval"]):
+        for key in ("n", "nnz", "density", "max_degree", "perms", "pairs"):
+            assert got[key] == want[key], key
+    assert len(port["multilevel"]) == len(ref["multilevel"]) == 1
+    got, want = port["multilevel"][0], ref["multilevel"][0]
+    for key in ("objective", "optimum", "coarse_objective", "quality",
+                "baseline_identity", "levels"):
+        assert got[key] == want[key], key
+    assert [lv["n"] for lv in got["levels"]] == [32, 64]
+
+
+def test_kernel_micro_rows(tmp_path, monkeypatch):
+    """At small shapes on the CPU (the plain versions): the reference's
+    row names, one JSON section per kernel, every rate positive."""
+    monkeypatch.setattr(kernel_micro, "SHAPES", ((27, 16), (45, 16)))
+    path = tmp_path / "k.json"
+    rows = kernel_micro.run(str(path), "cpu")
+    names = [r.split(",")[0] for r in rows]
+    assert names == [f"kernel.{k}.n={n}.{x}" for n in (27, 45)
+                     for k, x in (("objective", "b=16"), ("delta", "k=256"),
+                                  ("sa_step", "chains=16"),
+                                  ("ga_step", "islands=4"))]
+    payload = json.loads(path.read_text())["kernel_micro"]
+    assert payload["config"] == {"device": "cpu", "device_name": "cpu"}
+    for kernel in ("objective", "delta", "sa_step", "ga_step"):
+        for entry in payload[kernel].values():
+            assert entry["candidate_evals_per_s"] > 0
+
+
+def test_kernel_micro_inputs_are_the_references():
+    """The permutations, swap pairs and chain keys kernel_micro builds
+    from keys 0-3 are the reference's jax.random draws."""
+    from repro.core import qap as ref_qap
+    from repro_torch.core import keys, qap
+    n = 45
+    np.testing.assert_array_equal(
+        qap.random_permutations(keys.prng_key(0), 16, n).numpy(),
+        np.asarray(ref_qap.random_permutations(jax.random.PRNGKey(0), 16, n)))
+    np.testing.assert_array_equal(
+        qap.random_swap_pairs(keys.prng_key(1), 256, n).numpy(),
+        np.asarray(ref_qap.random_swap_pairs(jax.random.PRNGKey(1), 256, n)))
+    np.testing.assert_array_equal(
+        keys.split(keys.prng_key(2), 16).numpy(),
+        np.asarray(jax.random.key_data(jax.random.split(
+            jax.random.PRNGKey(2), 16))).astype(np.int64))
+
+
+def test_run_prints_rows_and_reports_failure(monkeypatch, capsys):
+    set_budget(monkeypatch, 1e-4)
+    redirect_get(monkeypatch)
+    monkeypatch.setattr(port_common, "DEVICE", "cpu")
+    monkeypatch.setattr("sys.argv", ["run", "fig5"])
+    assert port_run.main() == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "name,us_per_call,derived"
+    assert [line.split(",")[0] for line in out[1:5]] == [
+        f"fig5.solvers={s}" for s in (8, 27, 64, 125)]
+    assert out[5].startswith("# fig5 done in")
+
+    def broken(device=None):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(fig5_solvers, "run", broken)
+    assert port_run.main() == 1
+    assert "fig5.ERROR,0,failed" in capsys.readouterr().out

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and none of
-the scripts ``chip_smoke.py``, ``chip_kernels.py`` and ``chip_lm_tf.py``
-imports ``jax`` or the reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, none of its
+harness ``benchmarks_torch`` and none of the scripts ``chip_smoke.py``,
+``chip_kernels.py`` and ``chip_lm_tf.py`` imports ``jax``, the reference
+package ``repro`` or the reference harness ``benchmarks``."""
 import ast
 import os
 import subprocess
@@ -10,9 +11,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_kernels.py", ROOT / "chip_lm_tf.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported(tree):
@@ -46,6 +48,21 @@ def test_importing_the_port_loads_no_jax():
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_importing_the_harness_loads_no_jax():
+    names = sorted(p.stem for p in (ROOT / "benchmarks_torch").glob("*.py")
+                   if p.stem != "__init__")
+    assert "table1_accuracy" in names and "scheduler_sim" in names
+    code = ("import sys, importlib; "
+            f"[importlib.import_module('benchmarks_torch.' + m) for m in {names!r}]; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
