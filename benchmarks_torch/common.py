@@ -36,6 +36,20 @@ def device(name=None) -> torch.device:
     return resolve_device(name or DEVICE)
 
 
+def instance_mesh(ap, shape, device_name):
+    """``--mesh-shape N``: an N-device instance mesh on the benchmark's
+    device (``core.batch_sharded``), or None.  On the CPU the N devices
+    are the CPU named N times; on ``cuda`` N above the card count is a
+    usage error, as the reference refuses N above ``jax.device_count()``."""
+    if shape is None:
+        return None
+    from repro_torch.launch.mesh import make_instance_mesh
+    try:
+        return make_instance_mesh(shape, device=device(device_name))
+    except ValueError as e:
+        ap.error(f"--mesh-shape {shape}: {e}")
+
+
 def scaled(n: int, lo: int = 2) -> int:
     return max(int(round(n * SCALE)), lo)
 

@@ -28,14 +28,17 @@ dummy wave per bucket program, so every kernel has been used; an extra
 ``--no-warmup`` runs cold.
 
 Engines run on ``--device`` (``cuda`` by default; ``cpu`` only when
-asked for).  The reference's ``--mesh-shape`` waits for the port's
-instance mesh.
+asked for).  With ``--mesh-shape N`` engines dispatch their bucket waves
+sharded over an N-device instance mesh (``core.batch_sharded``; on the
+CPU N emulated devices, on ``cuda`` at most the card count) and results
+land under ``"scheduler_rm_mesh"`` / ``"scheduler_sim_mesh"`` instead.
 
 Usage (from the repo root):
     PYTHONPATH=src python -m benchmarks_torch.scheduler_sim              # replay
     PYTHONPATH=src python -m benchmarks_torch.scheduler_sim --trace x.swf
     PYTHONPATH=src python -m benchmarks_torch.scheduler_sim --stream     # legacy
     PYTHONPATH=src python -m benchmarks_torch.scheduler_sim --dry-run    # smoke
+    PYTHONPATH=src python -m benchmarks_torch.scheduler_sim --dry-run --device cpu --mesh-shape 4
 """
 from __future__ import annotations
 
@@ -194,13 +197,14 @@ def load_trace(args, num_nodes: int):
     return fitting
 
 
-def run_replay(specs, M, sa_cfg, buckets, args) -> Dict[str, object]:
+def run_replay(specs, M, mesh, sa_cfg, buckets, args) -> Dict[str, object]:
     """Replay the same specs through first-fit and co-optimized managers."""
     def fresh_engine():
         return MappingEngine(buckets=buckets, num_processes=2,
                              sa_cfg=sa_cfg,
                              polish_rounds=args.polish_rounds,
-                             max_batch=args.max_batch, device=args.device)
+                             max_batch=args.max_batch, mesh=mesh,
+                             device=args.device)
 
     out: Dict[str, object] = {}
     variants = (("first_fit", 1, ("first_fit",)),
@@ -484,6 +488,10 @@ def main(argv=None):
                     help="with --kill-one --transport subprocess: the "
                          "worker SIGKILLs itself (real hard death) "
                          "instead of exiting cleanly")
+    ap.add_argument("--mesh-shape", type=int, default=None, metavar="N",
+                    help="shard bucket waves over an N-device instance "
+                         "mesh (CPU: N emulated devices; cuda: at most "
+                         "the card count)")
     ap.add_argument("--device", default="cuda",
                     help="engines' device: 'cuda' (default) or 'cpu'")
     ap.add_argument("--json", default=common.BENCH_JSON,
@@ -526,6 +534,7 @@ def main(argv=None):
     if max(args.sizes) > M.shape[0]:
         ap.error(f"largest job ({max(args.sizes)}) exceeds cluster "
                  f"({M.shape[0]} nodes)")
+    mesh = common.instance_mesh(ap, args.mesh_shape, args.device)
     sa_cfg = annealing.SAConfig(max_neighbors=args.neighbors,
                                 iters_per_exchange=args.iters_per_exchange,
                                 num_exchanges=args.num_exchanges,
@@ -576,8 +585,11 @@ def main(argv=None):
         print(f"replaying {len(specs)} jobs over {M.shape[0]} nodes "
               f"({args.grid[0]}x{args.grid[1]}x{args.grid[2]}), "
               f"{args.candidates} candidates/{'+'.join(args.policies)}, "
-              f"engines on {args.device}")
-        out = run_replay(specs, M, sa_cfg, buckets, args)
+              f"engines on {args.device}"
+              + (f", waves sharded over a {args.mesh_shape}-device mesh"
+                 if mesh is not None else ""))
+        out = run_replay(specs, M, mesh, sa_cfg, buckets, args)
+        section = "scheduler_rm" if mesh is None else "scheduler_rm_mesh"
         payload = {
             "config": {"jobs": len(specs), "grid": list(args.grid),
                        "trace": args.trace,
@@ -589,16 +601,17 @@ def main(argv=None):
                        "candidates": args.candidates,
                        "policies": list(args.policies),
                        "max_batch": args.max_batch,
+                       "mesh_shape": args.mesh_shape,
                        "device": args.device,
                        "dry_run": args.dry_run},
             **out,
         }
         if args.json:
-            common.write_bench_json(args.json, "scheduler_rm", payload)
-            print(f"wrote {args.json} [scheduler_rm]")
+            common.write_bench_json(args.json, section, payload)
+            print(f"wrote {args.json} [{section}]")
         if args.dry_run:
             print("dry-run OK")
-        return {"scheduler_rm": payload}
+        return {section: payload}
 
     jobs = make_stream(args.jobs, tuple(args.sizes), tuple(args.weights),
                        args.arrival_rate, args.run_s, args.seed)
@@ -609,12 +622,15 @@ def main(argv=None):
         return MappingEngine(buckets=buckets, num_processes=2,
                              sa_cfg=sa_cfg, polish_rounds=args.polish_rounds,
                              flush_deadline_ms=args.flush_deadline_ms,
-                             max_batch=args.max_batch, device=args.device)
+                             max_batch=args.max_batch, mesh=mesh,
+                             device=args.device)
 
     print(f"{args.jobs} jobs over {M.shape[0]} nodes "
           f"({args.grid[0]}x{args.grid[1]}x{args.grid[2]}), sizes "
           f"{tuple(args.sizes)}, {args.arrival_rate}/s arrivals, engines on "
-          f"{args.device}")
+          f"{args.device}"
+          + (f", waves sharded over a {args.mesh_shape}-device mesh"
+             if mesh is not None else ""))
 
     results = {}
 
@@ -681,6 +697,7 @@ def main(argv=None):
                    "deadline_ms": args.deadline_ms,
                    "flush_deadline_ms": args.flush_deadline_ms,
                    "max_batch": args.max_batch,
+                   "mesh_shape": args.mesh_shape,
                    "device": args.device,
                    "dry_run": args.dry_run},
         "sequential": results["sequential"],
@@ -690,12 +707,13 @@ def main(argv=None):
     }
     if "async_cold" in results:
         payload["async_cold"] = results["async_cold"]
+    section = "scheduler_sim" if mesh is None else "scheduler_sim_mesh"
     if args.json:
-        common.write_bench_json(args.json, "scheduler_sim", payload)
-        print(f"wrote {args.json} [scheduler_sim]")
+        common.write_bench_json(args.json, section, payload)
+        print(f"wrote {args.json} [{section}]")
     if args.dry_run:
         print("dry-run OK")
-    return {"scheduler_sim": payload}
+    return {section: payload}
 
 
 if __name__ == "__main__":

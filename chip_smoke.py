@@ -56,8 +56,20 @@ Phases, each of which must pass:
    (``PAPER_SCALE``, one run a cell; orders 175/343/729 run K1 and K2 on
    their L2 branches, which must launch), Figs 1-7 at the harness's
    default scale, the dry runs of ``scheduler_sim``, ``mapper_throughput``
-   and ``sparse_scale``, and ``kernel_micro``; before it, K1 and K2 on
-   Table 1's tai343 and tai729 against their plain versions;
+   (both also with ``--mesh-shape 1``), ``sparse_scale`` and
+   ``solver_hotloop`` (both loops), and ``kernel_micro``; before it, K1
+   and K2 on Table 1's tai343 and tai729 against their plain versions;
+   then a tenth route, ``mesh``: the five dense routes' waves through a
+   ``MappingEngine`` whose instance mesh names cuda:0 four times (each
+   wave split over four shards that share the card; the three-request
+   waves pad to four and trim back), every response equal to phase 4's
+   unsharded one; then the paper's parallel algorithms on
+   ``torch.distributed`` worlds spawned on one order-125 instance at the
+   routes' budgets -- ``run_psa_mesh`` (event and fused loops),
+   ``run_pga_mesh`` (wide and fused), ``run_pca_mesh`` and
+   ``find_mapping(mesh=)`` at world size 4 on cuda:0 (gloo) and 1
+   (NCCL), and three of them at world size 4 on the CPU: every rank the
+   same answer, f = F(perm), card == CPU;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -131,11 +143,45 @@ LM_TF_ROWS = 16          # prompts in the bf16 teacher-forcing measurement
 # kernel microbenchmarks.  Table 1's orders 175/343/729 run K1 and K2 on
 # their L2 branches.  Card == CPU on Table 1's orders 27 and 45 at
 # PAPER_CPU_SCALE and on scheduler_sim's dry-run replay.
-PAPER_SCALE = 0.25
+PAPER_SCALE = 0.1
 PAPER_FIG_SCALE = 0.02
 PAPER_CPU_SCALE, PAPER_CPU_ORDERS = 0.02, (27, 45)
 F32_EXACT = 2 ** 24      # integers above it are not all f32 numbers
 PAPER_KERNEL_ORDERS = (343, 729)
+
+# The mesh route: the five dense routes' waves through an engine whose
+# instance mesh names cuda:0 MESH_SHARDS times (each wave split over 4
+# shards that share the card), then the paper's parallel algorithms over
+# spawned torch.distributed worlds on one order-125 instance at the
+# routes' budgets: world size 4 on cuda:0 (gloo: NCCL refuses several
+# ranks on one GPU), world size 1 (NCCL), and world size 4 on the CPU
+# (gloo) on the MESH_CPU_CASES.
+MESH_SHARDS = 4
+MESH_SEED = 7
+MESH_TIMEOUT_S = 600.0
+MESH_RANK_THREADS = 1    # up to 5 ranks share the host's 8 cores
+# case -> (algorithm, SAConfig or GAConfig changes)
+MESH_CASES = {
+    "psa-event": ("psa", dict(loop="event")),
+    "psa-fused": ("psa", dict(loop="fused")),
+    "pga-wide": ("pga", dict(eval="wide")),
+    "pga-fused": ("pga", dict(eval="fused")),
+    "pca": ("pca", {}),
+    "find_mapping": ("find", {}),
+}
+MESH_CPU_CASES = ("psa-event", "pga-wide", "pca")
+# (label, world size, backend, device type, cases), in stages: card x4
+# alone, then card x1 beside cpu x4 (five processes on the host's cores)
+MESH_WORLDS = ((("card x4", 4, "gloo", "cuda", tuple(MESH_CASES)),),
+               (("card x1", 1, "nccl", "cuda", tuple(MESH_CASES)),
+                ("cpu x4", 4, "gloo", "cpu", MESH_CPU_CASES)))
+# the kernels each case must launch on the card (a rank's GA generation
+# is genetic.breed, as in the reference: K2 whatever eval says)
+MESH_KERNELS = {"psa-event": ("qap_delta",), "psa-fused": ("qap_sa_step",),
+                "pga-wide": ("qap_objective",),
+                "pga-fused": ("qap_objective",),
+                "pca": ("qap_delta", "qap_objective"),
+                "find_mapping": ("qap_delta",)}
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -752,14 +798,15 @@ def check_response(req, resp, optimum):
             f"F(identity) {resp.baseline}]")
 
 
-def engine_for(route, device):
+def engine_for(route, device, mesh=None):
     from repro_torch.core.annealing import SAConfig
     from repro_torch.core.genetic import GAConfig
     from repro_torch.serve import MappingEngine
     _, sa, ga = ROUTES[route]
     return MappingEngine(sa_cfg=SAConfig(**SA_KW, **sa),
                          ga_cfg=GAConfig(**GA_KW, **ga),
-                         num_processes=NUM_PROCESSES, device=device)
+                         num_processes=NUM_PROCESSES, mesh=mesh,
+                         device=device)
 
 
 def route_requests(route):
@@ -784,7 +831,8 @@ def require_smem_branch(route, counts, branches):
 def drive_engine(route):
     """Submit and flush each bucket's wave on the card, the launch counts
     set to 0 just before each wave and read just after; returns the
-    requests, the responses and the launch counts summed over the waves."""
+    requests, the responses, the launch counts summed over the waves and
+    each wave's wall by order."""
     import torch
     from repro_torch.kernels import ops
     reqs, optima = route_requests(route)
@@ -793,7 +841,7 @@ def drive_engine(route):
     engine.warmup(algorithms=(ROUTES[route][0],))
     torch.cuda.synchronize()
     print(f"[{route}] warmup {time.perf_counter() - t:.3f} s", flush=True)
-    resps, total = {}, {}
+    resps, total, walls = {}, {}, {}
     for order in (ORDER, 45, 27):
         wave = [r for r in reqs if r.C.shape[0] == order]
         ops.reset_launch_counts()
@@ -801,7 +849,7 @@ def drive_engine(route):
         futs = [engine.submit(r) for r in wave]
         engine.flush()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        wall = walls[order] = time.perf_counter() - t
         counts = ops.launch_counts()
         branches = ops.branch_counts()
         for r, fut in zip(wave, futs):
@@ -815,7 +863,7 @@ def drive_engine(route):
               f"requests of order {order}, wave wall {wall:.4f} s, launches "
               f"{counts}, branches {branches}, mean F/F0 {ratio:.4f}",
               flush=True)
-    return reqs, resps, total
+    return reqs, resps, total, walls
 
 
 def check_against_cpu(route, reqs, resps):
@@ -1446,7 +1494,7 @@ def paper_modules():
     names = ("common", "table1_accuracy", "fig1_2_maxneighbors",
              "fig3_temperature", "fig4_exchange_period", "fig5_solvers",
              "fig6_7_processes", "scheduler_sim", "mapper_throughput",
-             "sparse_scale", "kernel_micro")
+             "sparse_scale", "kernel_micro", "solver_hotloop")
     return {n: importlib.import_module(f"benchmarks_torch.{n}") for n in names}
 
 
@@ -1544,8 +1592,9 @@ def check_paper_kernels(device):
 def drive_paper():
     """The port's harness on the card: Table 1 at all seven orders
     (PAPER_SCALE, one run a cell), Figs 1-7 (PAPER_FIG_SCALE), the dry
-    runs of scheduler_sim, mapper_throughput and sparse_scale, and
-    kernel_micro, with the launch counts set to 0 just before and read
+    runs of scheduler_sim and mapper_throughput (also with --mesh-shape
+    1), sparse_scale and solver_hotloop (both loops), and kernel_micro,
+    with the launch counts set to 0 just before and read
     just after; every Table 1 and figure row checked against F(perm) and
     F0; then Table 1 at orders 27 and 45 and scheduler_sim's dry-run
     replay on the card and on the CPU, equal.  Returns the launch
@@ -1576,7 +1625,14 @@ def drive_paper():
     dry = ["--dry-run", "--device", "cuda", "--json", ""]
     sched = timed("scheduler_sim", lambda: mods["scheduler_sim"].main(dry))
     timed("mapper_throughput", lambda: mods["mapper_throughput"].main(dry))
+    mesh_dry = dry + ["--mesh-shape", "1"]
+    timed("mapper_throughput mesh", lambda: mods["mapper_throughput"].main(
+        mesh_dry))
+    timed("scheduler_sim mesh", lambda: mods["scheduler_sim"].main(mesh_dry))
     timed("sparse_scale", lambda: mods["sparse_scale"].main(dry))
+    for loop in ("default", "fused"):
+        timed(f"solver_hotloop {loop}", lambda: mods["solver_hotloop"].main(
+            dry + ["--loop", loop]))
     micro = timed("kernel_micro", lambda: mods["kernel_micro"].run(None, "cuda"))
     counts, branches = ops.launch_counts(), ops.branch_counts()
     for kernel in ("qap_delta", "qap_objective"):
@@ -1635,6 +1691,201 @@ def drive_paper():
     return counts
 
 
+def drive_mesh_engine(dense):
+    """Each dense route's waves through ``MappingEngine(mesh=)`` with
+    cuda:0 named MESH_SHARDS times, the launch counts set to 0 just before
+    each wave and read just after; every response equal to the unsharded
+    engine's from phase 4 (``dense``: route -> (responses, walls)).  The
+    kernels were built and first used in phase 4, so no warmup."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    mesh = make_mesh_with_devices([torch.device("cuda", 0)] * MESH_SHARDS,
+                                  (MESH_SHARDS,), ("instances",))
+    total = {}
+    for route in ROUTES:
+        reqs, optima = route_requests(route)
+        plain, plain_walls = dense[route]
+        engine = engine_for(route, None, mesh=mesh)
+        require(engine.device == torch.device("cuda", 0),
+                f"[mesh] {route}: engine device {engine.device}")
+        for order in (ORDER, 45, 27):
+            wave = [r for r in reqs if r.C.shape[0] == order]
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            futs = [engine.submit(r) for r in wave]
+            engine.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts, branches = ops.launch_counts(), ops.branch_counts()
+            for r, fut in zip(wave, futs):
+                resp, want = fut.result(), plain[r.job_id]
+                check_response(r, resp, optima[r.job_id])
+                require(resp.batch_size == len(wave)
+                        and (resp.perm == want.perm).all()
+                        and resp.objective == want.objective,
+                        f"[mesh] {route} {r.job_id}: sharded F="
+                        f"{resp.objective} != unsharded F={want.objective}")
+            require_smem_branch(f"mesh {route}", counts, branches)
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            print(f"[mesh] {route} bucket {resp.bucket}, {len(wave)} "
+                  f"requests over {MESH_SHARDS} shards on cuda:0: wave wall "
+                  f"{wall:.4f} s (unsharded {plain_walls[order]:.4f} s), "
+                  f"launches {counts}, branches {branches}; == unsharded",
+                  flush=True)
+    return total
+
+
+def mesh_case(name, mesh, inst):
+    """One distributed case on this rank: ``(perm, f, history)``."""
+    from repro_torch.core import (annealing, composite, distributed,
+                                  genetic, keys, mapping)
+    kind, changes = MESH_CASES[name]
+    key = keys.prng_key(MESH_SEED)
+    sa = annealing.SAConfig(**SA_KW, **(changes if kind == "psa" else {}))
+    ga = genetic.GAConfig(**GA_KW, **(changes if kind == "pga" else {}))
+    if kind == "find":
+        res = mapping.find_mapping(inst.C, inst.M, "psa", key=key,
+                                   sa_cfg=sa, mesh=mesh)
+        return res.perm, res.objective, res.history
+    if kind == "psa":
+        out = distributed.run_psa_mesh(inst.C, inst.M, key, sa, mesh)
+    elif kind == "pga":
+        out = distributed.run_pga_mesh(inst.C, inst.M, key, ga, mesh)
+    else:
+        out = distributed.run_pca_mesh(inst.C, inst.M, key,
+                                       composite.CompositeConfig(sa=sa, ga=ga),
+                                       mesh)
+    p, f, h = out
+    return p.cpu().numpy(), f.item(), h.cpu().numpy()
+
+
+def mesh_rank(mesh, names):
+    """One rank of a spawned world: each case on the order-125 instance,
+    the launch counts set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import instances
+    from repro_torch.kernels import ops
+    torch.set_num_threads(MESH_RANK_THREADS)
+    inst = instances.make_taie(ORDER)
+    out = {}
+    for name in names:
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        perm, f, hist = mesh_case(name, mesh, inst)
+        if mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = dict(perm=np.asarray(perm, np.int32), f=float(f),
+                         hist=np.asarray(hist, np.float32),
+                         wall=time.perf_counter() - t,
+                         launches=ops.launch_counts(),
+                         branches=ops.branch_counts())
+    return out
+
+
+def check_mesh_world(label, ranks, on_card):
+    """Every rank's answer the same, a feasible permutation with f =
+    F(perm) exactly, F0 <= f <= F(identity), a history that does not
+    increase; on the card each case launched its kernels, every launch
+    on the shared-memory branch (order 125)."""
+    import numpy as np
+    from repro_torch.core import instances
+    inst = instances.make_taie(ORDER)
+    C, M = inst.C.astype(np.float64), inst.M.astype(np.float64)
+    ident = float((C * M).sum())
+    for name, r0 in ranks[0].items():
+        for rank, rr in enumerate(ranks[1:], 1):
+            require(rr[name]["perm"].tobytes() == r0["perm"].tobytes()
+                    and rr[name]["f"] == r0["f"]
+                    and rr[name]["hist"].tobytes() == r0["hist"].tobytes(),
+                    f"[mesh] {label} {name}: rank {rank} != rank 0")
+        perm = r0["perm"]
+        require((np.sort(perm) == np.arange(ORDER)).all(),
+                f"[mesh] {label} {name}: infeasible permutation")
+        f = float((C * M[np.ix_(perm, perm)]).sum())
+        require(f == r0["f"], f"[mesh] {label} {name}: f {r0['f']} != "
+                f"F(perm) {f}")
+        require(inst.optimum <= f <= ident, f"[mesh] {label} {name}: F {f}"
+                f" outside [F0 {inst.optimum}, F(identity) {ident}]")
+        require((np.diff(r0["hist"]) <= 0).all(),
+                f"[mesh] {label} {name}: history increases")
+        for rank, rr in enumerate(ranks):
+            counts = rr[name]["launches"]
+            if on_card:
+                for kernel in MESH_KERNELS[name]:
+                    require(counts[kernel] > 0, f"[mesh] {label} {name}: "
+                            f"rank {rank} launched no {kernel}")
+                require_smem_branch(f"mesh {label} {name}", counts,
+                                    rr[name]["branches"])
+            else:
+                require(not any(counts.values()),
+                        f"[mesh] {label} {name}: launches on the cpu")
+        print(f"[mesh] {label} {name}: F {f:.0f} (F/F0 "
+              f"{f / inst.optimum:.4f}), wall max over ranks "
+              f"{max(rr[name]['wall'] for rr in ranks):.4f} s, launches "
+              f"per rank {[{k: v for k, v in rr[name]['launches'].items() if v} for rr in ranks]}; "
+              f"every rank agrees", flush=True)
+
+
+def drive_mesh_worlds():
+    """The MESH_WORLDS, stage after stage, the worlds of a stage side by
+    side, each given MESH_TIMEOUT_S; a rank's failure fails the route.
+    Then card x4 == cpu x4 on the cpu cases, and pga-fused == pga-wide in
+    every world.  Returns each world's rank-0 results."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch.world import run_world
+
+    def world(label, size, backend, device_type, names):
+        t = time.perf_counter()
+        ranks = run_world(mesh_rank, size, backend=backend,
+                          device_type=device_type, args=(names,),
+                          timeout_s=MESH_TIMEOUT_S)
+        return ranks, time.perf_counter() - t
+
+    out = {}
+    for stage in MESH_WORLDS:
+        with ThreadPoolExecutor(len(stage)) as pool:
+            futures = [pool.submit(world, *w) for w in stage]
+            done = [f.result() for f in futures]
+        for (label, _, backend, device_type, _), (ranks, wall) in zip(
+                stage, done):
+            print(f"[mesh] {label} ({backend}, {device_type}): world wall "
+                  f"{wall:.1f} s (spawn, import and first use included; "
+                  f"beside {[w[0] for w in stage if w[0] != label]})",
+                  flush=True)
+            out[label] = (ranks, device_type)
+    first = {}
+    for label, (ranks, device_type) in out.items():
+        check_mesh_world(label, ranks, device_type == "cuda")
+        first[label] = r0 = ranks[0]
+        if "pga-fused" in r0:
+            a, b = r0["pga-fused"], r0["pga-wide"]
+            require(a["perm"].tobytes() == b["perm"].tobytes()
+                    and a["f"] == b["f"],
+                    f"[mesh] {label}: pga-fused != pga-wide")
+    for name in MESH_CPU_CASES:
+        a, b = first["card x4"][name], first["cpu x4"][name]
+        require(a["perm"].tobytes() == b["perm"].tobytes()
+                and a["f"] == b["f"]
+                and a["hist"].tobytes() == b["hist"].tobytes(),
+                f"[mesh] {name}: card x4 F={a['f']} != cpu x4 F={b['f']}")
+    print(f"[mesh] card x4 == cpu x4 on {MESH_CPU_CASES}", flush=True)
+    return first
+
+
+def drive_mesh(dense):
+    """The tenth route: the sharded engine, then the distributed worlds.
+    Returns the sharded engine's launch counts."""
+    t = time.perf_counter()
+    counts = drive_mesh_engine(dense)
+    print(f"[mesh] sharded engine {time.perf_counter() - t:.1f} s",
+          flush=True)
+    drive_mesh_worlds()
+    print(f"[mesh] route wall {time.perf_counter() - t:.1f} s", flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1661,6 +1912,12 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        print(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     ctx_bytes = context_bytes()
     device = torch.device("cuda")
     delta = check_qap_delta(device)
@@ -1673,23 +1930,31 @@ def main():
     check_paper_kernels(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_done("kernel checks")
 
-    runs = {}
+    runs, dense = {}, {}
     for route in ROUTES:
-        reqs, resps, counts = drive_engine(route)
-        runs[route] = counts
+        reqs, resps, counts, walls = drive_engine(route)
+        runs[route], dense[route] = counts, (resps, walls)
         check_against_cpu(route, reqs, resps)
     for route, kernel in (("psa-event", "qap_delta"), ("psa-fused", "qap_sa_step"),
                           ("psa-fused", "qap_delta"), ("pga-wide", "qap_objective"),
                           ("pga-wide", "qap_delta"), ("pga-fused", "qap_ga_step"),
                           ("pca", "qap_objective"), ("pca", "qap_delta")):
         require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
+    phase_done("dense routes")
     ml_resps, runs["multilevel"] = drive_multilevel()
     check_multilevel_against_cpu(ml_resps)
+    phase_done("multilevel")
     runs["rm-replay"] = drive_rm_replay(ctx_bytes)
+    phase_done("rm-replay")
     runs["lm-serve"] = drive_lm_serve()
     check_lm_against_cpu()
+    phase_done("lm-serve")
     runs["paper"] = drive_paper()
+    phase_done("paper")
+    runs["mesh"] = drive_mesh(dense)
+    phase_done("mesh")
 
     d = delta[("event", "batched")]
     o = obj[("generation", "smem", "batched")]

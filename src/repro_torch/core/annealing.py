@@ -15,7 +15,9 @@ accepts at most ``max_success`` of them.  ``SAConfig.loop`` picks how:
   the whole level, candidates drawn on the card from the counter stream;
 * ``"scan"``: the sequential candidate scan, the golden reference.
 
-All three give the same states.  ``SAConfig.rng`` picks the draws:
+All three give the same states.  ``init_chain``, ``_chain_round`` and
+``_adopt_best`` are the per-process pieces that ``core.distributed``
+runs on each rank.  ``SAConfig.rng`` picks the draws:
 ``"host"`` replays the reference's ``jax.random`` calls (``core.keys``),
 ``"counter"`` (implied by ``"fused"``) the Threefry counter stream.
 ``SAConfig.flows="sparse"`` takes ``C`` as a ``core.sparse.SparseFlows``:
@@ -243,6 +245,61 @@ def _chain_round(inst, state: SAState, key: torch.Tensor,
                          None if pairs is None else pairs[t],
                          None if us is None else us[t], cfg, beta, nv32)
     return state
+
+
+def init_chain(C, M: torch.Tensor, key: torch.Tensor, cfg: SAConfig,
+               identity: Optional[torch.Tensor] = None,
+               n_valid=None) -> SAState:
+    """Start states for a leading batch of chains, ``key (..., 2)`` ->
+    state fields ``(..., ...)``: a random permutation per key (identity
+    on a padded tail past ``n_valid``, which broadcasts against the
+    batch), or ``identity`` (``(..., N)``, the as-allocated order) for
+    every chain, scored against shared ``(N, N)`` ``C``/``M``, at the
+    initial temperature."""
+    n = C.shape[-1]
+    if identity is not None:
+        p = identity.to(torch.int32).expand(key.shape[:-1] + (n,)).contiguous()
+    elif n_valid is None:
+        p = qap.random_permutation(key, n)
+    else:
+        p = qap.masked_random_permutation(key, n, n_valid)
+    f = qap.objective(C, M, p)
+    return SAState(p=p, f=f, best_p=p, best_f=f,
+                   temp=initial_temperature(f, cfg.mu, cfg.phi))
+
+
+def _adopt_best(state: SAState, best_p: torch.Tensor,
+                best_f: torch.Tensor) -> SAState:
+    """Paper: each process makes the broadcast best its candidate
+    solution (``best_p``/``best_f`` shaped as the state's fields)."""
+    better = best_f < state.best_f
+    return state._replace(p=best_p, f=best_f,
+                          best_p=torch.where(better[..., None], best_p,
+                                             state.best_p),
+                          best_f=torch.minimum(best_f, state.best_f))
+
+
+def seed_chain0(C, M: torch.Tensor, init: SAState, chain_key: torch.Tensor,
+                cfg, num_processes: int, init_perm: torch.Tensor,
+                init_chain_fn) -> SAState:
+    """Seed chain 0 of every process of one instance from a warm-start
+    permutation ``init_perm (N,)``: ``init`` holds ``(num_processes,
+    solvers, ...)`` fields, ``chain_key (2,)``.  A negative first entry
+    is the "no warm start" sentinel and keeps the chain-0 states already
+    in ``init``, so a cold instance inside a warm batch solves as in a
+    cold-only batch."""
+    n = C.shape[-1]
+    use = init_perm[0] >= 0
+    perm = torch.where(use, init_perm.to(torch.int32),
+                       torch.arange(n, dtype=torch.int32,
+                                    device=init_perm.device))
+    seeded = init_chain_fn(C, M, chain_key, cfg, identity=perm)
+    out = []
+    for all_, one in zip(init, seeded):
+        all_ = all_.clone()
+        all_[:, 0] = torch.where(use, one.expand_as(all_[:, 0]), all_[:, 0])
+        out.append(all_)
+    return SAState(*out)
 
 
 def _seed_chain0(C, M, state: SAState, perm, use, cfg: SAConfig,

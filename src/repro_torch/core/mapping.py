@@ -4,7 +4,10 @@ polish the serving engine applies to every wave.
 ``find_mapping`` gives the permutation ``p`` (process -> node) that
 minimises the paper's functional for a program graph ``C`` and a system
 graph ``M`` with any of the paper's three algorithms (``"psa"``,
-``"pga"``, ``"pca"``) or the trivial ``"identity"``.
+``"pga"``, ``"pca"``) or the trivial ``"identity"``.  With a
+``DeviceMesh`` it runs the search distributed over the mesh's ranks
+(``core.distributed``), the paper's deployment: every rank calls it and
+gets the same mapping.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from .. import as_tensor, resolve_device
 from ..kernels import ops
-from . import annealing, composite, genetic, keys, qap
+from . import annealing, composite, distributed, genetic, keys, qap
 
 ALGORITHMS = ("psa", "pga", "pca", "identity")
 POLISH_CANDIDATES = 256
@@ -90,12 +93,27 @@ def find_mapping(C, M, algorithm: str = "psa", *, key=None,
                  num_processes: int = 4,
                  sa_cfg: Optional[annealing.SAConfig] = None,
                  ga_cfg: Optional[genetic.GAConfig] = None,
-                 polish_rounds: int = 200, device=None) -> MappingResult:
+                 polish_rounds: int = 200, mesh=None, axis: str = "proc",
+                 device=None) -> MappingResult:
     """Solve the mapping problem with the selected algorithm, then polish;
     never worse than the identity placement.  Runs on ``cuda`` unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise.
+
+    With ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) the
+    search itself runs distributed over the mesh dim ``axis`` (the
+    paper's deployment: the mapping runs on the job's own nodes), on the
+    mesh's device type; every rank calls this and gets the same result,
+    and ``num_processes`` is the dim's size.  Otherwise processes are a
+    batch dimension on one device.
+    """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}")
+    if mesh is not None:
+        if device is not None and \
+                torch.device(device).type != mesh.device_type:
+            raise ValueError(f"device {device} is not on the mesh's "
+                             f"{mesh.device_type!r} devices")
+        device = distributed.mesh_device(mesh)
     dev = resolve_device(device)
     C = as_tensor(C, torch.float32, dev)
     M = as_tensor(M, torch.float32, dev)
@@ -111,19 +129,20 @@ def find_mapping(C, M, algorithm: str = "psa", *, key=None,
         perm, f = ident, baseline
     else:
         if algorithm == "psa":
-            perm, f, hist = annealing.run_psa(
-                C, M, key, sa_cfg or annealing.SAConfig(), num_processes,
-                device=dev)
+            cfg = sa_cfg or annealing.SAConfig()
+            solve, mesh_solve = annealing.run_psa, distributed.run_psa_mesh
         elif algorithm == "pga":
-            perm, f, hist = genetic.run_pga(
-                C, M, key, ga_cfg or genetic.GAConfig(), num_processes,
-                device=dev)
+            cfg = ga_cfg or genetic.GAConfig()
+            solve, mesh_solve = genetic.run_pga, distributed.run_pga_mesh
         else:
             cfg = composite.CompositeConfig(
                 sa=sa_cfg or annealing.SAConfig(num_exchanges=10, solvers=0),
                 ga=ga_cfg or genetic.GAConfig())
-            perm, f, hist = composite.run_pca(C, M, key, cfg, num_processes,
-                                              device=dev)
+            solve, mesh_solve = composite.run_pca, distributed.run_pca_mesh
+        if mesh is not None:
+            perm, f, hist = mesh_solve(C, M, key, cfg, mesh, axis)
+        else:
+            perm, f, hist = solve(C, M, key, cfg, num_processes, device=dev)
         if polish_rounds > 0:
             perm, f = polish(C, M, perm, keys.fold_in(key, 7), polish_rounds,
                              device=dev)

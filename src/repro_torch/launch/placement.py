@@ -17,12 +17,14 @@ shared instance the convenience functions (``solve_placement``,
 ``reset_engine`` -- remain as thin deprecation shims over the default
 service.
 
-The reference's device-mesh half (``mesh=`` / ``instance_axis=``,
-``configure_mesh``, ``configure_engine_mesh``, ``apply_placement``,
-``place_job``, ``traffic_from_compiled``, ``system_graph_for_mesh``) reads
-a device mesh and compiled HLO and is not ported yet.  The services run
-on the card unless ``device="cpu"`` is passed, and give the reference's
-answers for the same key words.
+``PlacementService(mesh=, instance_axis=)``, :meth:`PlacementService.
+configure_mesh` and :func:`configure_engine_mesh` shard the engine's
+bucket waves over an instance mesh (``launch.mesh.Mesh``,
+``core.batch_sharded``) with bitwise-identical results.  The reference's
+HLO half (``apply_placement``, ``place_job``, ``traffic_from_compiled``,
+``system_graph_for_mesh``) reads compiled HLO and is not ported yet.  The
+services run on the card unless ``device="cpu"`` is passed, and give the
+reference's answers for the same key words.
 """
 from __future__ import annotations
 
@@ -101,13 +103,17 @@ class PlacementService:
     default, ``"cpu"`` for the plain PyTorch path.
     """
 
-    def __init__(self, *, num_processes: int = 4,
+    def __init__(self, *, mesh=None,
+                 instance_axis: str = "instances",
+                 num_processes: int = 4,
                  sa_cfg: Optional[annealing.SAConfig] = None,
                  ga_cfg: Optional[genetic.GAConfig] = None,
                  workers: int = 0,
                  transport: str = "thread",
                  fault_plan: Optional[FaultPlan] = None,
                  device=None):
+        self._mesh = mesh
+        self._axis = instance_axis
         self._num_processes = num_processes
         self._sa_cfg = sa_cfg or _FAST_SA
         self._ga_cfg = ga_cfg or _FAST_GA
@@ -124,12 +130,30 @@ class PlacementService:
                 num_processes=self._num_processes, sa_cfg=self._sa_cfg,
                 ga_cfg=self._ga_cfg, device=self._device)
             if self._workers >= 1:
+                if self._transport == "subprocess":
+                    if self._mesh is not None:
+                        raise ValueError("subprocess fleet workers cannot "
+                                         "share the service's device mesh")
+                    meshes = None
+                else:
+                    meshes = None if self._mesh is None else [self._mesh]
                 self._engine = EngineFleet(
                     workers=self._workers, transport=self._transport,
-                    fault_plan=self._fault_plan, **kwargs)
+                    fault_plan=self._fault_plan, meshes=meshes,
+                    instance_axis=self._axis, **kwargs)
             else:
-                self._engine = MappingEngine(**kwargs)
+                self._engine = MappingEngine(
+                    mesh=self._mesh, instance_axis=self._axis, **kwargs)
         return self._engine
+
+    def configure_mesh(self, mesh, instance_axis: str = "instances") -> None:
+        """Shard the engine's bucket waves over ``mesh``'s
+        ``instance_axis`` (``core.batch_sharded``); ``None`` restores the
+        single-device path.  Results are bitwise-identical either way, so
+        this is purely a throughput knob.  Rebuilds the engine (the mesh
+        is fixed at construction); queued futures are drained first."""
+        self._mesh, self._axis = mesh, instance_axis
+        self.close()
 
     def close(self) -> None:
         """Stop the engine (draining any queued futures, so no caller is
@@ -233,8 +257,8 @@ def default_service() -> PlacementService:
 
 def reset_default_service() -> None:
     """Tear down the shared service (stop its engine's flusher, drop
-    cache/stats).  Test fixtures call this so one test's cache/stats can
-    never leak into another."""
+    cache/stats, restore the default unsharded mesh).  Test fixtures call
+    this so one test's cache/stats/mesh can never leak into another."""
     global _SERVICE
     if _SERVICE is not None:
         _SERVICE.close()
@@ -244,6 +268,12 @@ def reset_default_service() -> None:
 def get_engine() -> MappingEngine:
     """The default service's engine (see :class:`PlacementService`)."""
     return default_service().engine
+
+
+def configure_engine_mesh(mesh, instance_axis: str = "instances") -> None:
+    """Configure the default service's mesh sharding
+    (:meth:`PlacementService.configure_mesh`)."""
+    default_service().configure_mesh(mesh, instance_axis)
 
 
 def solve_placement(c: np.ndarray, m: np.ndarray, algorithm: str = "psa",

@@ -1,10 +1,9 @@
 """Distributed engine fleet: a coordinator sharding waves over worker
 engines, with deterministic fault injection and failure recovery.
 
-The port of ``repro/serve/fleet.py``, without the reference's ``meshes=``
-(the port's engine has no device mesh yet; passing it is a
-``TypeError``).  Worker engines run where ``engine_kwargs["device"]``
-says, the card by default.
+The port of ``repro/serve/fleet.py``.  Worker engines run where
+``engine_kwargs["device"]`` says, the card by default; ``meshes=`` gives
+thread workers instance meshes (``launch.mesh.Mesh``), round-robin.
 
 One :class:`~repro_torch.serve.mapper.MappingEngine` process is the ceiling on
 the ROADMAP's "millions of users" target: the paper's premise is that
@@ -104,7 +103,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -388,6 +387,7 @@ class EngineFleet:
                  heartbeat_interval_s: float = DEFAULT_HEARTBEAT_INTERVAL_S,
                  engine_factory: Optional[
                      Callable[[int], MappingEngine]] = None,
+                 meshes: Optional[Sequence] = None,
                  **engine_kwargs):
         if workers < 1:
             raise ValueError("need at least one worker")
@@ -418,11 +418,14 @@ class EngineFleet:
         self.worker_cache_dir = worker_cache_dir
         self.heartbeat_interval_s = float(heartbeat_interval_s)
         if transport == "subprocess":
-            if engine_factory is not None:
+            if engine_factory is not None or meshes:
                 raise ValueError(
                     "subprocess transport configures workers via "
-                    "engine kwargs only (factories cannot cross "
+                    "engine kwargs only (factories/meshes cannot cross "
                     "the process boundary)")
+            if "mesh" in engine_kwargs and engine_kwargs["mesh"] is not None:
+                raise ValueError(
+                    "subprocess transport cannot ship a device mesh")
             kwargs = dict(engine_kwargs)
             kwargs.setdefault("warm_start", False)
             self._engine_kwargs = kwargs
@@ -431,13 +434,17 @@ class EngineFleet:
             kwargs = dict(engine_kwargs)
             kwargs.setdefault("warm_start", False)
             self._engine_kwargs = kwargs
+            mesh_list = list(meshes) if meshes else []
 
             def engine_factory(wid: int) -> MappingEngine:
-                return MappingEngine(**kwargs)
+                kw = dict(kwargs)
+                if mesh_list:
+                    kw["mesh"] = mesh_list[wid % len(mesh_list)]
+                return MappingEngine(**kw)
             self._factory = engine_factory
-        elif engine_kwargs:
+        elif engine_kwargs or meshes:
             raise ValueError(
-                "pass either engine_factory or engine kwargs")
+                "pass either engine_factory or engine kwargs/meshes")
         else:
             self._engine_kwargs = None
             self._factory = engine_factory

@@ -25,6 +25,10 @@ allocation's distance graph ``M`` and gets back a permutation:
   5. An exact-digest LRU serves repeats; a shape-tier (order + system
      graph) near miss warm-starts the solve from the cached permutation
      (not on the multilevel route, whose coarse solve is the seed).
+  6. With ``mesh`` (a ``launch.mesh.Mesh`` of local devices) bucket waves
+     dispatch through ``core.batch_sharded``, the instance axis split
+     over ``mesh.shape[instance_axis]`` devices -- bitwise-identical
+     results, one wave solved by N devices instead of one.
 
 The same request gives the same permutation as the reference engine: the
 solvers replay its random streams and arithmetic bit for bit.
@@ -42,9 +46,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import (annealing, composite, genetic, keys, mapping as mapping_lib,
-                    multilevel)
+from ..core import (annealing, batch_sharded, composite, genetic, keys,
+                    mapping as mapping_lib, multilevel)
 from ..kernels import build
+from ..launch.mesh import canonical_device
 
 DEFAULT_BUCKETS = (32, 64, 128)
 
@@ -254,6 +259,11 @@ class MappingEngine:
     Runs its solves on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``).  Call :meth:`start` for the background flusher (or
     use the engine as a context manager); without it, :meth:`flush`.
+
+    With ``mesh`` the bucket waves are sharded over the mesh's
+    ``instance_axis`` (``core.batch_sharded``); ``device`` then stages
+    the waves and polishes them, and is the mesh's first device (the
+    default) or an error.
     """
 
     def __init__(self, buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -266,11 +276,28 @@ class MappingEngine:
                  policy: Optional[DeadlinePolicy] = None,
                  warm_start: bool = True,
                  pad_batches: bool = True,
+                 mesh=None,
+                 instance_axis: str = batch_sharded.DEFAULT_AXIS,
                  large_buckets: Sequence[int] = LARGE_BUCKETS,
                  multilevel_min_n: int = 256,
                  multilevel_cfg: Optional[multilevel.MultilevelConfig] = None,
                  max_pending: Optional[int] = None,
                  device=None):
+        # mesh: results are bitwise-equal to the unsharded path, so the
+        # cache digest does not include the mesh.
+        if mesh is not None:
+            if instance_axis not in mesh.shape:
+                raise ValueError(
+                    f"mesh has no axis {instance_axis!r}; "
+                    f"axes: {tuple(mesh.shape)}")
+            first = mesh.devices.flat[0]
+            if device is None:
+                device = first
+            elif canonical_device(resolve_device(device)) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+        self.mesh = mesh
+        self.instance_axis = instance_axis
         self.device = resolve_device(device)
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets:
@@ -684,8 +711,28 @@ class MappingEngine:
                            warm_start=warm_start)
 
     def _dispatch(self, algorithm: str, tier: str, C, M, key, nv, ips):
-        """One batched solve (a padded wave, or one unpadded instance as a
-        batch of one): ``(perms, fs)``."""
+        """One batched solve of a padded wave: ``(perms, fs)``, sharded
+        over the mesh when the engine has one."""
+        if self.mesh is None:
+            return self._dispatch_local(algorithm, tier, C, M, key, nv, ips)
+        sa_cfg, ga_cfg = self._tier_cfgs[tier]
+        kw = dict(n_valid=nv, init_perm=ips, mesh=self.mesh,
+                  axis=self.instance_axis)
+        if algorithm == "psa":
+            p, f, _ = batch_sharded.run_psa_batch_sharded(
+                C, M, key, sa_cfg, self.num_processes, **kw)
+        elif algorithm == "pga":
+            p, f, _ = batch_sharded.run_pga_batch_sharded(
+                C, M, key, ga_cfg, self.num_processes, **kw)
+        else:
+            p, f, _ = batch_sharded.run_pca_batch_sharded(
+                C, M, key, composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg),
+                self.num_processes, **kw)
+        return p, f
+
+    def _dispatch_local(self, algorithm: str, tier: str, C, M, key, nv, ips):
+        """One batched solve on the engine's device (a padded wave, or one
+        unpadded instance as a batch of one): ``(perms, fs)``."""
         sa_cfg, ga_cfg = self._tier_cfgs[tier]
         kw = dict(n_valid=nv, init_perm=ips, device=self.device)
         if algorithm == "psa":
@@ -772,8 +819,9 @@ class MappingEngine:
         C = torch.as_tensor(np.asarray(req.C, np.float32), device=dev)
         M = torch.as_tensor(np.asarray(req.M, np.float32), device=dev)
         key = keys.prng_key(req.seed, dev)
-        p, f = self._dispatch(algorithm, tier, C[None], M[None], key[None],
-                              None, None if warm is None else warm[None])
+        p, f = self._dispatch_local(algorithm, tier, C[None], M[None],
+                                    key[None], None,
+                                    None if warm is None else warm[None])
         p, f = p[0], f[0]
         if self.polish_rounds > 0:
             p, f = mapping_lib.polish(C, M, p, keys.fold_in(key, 7),

@@ -169,3 +169,64 @@ def test_sparse_flows_not_ported():
                             device="cpu")
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("start", ["random", "masked", "identity"])
+def test_init_chain_matches_reference(start):
+    """``init_chain`` over a leading batch of chain keys equals the
+    reference's under ``jit(vmap)``: random, padded (``n_valid``) and
+    identity-seeded starts (T0 in XLA's folded form)."""
+    n, nv, chains = 16, 11, 9
+    C, M = instance(n, 21)
+    cfg = SA_SMALL
+    jkeys = jax.random.split(jax.random.PRNGKey(6), chains)
+    ident = np.roll(np.arange(n, dtype=np.int32), 3)
+    kw = {"random": {}, "masked": {"n_valid": nv},
+          "identity": {"identity": ident}}[start]
+    want = jax.jit(jax.vmap(lambda k: jann.init_chain(
+        jnp.asarray(C), jnp.asarray(M), k, cfg,
+        **{k_: jnp.asarray(v) for k_, v in kw.items()})))(jkeys)
+    port_kw = {k_: torch.as_tensor(v) for k_, v in kw.items()}
+    got = annealing.init_chain(torch.as_tensor(C), torch.as_tensor(M),
+                               _kd(jkeys), _port(cfg), **port_kw)
+    for name, w, g in zip(want._fields, want, got):
+        assert g.shape[0] == chains, name
+        assert np.asarray(w).tobytes() == g.numpy().tobytes(), name
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_seed_chain0_and_adopt_best_match_reference(warm):
+    """``seed_chain0`` on a (processes, solvers) chain grid, warm and with
+    the cold sentinel (a -1 first entry), then ``_adopt_best`` of a
+    broadcast best, against the reference's."""
+    n, procs, solvers = 12, 3, 4
+    C, M = instance(n, 23)
+    Cj, Mj = jnp.asarray(C), jnp.asarray(M)
+    cfg = SA_SMALL
+    ckeys = jax.random.split(jax.random.PRNGKey(8), procs * solvers) \
+        .reshape(procs, solvers, 2)
+    init = jax.jit(jax.vmap(jax.vmap(
+        lambda k: jann.init_chain(Cj, Mj, k, cfg))))(ckeys)
+    ip = np.random.default_rng(5).permutation(n).astype(np.int32)
+    if not warm:
+        ip[0] = -1
+    want = jax.jit(lambda st, k, p: jann.seed_chain0(
+        Cj, Mj, st, k, cfg, procs, p, jann.init_chain))(
+            init, ckeys[0, 0], jnp.asarray(ip))
+    tC, tM = torch.as_tensor(C), torch.as_tensor(M)
+    ported = annealing.SAState(*(torch.as_tensor(np.array(x)) for x in init))
+    got = annealing.seed_chain0(tC, tM, ported, _kd(ckeys[0, 0]), _port(cfg),
+                                procs, torch.as_tensor(ip),
+                                annealing.init_chain)
+    for name, w, g in zip(want._fields, want, got):
+        assert np.asarray(w).tobytes() == g.numpy().tobytes(), name
+    # adopt the best of the grid, broadcast to every chain
+    flat = want.best_f.reshape(-1)
+    i = int(jnp.argmin(flat))
+    bp = jnp.broadcast_to(want.best_p.reshape(-1, n)[i], want.p.shape)
+    bf = jnp.broadcast_to(flat[i], want.f.shape)
+    adopted = jax.jit(jann._adopt_best)(want, bp, bf)
+    got = annealing._adopt_best(got, torch.as_tensor(np.array(bp)),
+                                torch.as_tensor(np.array(bf)))
+    for name, w, g in zip(adopted._fields, adopted, got):
+        assert np.asarray(w).tobytes() == g.numpy().tobytes(), name

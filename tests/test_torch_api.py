@@ -1,8 +1,9 @@
-"""The control plane's public surface against the reference's: every
-public class, method and function of the ported modules has the
-reference's parameter names, order, kinds and defaults.  The only
-differences are listed in ``EXCEPTIONS`` (the device mesh is not ported
-yet; the port's engine takes a ``device``)."""
+"""The control plane's and the meshes' public surface against the
+reference's: every public class, method and function of the ported
+modules has the reference's parameter names, order, kinds and defaults.
+The only differences are listed in ``EXCEPTIONS`` (the port's entry
+points take a ``device``) and ``NOT_PORTED`` (with the ROADMAP step that
+ports them)."""
 import dataclasses
 import inspect
 
@@ -10,16 +11,23 @@ import pytest
 
 import repro.serve
 import repro_torch.serve
+from repro.core import batch_sharded as ref_batch_sharded
+from repro.core import distributed as ref_distributed
+from repro.launch import mesh as ref_mesh
 from repro.launch import placement as ref_placement
 from repro.serve import cluster as ref_cluster
 from repro.serve import fleet as ref_fleet
 from repro.serve import rm as ref_rm
 from repro.serve import trace as ref_trace
 from repro.serve import transport as ref_transport
-from repro_torch.launch import placement
+from repro_torch.core import batch_sharded, distributed
+from repro_torch.launch import mesh, placement
 from repro_torch.serve import cluster, fleet, rm, trace, transport
 
 MODULES = {
+    "core.batch_sharded": (ref_batch_sharded, batch_sharded),
+    "core.distributed": (ref_distributed, distributed),
+    "launch.mesh": (ref_mesh, mesh),
     "serve.cluster": (ref_cluster, cluster),
     "serve.transport": (ref_transport, transport),
     "serve.fleet": (ref_fleet, fleet),
@@ -30,17 +38,23 @@ MODULES = {
 
 # qualified name -> (parameters the port drops, parameters it adds)
 EXCEPTIONS = {
-    "serve.fleet.EngineFleet.__init__": ({"meshes"}, set()),
-    "launch.placement.PlacementService.__init__": (
-        {"mesh", "instance_axis"}, {"device"}),
+    "launch.placement.PlacementService.__init__": (set(), {"device"}),
+    "launch.mesh.make_local_mesh": (set(), {"device"}),
+    "launch.mesh.make_instance_mesh": (set(), {"device"}),
 }
 
-# Reference names that need a device mesh or compiled HLO, not ported yet.
+# Reference names the port does not have, each with the ROADMAP step
+# that ports it.
 NOT_PORTED = {
-    "launch.placement": {"configure_engine_mesh", "apply_placement",
-                         "place_job", "traffic_from_compiled",
-                         "system_graph_for_mesh"},
-    "launch.placement.PlacementService": {"configure_mesh"},
+    # step 3: they read compiled HLO (topology/)
+    "launch.placement": {"apply_placement", "place_job",
+                         "traffic_from_compiled", "system_graph_for_mesh"},
+    # step 6: the LM stack's production meshes
+    "launch.mesh": {"make_production_mesh", "production_shape",
+                    "activate_mesh"},
+    # no step: JAX's shard_map across its versions; the port's ranks are
+    # processes that run the solver bodies themselves
+    "core.distributed": {"shard_map"},
 }
 
 

@@ -108,3 +108,53 @@ def test_run_prints_rows_and_reports_failure(monkeypatch, capsys):
     monkeypatch.setattr(fig5_solvers, "run", broken)
     assert port_run.main() == 1
     assert "fig5.ERROR,0,failed" in capsys.readouterr().out
+
+
+def test_solver_hotloop_dry_runs(tmp_path):
+    """The port's solver_hotloop (which needs ``annealing.init_chain``) in
+    both modes and with ``--loop fused`` on the CPU: every pair of loops
+    agreed bit for bit (asserted inside), and the reference's sections
+    and keys come out."""
+    from benchmarks_torch import solver_hotloop
+    path = tmp_path / "h.json"
+    argv = ["--dry-run", "--device", "cpu", "--json", str(path)]
+    out = solver_hotloop.main(argv)
+    assert set(out) == {"solver_hotloop", "ga_hotloop"}
+    solver_hotloop.main(argv + ["--loop", "fused"])
+    saved = json.loads(path.read_text())
+    sa, ga, fused = (saved[k] for k in ("solver_hotloop", "ga_hotloop",
+                                        "fused"))
+    assert set(sa) == {"config", "sequential_depth", "per_step", "solve"}
+    step = sa["per_step"]["n=16"]
+    assert {"scan", "event", "speedup_event_vs_scan_hot",
+            "speedup_event_vs_scan_annealed"} <= set(step)
+    assert sa["solve"]["n=16"]["event"]["maps_per_s"] > 0
+    assert set(ga) == {"config", "solve", "solve_batch"}
+    assert ga["solve"]["n=16"]["wide"]["offspring_evals_per_s"] > 0
+    assert fused["sa"]["n=16"]["dispatches_per_temperature_step"] == \
+        {"fused": 1, "event": 4}
+    assert fused["ga"]["n=16"]["fused"]["rounds_per_s"] > 0
+    assert sa["config"]["device_name"] == "cpu"
+
+
+def test_mesh_shape_dry_runs_match_unsharded(tmp_path):
+    """``--mesh-shape 4`` on the CPU (4 emulated devices): mapper_throughput
+    asserts sharded == batched inside and writes ``throughput_mesh``;
+    scheduler_sim's replay writes ``scheduler_rm_mesh`` with the
+    unsharded replay's decisions and objectives."""
+    path = tmp_path / "m.json"
+    out = port_mt.main(["--dry-run", "--device", "cpu", "--mesh-shape", "4",
+                        "--json", str(path)])
+    plain = port_mt.main(["--dry-run", "--device", "cpu", "--json", ""])
+    assert out["objectives"] == plain["objectives"]
+    saved = json.loads(path.read_text())["throughput_mesh"]
+    assert saved["config"]["mesh_shape"] == 4 and saved["sharded_s"] > 0
+    from benchmarks_torch import scheduler_sim
+    argv = ["--dry-run", "--device", "cpu", "--json", ""]
+    mesh = scheduler_sim.main(argv + ["--mesh-shape", "4"])
+    base = scheduler_sim.main(argv)
+    got, want = mesh["scheduler_rm_mesh"], base["scheduler_rm"]
+    assert got["config"]["mesh_shape"] == 4
+    for path_ in ("first_fit", "co_opt"):
+        for key in ("makespan_s", "mean_objective", "backfilled"):
+            assert got[path_][key] == want[path_][key], (path_, key)

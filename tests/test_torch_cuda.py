@@ -259,6 +259,36 @@ def test_ga_engine_on_card_matches_engine_on_cpu(cuda, algorithm, ga_eval):
         assert g.objective == c.objective
 
 
+@pytest.mark.parametrize("algorithm", ["psa", "pga", "pca"])
+def test_four_shard_engine_on_one_card_matches_unsharded(cuda, algorithm):
+    """A mesh that names cuda:0 four times: a three-request wave pads to
+    four shards and trims back, every response equal to the unsharded
+    engine's on the card."""
+    from repro_torch.launch.mesh import (make_instance_mesh,
+                                         make_mesh_with_devices)
+    with pytest.raises(ValueError, match="num_devices"):
+        make_instance_mesh(torch.cuda.device_count() + 1)
+    mesh = make_mesh_with_devices([torch.device("cuda", 0)] * 4, (4,),
+                                  ("instances",))
+    sa = annealing.SAConfig(max_neighbors=25, iters_per_exchange=10,
+                            num_exchanges=4, solvers=8)
+    ga = genetic.GAConfig(generations=20, pop_size=32)
+    reqs = [MapRequest(job_id=f"n{n}-v{v}", C=inst.C, M=inst.M, seed=v,
+                       algorithm=algorithm)
+            for n in (27, 45) for v in (1, 2, 3)
+            for inst in [instances.make_taie(n, version=v)]]
+    out = {}
+    for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        engine = MappingEngine(sa_cfg=sa, ga_cfg=ga, polish_rounds=50, **kw)
+        assert engine.device == torch.device("cuda", 0)
+        futs = [engine.submit(r) for r in reqs]
+        engine.flush()
+        out[name] = [f.result() for f in futs]
+    for g, c in zip(out["mesh"], out["plain"]):
+        np.testing.assert_array_equal(g.perm, c.perm)
+        assert g.objective == c.objective
+
+
 # (n, D): ragged lane edges (D = 1, 31, 33), both sides of K7's lane-group
 # edges (8 lanes a candidate up to D = 8, 16 up to 16, a warp above), and
 # the multilevel route's widths (D = 6 at its finest 4096 level, 46 at its

@@ -20,6 +20,7 @@ from repro.serve import MappingEngine as RefEngine
 from repro.serve import MapRequest as RefRequest
 from repro_torch.core import instances
 from repro_torch.kernels import build, ops
+from repro_torch.launch.mesh import make_instance_mesh
 from repro_torch.serve import (ClusterState, EngineFleet, FaultPlan,
                                MapCancelled, MappingEngine, MapRequest,
                                QueueFull)
@@ -82,9 +83,18 @@ def test_fleet_map_one_validation_and_no_meshes():
     with pytest.raises(RuntimeError, match="stopped"):
         fleet.submit(MapRequest(job_id="late", C=C, M=M, algorithm="psa"))
     fleet.stop()                           # idempotent
-    # the port has no device mesh: meshes= is an unknown keyword
-    with pytest.raises(TypeError):
-        EngineFleet(workers=1, meshes=[object()], **ENGINE_KW)
+    # meshes= goes to thread workers built from engine kwargs only, as
+    # in the reference
+    mesh = make_instance_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="engine_factory"):
+        EngineFleet(workers=1, engine_factory=lambda wid: None,
+                    meshes=[mesh])
+    with pytest.raises(ValueError, match="meshes"):
+        EngineFleet(workers=1, transport="subprocess", meshes=[mesh],
+                    **ENGINE_KW)
+    with pytest.raises(ValueError, match="mesh"):
+        EngineFleet(workers=1, transport="subprocess", mesh=mesh,
+                    **ENGINE_KW)
     with pytest.raises(ValueError, match="engine_factory"):
         EngineFleet(workers=1, engine_factory=lambda wid: None, **ENGINE_KW)
     with pytest.raises(ValueError, match="worker"):
