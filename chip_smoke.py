@@ -59,7 +59,8 @@ Phases, each of which must pass:
    (both also with ``--mesh-shape 1``), ``sparse_scale`` and
    ``solver_hotloop`` (both loops), and ``kernel_micro``; before it, K1
    and K2 on Table 1's tai343 and tai729 against their plain versions;
-   then a tenth route, ``mesh``: the five dense routes' waves through a
+   then a tenth route, ``mesh``: each dense route's 128-bucket wave and
+   one of its three-request waves (64 and 32 buckets in turn) through a
    ``MappingEngine`` whose instance mesh names cuda:0 four times (each
    wave split over four shards that share the card; the three-request
    waves pad to four and trim back), every response equal to phase 4's
@@ -143,20 +144,25 @@ LM_TF_ROWS = 16          # prompts in the bf16 teacher-forcing measurement
 # kernel microbenchmarks.  Table 1's orders 175/343/729 run K1 and K2 on
 # their L2 branches.  Card == CPU on Table 1's orders 27 and 45 at
 # PAPER_CPU_SCALE and on scheduler_sim's dry-run replay.
-PAPER_SCALE = 0.1
+PAPER_SCALE = 0.25
 PAPER_FIG_SCALE = 0.02
 PAPER_CPU_SCALE, PAPER_CPU_ORDERS = 0.02, (27, 45)
 F32_EXACT = 2 ** 24      # integers above it are not all f32 numbers
 PAPER_KERNEL_ORDERS = (343, 729)
 
-# The mesh route: the five dense routes' waves through an engine whose
-# instance mesh names cuda:0 MESH_SHARDS times (each wave split over 4
-# shards that share the card), then the paper's parallel algorithms over
+# The mesh route: the five dense routes' waves (MESH_ENGINE_ORDERS)
+# through an engine whose instance mesh names cuda:0 MESH_SHARDS times
+# (each wave split over 4 shards that share the card), then the paper's parallel algorithms over
 # spawned torch.distributed worlds on one order-125 instance at the
 # routes' budgets: world size 4 on cuda:0 (gloo: NCCL refuses several
 # ranks on one GPU), world size 1 (NCCL), and world size 4 on the CPU
 # (gloo) on the MESH_CPU_CASES.
 MESH_SHARDS = 4
+# route -> the orders of its sharded waves: the 128-bucket wave and one
+# three-request wave (padded to 4 shards), the 64 and 32 buckets in turn
+MESH_ENGINE_ORDERS = {"psa-event": (ORDER, 45), "psa-fused": (ORDER, 27),
+                      "pga-wide": (ORDER, 45), "pga-fused": (ORDER, 27),
+                      "pca": (ORDER, 45)}
 MESH_SEED = 7
 MESH_TIMEOUT_S = 600.0
 MESH_RANK_THREADS = 1    # up to 5 ranks share the host's 8 cores
@@ -1692,11 +1698,12 @@ def drive_paper():
 
 
 def drive_mesh_engine(dense):
-    """Each dense route's waves through ``MappingEngine(mesh=)`` with
-    cuda:0 named MESH_SHARDS times, the launch counts set to 0 just before
-    each wave and read just after; every response equal to the unsharded
-    engine's from phase 4 (``dense``: route -> (responses, walls)).  The
-    kernels were built and first used in phase 4, so no warmup."""
+    """Each dense route's MESH_ENGINE_ORDERS waves through
+    ``MappingEngine(mesh=)`` with cuda:0 named MESH_SHARDS times, the
+    launch counts set to 0 just before each wave and read just after;
+    every response equal to the unsharded engine's from phase 4
+    (``dense``: route -> (responses, walls)).  The kernels were built and
+    first used in phase 4, so no warmup."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh_with_devices
@@ -1709,7 +1716,7 @@ def drive_mesh_engine(dense):
         engine = engine_for(route, None, mesh=mesh)
         require(engine.device == torch.device("cuda", 0),
                 f"[mesh] {route}: engine device {engine.device}")
-        for order in (ORDER, 45, 27):
+        for order in MESH_ENGINE_ORDERS[route]:
             wave = [r for r in reqs if r.C.shape[0] == order]
             ops.reset_launch_counts()
             t = time.perf_counter()
@@ -1834,9 +1841,12 @@ def drive_mesh_worlds():
     Then card x4 == cpu x4 on the cpu cases, and pga-fused == pga-wide in
     every world.  Returns each world's rank-0 results."""
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.launch.world import run_world
+    from repro_torch.launch.world import default_backend, run_world
 
     def world(label, size, backend, device_type, names):
+        require(default_backend(device_type, size) == backend,
+                f"[mesh] {label}: default backend "
+                f"{default_backend(device_type, size)} != {backend}")
         t = time.perf_counter()
         ranks = run_world(mesh_rank, size, backend=backend,
                           device_type=device_type, args=(names,),

@@ -9,11 +9,14 @@ is ``"proc"`` (``core.distributed``'s default axis) -- calls
 ranks' results in rank order.  Nothing on the host describes a cluster,
 so the world's size, ranks and rendezvous are given here.
 
-On ``cuda`` rank r runs on card ``r % torch.cuda.device_count()``, so
-one card holds all ranks of a world larger than the card count; several
-ranks on one card need the ``gloo`` backend (NCCL refuses them).  Build
-the kernels before calling this (``kernels.build.build_all``), or every
-rank builds them at once.
+The world runs on ``cuda`` unless the caller asks for the CPU with
+``device_type="cpu"``; without a card ``cuda`` raises, as every entry
+point of the port does.  On ``cuda`` rank r runs on card
+``r % torch.cuda.device_count()``, so one card holds all ranks of a world
+larger than the card count.  The backend follows: NCCL when every rank
+has a card of its own, else ``gloo`` (NCCL refuses several ranks on one
+GPU, and has no CPU tensors).  Build the kernels before calling this
+(``kernels.build.build_all``), or every rank builds them at once.
 """
 from __future__ import annotations
 
@@ -24,11 +27,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from .. import resolve_device
 
 
 def _rank_main(rank: int, world_size: int, backend: str, device_type: str,
@@ -51,8 +56,17 @@ def _rank_main(rank: int, world_size: int, backend: str, device_type: str,
             dist.destroy_process_group()
 
 
-def run_world(fn: Callable, world_size: int, *, backend: str = "gloo",
-              device_type: str = "cpu", args: Sequence = (),
+def default_backend(device_type: str, world_size: int) -> str:
+    """NCCL when each of ``world_size`` ranks has a card of its own,
+    else ``gloo``."""
+    if device_type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def run_world(fn: Callable, world_size: int, *,
+              device_type: Optional[str] = None,
+              backend: Optional[str] = None, args: Sequence = (),
               timeout_s: float = 300.0) -> List[Any]:
     """``[fn(mesh, *args) on rank r for r in range(world_size)]``.
 
@@ -61,8 +75,12 @@ def run_world(fn: Callable, world_size: int, *, backend: str = "gloo",
     plain numbers, not device tensors.  A rank that raises fails the
     world: the others are stopped and ``RuntimeError`` carries the
     rank's traceback.  So does a world that has not finished within
-    ``timeout_s`` seconds.
+    ``timeout_s`` seconds.  ``device_type`` is ``cuda`` unless given;
+    ``backend`` is :func:`default_backend`'s unless given.
     """
+    device_type = resolve_device(device_type).type
+    if backend is None:
+        backend = default_backend(device_type, world_size)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = tempfile.mkdtemp(prefix="repro_world_")

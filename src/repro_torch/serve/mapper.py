@@ -716,18 +716,11 @@ class MappingEngine:
         if self.mesh is None:
             return self._dispatch_local(algorithm, tier, C, M, key, nv, ips)
         sa_cfg, ga_cfg = self._tier_cfgs[tier]
-        kw = dict(n_valid=nv, init_perm=ips, mesh=self.mesh,
-                  axis=self.instance_axis)
-        if algorithm == "psa":
-            p, f, _ = batch_sharded.run_psa_batch_sharded(
-                C, M, key, sa_cfg, self.num_processes, **kw)
-        elif algorithm == "pga":
-            p, f, _ = batch_sharded.run_pga_batch_sharded(
-                C, M, key, ga_cfg, self.num_processes, **kw)
-        else:
-            p, f, _ = batch_sharded.run_pca_batch_sharded(
-                C, M, key, composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg),
-                self.num_processes, **kw)
+        cfg = {"psa": sa_cfg, "pga": ga_cfg}.get(algorithm) or \
+            composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg)
+        p, f, _ = batch_sharded._dispatch_sharded(
+            algorithm, cfg, self.num_processes, True, C, M, key, nv, ips,
+            self.mesh, self.instance_axis)
         return p, f
 
     def _dispatch_local(self, algorithm: str, tier: str, C, M, key, nv, ips):

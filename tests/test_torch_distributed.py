@@ -18,8 +18,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
-from repro_torch.launch.world import run_world
+from repro_torch.launch.world import default_backend, run_world
 
 import _torch_world
 
@@ -87,7 +88,8 @@ def runs(tmp_path_factory):
                            cwd=ROOT, stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True)
     try:
-        port = {w: run_world(_torch_world.all_cases, w, timeout_s=TIMEOUT_S)
+        port = {w: run_world(_torch_world.all_cases, w,
+                                 device_type="cpu", timeout_s=TIMEOUT_S)
                 for w in _torch_world.WORLD_CASES}
         _, err = ref.communicate(timeout=TIMEOUT_S)
     finally:
@@ -129,4 +131,22 @@ def test_every_rank_equals_the_reference(runs, world, case):
 
 def test_a_failing_rank_fails_the_world():
     with pytest.raises(RuntimeError, match="mesh has no axis 'nope'"):
+        run_world(_torch_world.bad_axis, 2, device_type="cpu",
+                  timeout_s=TIMEOUT_S)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a CUDA card")
+def test_a_world_runs_on_cuda_unless_asked_for_the_cpu():
+    """No card and no ``device_type``: the world raises before it spawns
+    a rank, rather than falling back to the CPU."""
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
         run_world(_torch_world.bad_axis, 2, timeout_s=TIMEOUT_S)
+
+
+@pytest.mark.parametrize("device_type,world_size,cards,want", [
+    ("cpu", 1, 0, "gloo"), ("cpu", 4, 8, "gloo"), ("cuda", 1, 1, "nccl"),
+    ("cuda", 4, 4, "nccl"), ("cuda", 4, 1, "gloo")])
+def test_default_backend(monkeypatch, device_type, world_size, cards, want):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert default_backend(device_type, world_size) == want
