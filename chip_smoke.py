@@ -71,6 +71,23 @@ Phases, each of which must pass:
    ``find_mapping(mesh=)`` at world size 4 on cuda:0 (gloo) and 1
    (NCCL), and three of them at world size 4 on the CPU: every rank the
    same answer, f = F(perm), card == CPU;
+   then an eleventh route, ``train``: Qwen3-4B at full width (d_model
+   2560, 32 heads / 8 KV, head_dim 128, d_ff 9728, vocab 151936,
+   qk_norm), 4 of its 36 layers, trained through ``train.step`` for 6
+   AdamW steps on 4 x 4096 tokens of the data pipeline (bf16 compute, f32
+   master weights and moments, remat ``full``, ``loss_chunk`` 512, lr
+   3e-4 after 2 warmup steps, seed 0): every loss finite, the last below
+   the first, the first step's loss within 1e-2 and its grad norm within
+   5e-2 of the same step in f32 compute, and one more step under
+   ``torch.profiler`` (the device's busy share and its time by kernel
+   class); then Qwen3-4B, Mixtral-8x22B and
+   Jamba at ``SMOKE`` width in f32, 3 AdamW steps on the card against the
+   CPU (losses within 1e-4 relative, first-step gradients within 1e-4 of
+   each leaf's largest magnitude; Jamba's training forward launches K8
+   and every Mamba weight gets a gradient); then
+   ``launch.train.train`` on examples/train_lm.py's ``CFG_QUICK``: 6 steps
+   against 3 steps, a checkpoint, and a fresh run resuming to 6 (losses
+   within 1e-5 relative);
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -188,6 +205,24 @@ MESH_KERNELS = {"psa-event": ("qap_delta",), "psa-fused": ("qap_sa_step",),
                 "pga-fused": ("qap_objective",),
                 "pca": ("qap_delta", "qap_objective"),
                 "find_mapping": ("qap_delta",)}
+
+# The train route: Qwen3-4B at full width (configs/qwen3_4b.py), depth 36
+# -> 4, global batch 256 -> 4 at train_4k's 4096 tokens; bf16 compute,
+# f32 master weights and AdamW moments, remat "full", loss_chunk 512;
+# lr 3e-4, 2 warmup steps, 6 steps, seed 0.  Then SMOKE widths card
+# against CPU in f32 (TRAIN_CPU_ARCHS, 3 AdamW steps) and a resume of
+# examples/train_lm.py's CFG_QUICK (copied: the port cannot import
+# examples/).
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 4, 4096, 4
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 6, 2, 3e-4
+TRAIN_CPU_ARCHS = ("qwen3_4b", "mixtral_8x22b", "jamba_v0_1_52b")
+TRAIN_CPU_STEPS, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH = 3, 48, 2
+TRAIN_QUICK = dict(name="lm-quick", num_layers=4, d_model=128, num_heads=4,
+                   num_kv_heads=2, head_dim=32, d_ff=512, vocab_size=2048,
+                   layer_pattern="T" * 4, attn_q_chunk=32, attn_kv_chunk=64,
+                   loss_chunk=32)
+TRAIN_QUICK_KW = dict(global_batch=4, seq_len=64, lr=1e-3, warmup=2,
+                      log_every=1)
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -1896,6 +1931,296 @@ def drive_mesh(dense):
     return counts
 
 
+def train_config():
+    """Qwen3-4B at full width cut to TRAIN_LAYERS layers, trained in bf16
+    compute on f32 master weights and moments, remat "full"."""
+    from repro_torch import configs
+    return configs.get_config("qwen3_4b").with_overrides(
+        num_layers=TRAIN_LAYERS, layer_pattern="T" * TRAIN_LAYERS,
+        remat="full", loss_chunk=512)
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def loss_and_grad_norm(model, params, batch):
+    """The loss of ``batch`` and the global norm of its gradients (no
+    update); the gradients are freed."""
+    import torch
+    from repro_torch.models.param import tree_flatten, tree_unflatten
+    from repro_torch.train import optimizer as opt
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss = model.loss(tree_unflatten(treedef, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), float(opt.global_norm(list(grads)))
+
+
+KERNEL_CLASSES = (("matmul", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+                  ("reduction", ("reduce", "softmax", "norm")),
+                  ("elementwise", ("elementwise", "vectorized", "unrolled")),
+                  ("index / copy", ("index", "scatter", "gather", "copy",
+                                    "cat", "fill")))
+
+
+def kernel_class(name):
+    low = name.lower()
+    for label, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def profile_train_step(step_fn, params, state, batch):
+    """One more train step under ``torch.profiler`` (CPU and CUDA): its
+    wall, the device's busy time (the sum of its kernels' durations) and
+    that time by kernel class and by the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_class, by_name, n = {}, {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        n += 1
+        by_class[kernel_class(evt.name)] = by_class.get(
+            kernel_class(evt.name), 0.0) + us
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + us
+    busy = sum(by_class.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[train] profiled step: wall {wall:.4f} s (profiler on), "
+          f"{n} device kernels, device busy {busy:.4f} s "
+          f"({busy / wall:.3f} of the wall); by class (s) "
+          f"{ {k: round(v / 1e6, 4) for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])} }; "
+          f"largest {[(name[:60], round(us / 1e6, 4)) for name, us in top]}",
+          flush=True)
+
+
+def drive_train_full_width(card, device="cuda"):
+    """(a) TRAIN_STEPS AdamW steps of Qwen3-4B at full width on the card
+    through ``train.step.make_train_step``, each timed on the host clock
+    around a ``torch.cuda.synchronize()``; (b) the first step's loss and
+    grad norm in f32 compute on the same weights and batch, before it.
+    Returns the launch counts of the training loop."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.train import data, optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = train_config()
+    model = Model(cfg, device=device)
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    sync(device)
+    print(f"[train] {cfg.name} at full width cut to {cfg.num_layers} layers: "
+          f"{model.num_params()} parameters ({cfg.param_dtype} master, "
+          f"{cfg.compute_dtype} compute, {cfg.opt_dtype} moments, remat "
+          f"{cfg.remat}, loss_chunk {cfg.loss_chunk}) drawn on the card in "
+          f"{time.perf_counter() - t:.2f} s; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; card {card}", flush=True)
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    batches = [data.to_device(data.batch_at(dcfg, s), device)
+               for s in range(TRAIN_STEPS)]
+
+    # (b) the first step in f32 compute on the same weights and batch
+    t = time.perf_counter()
+    f32_loss, f32_norm = loss_and_grad_norm(
+        Model(cfg.with_overrides(compute_dtype=torch.float32), device=device),
+        params, batches[0])
+    sync(device)
+    print(f"[train] f32-compute first step: loss {f32_loss:.6f}, grad norm "
+          f"{f32_norm:.6f} ({time.perf_counter() - t:.2f} s)", flush=True)
+    ocfg = opt.OptConfig(lr=TRAIN_LR, moment_dtype=cfg.opt_dtype)
+    state = opt.init(ocfg, params)
+    step_fn = make_train_step(model, ocfg, opt.warmup_cosine(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    sync(device)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for s, batch in enumerate(batches):
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        sync(device)
+        walls.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        print(f"[train] step {s + 1}: loss {losses[-1]:.6f}, grad norm "
+              f"{float(m['grad_norm']):.6f}, lr {float(m['lr']):.3e}, step "
+              f"wall {walls[-1]:.4f} s, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / walls[-1]:.1f} tokens/s",
+              flush=True)
+        if s == 0:
+            norm0 = float(m["grad_norm"])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            f"[train] non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"[train] loss did not descend {losses}")
+    loss_gap = abs(losses[0] - f32_loss) / abs(f32_loss)
+    norm_gap = abs(norm0 - f32_norm) / abs(f32_norm)
+    require(loss_gap <= 1e-2, f"[train] bf16 first loss {losses[0]} vs f32 "
+            f"{f32_loss}: {loss_gap} > 1e-2")
+    require(norm_gap <= 5e-2, f"[train] bf16 first grad norm {norm0} vs f32 "
+            f"{f32_norm}: {norm_gap} > 5e-2")
+    if on_card:
+        profile_train_step(step_fn, params, state, batches[0])
+    steady = walls[1:]
+    print(f"[train] {TRAIN_STEPS} steps: first step wall {walls[0]:.4f} s, "
+          f"then mean {sum(steady) / len(steady):.4f} s (min {min(steady):.4f},"
+          f" max {max(steady):.4f}), "
+          f"{TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady):.1f} "
+          f"tokens/s; peak {peak / 2 ** 30:.2f} GiB; bf16 vs f32 first "
+          f"step: loss gap {loss_gap:.3e}, grad norm gap {norm_gap:.3e}; "
+          f"launches {counts}; card {card}", flush=True)
+    del params, state, batches
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
+
+
+def smoke_train(arch, device):
+    """``arch`` at SMOKE width in f32 on ``device``, weights from a CPU
+    generator (seed 0): the first step's loss and gradient leaves, the K8
+    launches of that forward and backward, then TRAIN_CPU_STEPS AdamW
+    steps' losses."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.models.param import tree_flatten, tree_unflatten
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = configs.smoke_config(arch).with_overrides(
+        compute_dtype=torch.float32)
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (TRAIN_CPU_STEPS, TRAIN_CPU_BATCH,
+                            TRAIN_CPU_SEQ + 1))
+    batches = [{"tokens": torch.as_tensor(t[:, :-1], dtype=torch.int32,
+                                          device=device),
+                "labels": torch.as_tensor(t[:, 1:], dtype=torch.int32,
+                                          device=device)} for t in toks]
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    ops.reset_launch_counts()
+    loss = model.loss(tree_unflatten(treedef, leaves), batches[0])
+    grads = [g.detach().cpu() for g in torch.autograd.grad(loss, leaves)]
+    launched = ops.launch_counts()["selective_scan"]
+    ocfg = opt.OptConfig(lr=1e-3)
+    step_fn = make_train_step(model, ocfg, opt.warmup_cosine(1e-3, 1, 10))
+    state, losses = opt.init(ocfg, params), []
+    for batch in batches:
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+    return dict(grads=grads, treedef=treedef, launched=launched,
+                losses=losses, first=float(loss.detach()),
+                pattern=cfg.layer_pattern)
+
+
+def check_train_against_cpu(device="cuda"):
+    """(c) TRAIN_CPU_ARCHS at SMOKE width in f32: losses within 1e-4
+    relative of the CPU's, first-step gradients per leaf within 1e-4 of
+    the leaf's largest magnitude; Jamba launches K8 in its training
+    forward and every Mamba weight gets a nonzero gradient."""
+    t = time.perf_counter()
+    launched = {}
+    for arch in TRAIN_CPU_ARCHS:
+        card, cpu = smoke_train(arch, device), smoke_train(arch, "cpu")
+        require(cpu["launched"] == 0, f"[train] {arch}: launches on the cpu")
+        for a, b in zip(card["losses"] + [card["first"]],
+                        cpu["losses"] + [cpu["first"]]):
+            require(abs(a - b) <= 1e-4 * abs(b), f"[train] {arch}: card loss "
+                    f"{a} != cpu {b}")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(card["grads"], cpu["grads"])):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            require(err <= 1e-4 * scale, f"[train] {arch} grad leaf {i}: "
+                    f"max err {err} > 1e-4 * {scale}")
+            worst = max(worst, err / scale if scale else 0.0)
+        if arch == "jamba_v0_1_52b":
+            require(card["launched"] > 0 or device == "cpu",
+                    "[train] jamba: no selective_scan launch in the "
+                    "training forward")
+            from repro_torch.models.param import tree_unflatten
+            tree = tree_unflatten(card["treedef"], card["grads"])
+            for ch, p in zip(card["pattern"], tree["unit"]):
+                if ch in "mM":
+                    require(all(bool(g.abs().max() > 0)
+                                for g in p["mixer"].values()),
+                            "[train] jamba: a Mamba weight has no gradient")
+        launched[arch] = card["launched"]
+        print(f"[train] {arch} smoke f32, card == cpu: losses "
+              f"{[round(x, 6) for x in card['losses']]}, first-step grads "
+              f"within {worst:.2e} of each leaf's max, K8 launches in the "
+              f"first forward and backward {card['launched']}", flush=True)
+    print(f"[train] card vs cpu {time.perf_counter() - t:.1f} s", flush=True)
+    return launched
+
+
+def check_train_resume(device="cuda"):
+    """(d) CFG_QUICK on the card: 6 steps uninterrupted, then 3 steps
+    with a checkpoint every 3 and a fresh ``train()`` resuming to 6; the
+    two histories within 1e-5 relative."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import train
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(**TRAIN_QUICK)
+    t = time.perf_counter()
+    whole = train(cfg, steps=6, device=device, **TRAIN_QUICK_KW)["history"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_",
+                                dir=os.path.join(ROOT, "build"))
+    try:
+        first = train(cfg, steps=3, checkpoint_dir=ckpt_dir,
+                      checkpoint_every=3, device=device,
+                      **TRAIN_QUICK_KW)["history"]
+        rest = train(cfg, steps=6, checkpoint_dir=ckpt_dir,
+                     checkpoint_every=3, device=device,
+                     **TRAIN_QUICK_KW)["history"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = first + rest
+    require([h["step"] for h in resumed] == [h["step"] for h in whole]
+            == list(range(1, 7)), f"[train] resume steps {resumed}")
+    for a, b in zip(resumed, whole):
+        require(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]),
+                f"[train] resumed {a} != uninterrupted {b}")
+    print(f"[train] CFG_QUICK resume 3 + 3 == 6 uninterrupted: losses "
+          f"{[round(h['loss'], 6) for h in whole]} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+
+def drive_train(card):
+    """The eleventh route: full-width training, card against CPU, resume.
+    Returns the full-width loop's launch counts and the K8 launches of
+    the SMOKE forwards."""
+    t = time.perf_counter()
+    counts = drive_train_full_width(card)
+    launched = check_train_against_cpu()
+    check_train_resume()
+    print(f"[train] route wall {time.perf_counter() - t:.1f} s", flush=True)
+    return counts, launched
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1965,6 +2290,8 @@ def main():
     phase_done("paper")
     runs["mesh"] = drive_mesh(dense)
     phase_done("mesh")
+    runs["train"] = drive_train(card)
+    phase_done("train")
 
     d = delta[("event", "batched")]
     o = obj[("generation", "smem", "batched")]

@@ -21,6 +21,7 @@ from .core.multilevel import MultilevelConfig
 from .core.sparse import SparseFlows
 from .models.config import ModelConfig, resolve_dtype
 from .models.param import tree_map
+from .train.optimizer import OptState
 
 
 def sa_config_from_reference(fields: Mapping) -> SAConfig:
@@ -122,3 +123,26 @@ def lm_params_from_reference(tree: Any, device="cpu",
     dt = torch.float32 if param_dtype is None else resolve_dtype(param_dtype)
     return tree_map(lambda x: torch.as_tensor(
         np.array(x, np.float32)).to(device=device, dtype=dt), tree)
+
+
+def opt_state_from_reference(state: Any, device="cpu", moment_dtype=None):
+    """The port's :class:`train.optimizer.OptState` from the reference's,
+    with leaves as numpy arrays (``jax.tree.map(np.asarray, state)``: a
+    ``(step, mu, nu)`` tuple, or the reference's ``OptState`` of numpy
+    arrays; bf16 moments as f32, e.g. ``np.asarray(x, np.float32)``).
+    ``step`` becomes a 0-d int32 tensor; the moment trees keep their
+    structure, each leaf a tensor of ``moment_dtype`` (a torch dtype or
+    its name; default: f32) on ``device`` -- except the scalar ``nu``
+    leaves of SGD-M, which are f32 in both packages."""
+    step, mu, nu = state
+    dt = torch.float32 if moment_dtype is None else resolve_dtype(moment_dtype)
+
+    def leaf(x, dtype):
+        x = np.array(x, np.float32)
+        return torch.from_numpy(x).to(
+            device=device, dtype=torch.float32 if x.ndim == 0 else dtype)
+
+    return OptState(
+        step=torch.from_numpy(np.array(step, np.int32)).to(device),
+        mu=tree_map(lambda x: leaf(x, dt), mu),
+        nu=tree_map(lambda x: leaf(x, dt), nu))

@@ -30,7 +30,7 @@ from .qap_objective import qap_objective_cuda, qap_objective_plain
 from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
 from .qap_sparse import (qap_delta_sparse_cuda, qap_delta_sparse_plain,
                          qap_objective_sparse_cuda, qap_objective_sparse_plain)
-from .selective_scan import selective_scan_cuda, selective_scan_plain
+from .selective_scan import SelectiveScan
 
 LANE = 128
 # The fused steps' order cap, kept equal to the reference's
@@ -172,7 +172,8 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Mamba selective scan: ``u``, ``dt (B, S, D)``, ``a (D, N)``,
     ``b``, ``c (B, S, N)`` -> ``(y (B, S, D), h_last (B, D, N))`` f32
-    (K8 on the card; contiguous f32 inputs)."""
-    if _route(u):
-        return selective_scan_cuda(u, dt, a, b, c)
-    return selective_scan_plain(u, dt, a, b, c)
+    (K8 on the card; contiguous f32 inputs).  Differentiable
+    (:class:`selective_scan.SelectiveScan`): K8 forward, the plain scan
+    recomputed for the backward."""
+    _route(u)
+    return SelectiveScan.apply(u, dt, a, b, c)

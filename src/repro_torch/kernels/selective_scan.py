@@ -12,6 +12,13 @@ returns ``y (B, S, D)`` f32 and, unlike the TPU kernel, the final state
 ``(B, S, D, N)`` state tensor is never built.  The kernel
 (``csrc/selective_scan.cu``) takes any ``S`` and ``D`` and ``N`` of 4 or
 16 (the smoke configurations' and Jamba's ``d_state``).
+
+Under autograd the scan is :class:`SelectiveScan`: its forward is K8 on
+the card (the plain version on the CPU), and its backward recomputes
+the plain version under ``torch.enable_grad()`` and differentiates that,
+which is what the reference trains through (its Pallas scan has no
+backward; its models differentiate the plain chunked scan).  A backward
+kernel is later work and has no TPU counterpart.
 """
 from __future__ import annotations
 
@@ -79,3 +86,33 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     build.check(err, "selective_scan")
     build.count_launch("selective_scan")
     return y, h_last
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The scan with a gradient: ``SelectiveScan.apply(u, dt, a, b, c)
+    -> (y, h_last)``.  Forward: K8 for CUDA tensors, the plain version
+    for CPU ones.  Backward: the plain version recomputed from the saved
+    inputs and differentiated, so every input gets its gradient through
+    both outputs."""
+
+    @staticmethod
+    def forward(ctx, u, dt, a, b, c):
+        ctx.save_for_backward(u, dt, a, b, c)
+        ctx.set_materialize_grads(False)
+        if u.is_cuda:
+            return selective_scan_cuda(u, dt, a, b, c)
+        return selective_scan_plain(u, dt, a, b, c)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(w)
+                      for x, w in zip(saved, want)]
+            outs = selective_scan_plain(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [x for x, w in zip(inputs, want) if w],
+                [g for _, g in pairs], allow_unused=True))
+        return tuple(next(grads) if w else None for w in want)

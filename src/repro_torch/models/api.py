@@ -5,18 +5,25 @@
 plain tree (nested dicts and lists of tensors) with the reference's
 structure; :meth:`Model.init` draws them from an explicit
 ``torch.Generator``.
+
+:func:`input_specs` gives meta tensors with the shapes and dtypes of a
+shape cell's inputs (no storage), :func:`make_concrete_batch` random
+inputs of the same shapes.  The reference's sharding specs
+(``Model.specs``, ``batch_partition_specs``) wait for the port's
+``parallel/sharding`` (ROADMAP step 6).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from .. import resolve_device
 from . import transformer
-from .config import ModelConfig
-from .param import count_params, init_params
+from .config import ModelConfig, ShapeCell
+from .param import abstract_params, count_params, init_params, tree_map
+from .transformer import FRONTEND_DIMS
 
 
 @dataclass(frozen=True)
@@ -42,10 +49,17 @@ class Model:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.decls(), generator, self.device)
 
+    def abstract(self) -> Any:
+        """The parameter tree as meta tensors (shapes and dtypes only)."""
+        return abstract_params(self.decls())
+
     def num_params(self) -> int:
         return count_params(self.decls())
 
     # --- compute ----------------------------------------------------------
+    def loss(self, params, batch, num_groups: int = 1):
+        return transformer.train_loss(params, batch, self.cfg, num_groups)
+
     def prefill(self, params, batch, num_groups: int = 1, cache_len=None):
         return transformer.prefill(params, batch, self.cfg, num_groups,
                                    cache_len)
@@ -56,3 +70,47 @@ class Model:
     # --- caches -----------------------------------------------------------
     def make_cache(self, batch: int, seq_len: int):
         return transformer.make_cache(self.cfg, batch, seq_len, self.device)
+
+    def abstract_cache(self, batch: int, seq_len: int):
+        """The decode cache as meta tensors."""
+        return transformer.make_cache(self.cfg, batch, seq_len, "meta")
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
+    """Meta tensors of one (arch x shape) cell's inputs, with the
+    reference's shapes and dtypes."""
+    b, s = cell.global_batch, cell.seq_len
+    tok = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+    emb = lambda *shape: torch.empty(shape, dtype=torch.bfloat16,
+                                     device="meta")
+    fd = FRONTEND_DIMS[cfg.frontend] if cfg.frontend is not None else None
+    if cell.kind == "train":
+        if fd is not None:
+            return {"embeds": emb(b, s, fd), "labels": tok(b, s)}
+        return {"tokens": tok(b, s), "labels": tok(b, s)}
+    if cell.kind == "prefill":
+        return {"embeds": emb(b, s, fd)} if fd is not None \
+            else {"tokens": tok(b, s)}
+    # decode: one new token against a seq_len cache
+    return {"embeds": emb(b, 1, fd)} if fd is not None \
+        else {"tokens": tok(b, 1)}
+
+
+def make_concrete_batch(cfg: ModelConfig, cell: ShapeCell,
+                        generator: torch.Generator) -> Dict[str, Any]:
+    """Random inputs matching :func:`input_specs`, drawn from
+    ``generator`` on its device, in the specs' order: integers uniform in
+    ``[0, vocab_size)``, floats standard normal (drawn in f32, then cast).
+    The reference folds ``hash(name)`` into its key, which changes from
+    process to process, so only the shapes, dtypes and ranges are its."""
+    dev = generator.device
+
+    def draw(spec: torch.Tensor) -> torch.Tensor:
+        if not spec.dtype.is_floating_point:
+            return torch.randint(0, cfg.vocab_size, tuple(spec.shape),
+                                 generator=generator, dtype=spec.dtype,
+                                 device=dev)
+        return torch.randn(tuple(spec.shape), generator=generator,
+                           dtype=torch.float32, device=dev).to(spec.dtype)
+
+    return tree_map(draw, input_specs(cfg, cell))

@@ -13,7 +13,8 @@ the same dtypes.  Attention comes in two forms, as there:
   cache.
 
 The reference's sharding constraints have no counterpart on one card.
-The chunked LM loss (``lm_loss``) belongs to the training slice.
+:func:`lm_loss` is the training loss: the cross-entropy chunked over the
+sequence, each chunk recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .param import PDecl
@@ -305,3 +307,30 @@ def head_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     return (h.to(dt) @ params["w"].to(dt)).float()
+
+
+def _chunk_loss(head_params, hx: torch.Tensor, tx: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    logits = logits_fn(head_params, hx, cfg)            # (B, c, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tx.long()[..., None])[..., 0]
+    return (lse - tgt).sum()
+
+
+def lm_loss(head_params, h: torch.Tensor, targets: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy, chunked over the sequence by
+    ``cfg.loss_chunk``.  Each chunk runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint``), so the backward recomputes its
+    ``(B, c, V)`` f32 logits instead of keeping them; the chunks' sums
+    are added in order, as the reference's scan does."""
+    b, s, _ = h.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(_chunk_loss, head_params, h[:, i:i + c],
+                                   targets[:, i:i + c], cfg,
+                                   use_reentrant=False)
+    return total / (b * s)

@@ -4,9 +4,16 @@ Every layer declares its parameters as a tree (nested dicts and lists) of
 :class:`PDecl`, with the reference's keys, shapes and ``(in, out)``
 weight layouts, so a tree of the reference's arrays converts leaf for
 leaf (``convert.lm_params_from_reference``).  From the declarations come
-``init_params`` (tensors drawn from an explicit ``torch.Generator``) and
-``count_params``.  The reference's sharding specs belong to its
-``parallel/`` package and are not declared here.
+``init_params`` (tensors drawn from an explicit ``torch.Generator``),
+``abstract_params`` (meta tensors: shapes and dtypes, no storage) and
+``count_params``.  The reference's sharding specs (``param_specs``) wait
+for the port's ``parallel/sharding`` (ROADMAP step 6).
+
+:func:`tree_flatten` and :func:`tree_unflatten` walk a tree in
+``jax.tree_util``'s order -- dict keys sorted, lists and tuples (named
+tuples such as ``train.optimizer.OptState`` too) in order -- so that a
+sum over the leaves and a checkpoint's leaf numbering are the
+reference's.
 """
 from __future__ import annotations
 
@@ -26,22 +33,73 @@ class PDecl:
     fan_in: Optional[int] = None   # for "normal": stddev = 1/sqrt(fan_in)
 
 
+def _rebuild(tree, children):
+    """A list, tuple or named tuple of ``tree``'s type from ``children``."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*children)
+    return type(tree)(children)
+
+
 def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` over the leaves of a tree of dicts, lists and tuples."""
+    """``fn`` over the leaves of a tree of dicts, lists and tuples (dicts
+    walked in insertion order, so draws made by ``fn`` follow the
+    declarations)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return _rebuild(tree, [tree_map(fn, v) for v in tree])
     return fn(tree)
 
 
+class TreeDef:
+    """The structure of a flattened tree: the tree with every leaf
+    replaced by ``None``, dicts rebuilt with their keys sorted."""
+
+    def __init__(self, skeleton: Any, num_leaves: int):
+        self.skeleton = skeleton
+        self.num_leaves = num_leaves
+
+    def __repr__(self) -> str:
+        return f"TreeDef({self.skeleton!r})"
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+    """``(leaves, treedef)`` in ``jax.tree_util.tree_flatten``'s order."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return _rebuild(t, [walk(v) for v in t])
+        leaves.append(t)
+        return None
+
+    skeleton = walk(tree)
+    return leaves, TreeDef(skeleton, len(leaves))
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> Any:
+    """The tree of ``treedef``'s structure holding ``leaves`` in order."""
+    leaves = list(leaves)
+    if len(leaves) != treedef.num_leaves:
+        raise ValueError(f"{len(leaves)} leaves for a tree of "
+                         f"{treedef.num_leaves}")
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return _rebuild(t, [build(v) for v in t])
+        return next(it)
+
+    return build(treedef.skeleton)
+
+
 def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of a tree, dicts in insertion order."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+    """The leaves of a tree in ``jax.tree_util``'s order."""
+    return tree_flatten(tree)[0]
 
 
 def stack(decls, n: int):
@@ -71,6 +129,12 @@ def init_params(decls, generator: torch.Generator, device=None) -> Any:
     same)."""
     device = torch.device(device) if device is not None else generator.device
     return tree_map(lambda d: _init_one(d, generator, device), decls)
+
+
+def abstract_params(decls) -> Any:
+    """Meta tensors of every leaf's shape and dtype (no storage)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), decls)
 
 
 def count_params(decls) -> int:

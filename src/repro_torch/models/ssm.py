@@ -8,7 +8,10 @@ tensor nor the discretised ``a_bar``/``bx`` tensors are ever built, and
 the final state comes back with ``y`` for the decode cache.  Both values
 of ``mamba_fuse_proj`` compute the same ``y`` and ``h_last`` as the
 reference's two branches (``_fused_scan``, and ``_scan_chunked`` plus the
-C-projection), so both take this one path.  Decode is the O(1)
+C-projection), so both take this one path.  Under autograd the scan's
+gradient comes from the plain scan recomputed in the backward
+(``kernels.selective_scan.SelectiveScan``), so training on the card
+differentiates what the reference differentiates.  Decode is the O(1)
 single-step recurrence with a ``(h, conv window)`` state in the cache.
 """
 from __future__ import annotations

@@ -8,7 +8,11 @@ trees keep that shape: when ``repeats > 1`` every leaf of a ``unit``
 position carries a leading layer axis, which the reference scans over and
 which a Python loop walks here.  Jamba's ``mMmMaMmM`` is one super-block.
 
-This slice serves the attention, MLP, MoE and Mamba blocks (pattern
+:func:`train_loss` is the training entry: :func:`forward_hidden` with
+each layer (each repeat of the unit) under the config's ``remat`` mode
+(:func:`_remat`), then ``layers.lm_loss``.
+
+This port serves the attention, MLP, MoE and Mamba blocks (pattern
 characters ``TEGLWmMaA``).  The RWKV block (``R``) and the audio/vision
 frontends raise ``NotImplementedError``: they are later items of
 ``ROADMAP.md`` step 10.
@@ -17,11 +21,19 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers, moe, ssm
 from .config import ModelConfig
 from .param import PDecl, stack, tree_map
+
+# The audio/vision frontends' input widths (EnCodec frames, InternViT
+# patches); their blocks are not ported yet, their input shapes are.
+FRONTEND_DIMS = {"audio": 128, "vision": 3200}
 
 ATTN_CHARS = "TEGLWaA"
 MOE_CHARS = "EWMA"
@@ -187,6 +199,33 @@ def _stack_layers(trees):
     return torch.stack(trees)
 
 
+def _save_plain_matmuls(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of plain 2-D matrix products (``aten.mm``: every
+    ``x @ w`` of a weight), recompute the rest (batched einsums among
+    them)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's rematerialisation mode: ``none`` as it
+    is; ``full`` recomputes everything in the backward; ``dots`` keeps
+    the plain matrix products' outputs and recomputes the rest.  The
+    mode changes memory only, never the numbers."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_plain_matmuls)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat mode {cfg.remat!r}")
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
@@ -197,19 +236,39 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    num_groups: int = 1) -> torch.Tensor:
-    """Embed -> all blocks -> final norm.  Returns hidden states (B, S, D)."""
+    """Embed -> all blocks -> final norm.  Returns hidden states (B, S, D).
+
+    Each repeat of the unit, and each layer of the rest, runs under
+    :func:`_remat` (the reference's ``jax.checkpoint`` around its scan
+    body and around each rest layer)."""
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
     params = _maybe_cast_params(params, cfg)
     x = _embed_inputs(params, batch, cfg)
     positions = _positions(x.shape[0], x.shape[1], x.device)
+
+    def unit_body(xc, pslices):
+        for ch, p in zip(unit, pslices):
+            xc = block_train(p, xc, cfg, ch, positions, num_groups)
+        return xc
+
+    unit_body = _remat(unit_body, cfg)
     for r in range(reps):
         pslices = [_layer(p, r) for p in params["unit"]] if reps > 1 \
             else params["unit"]
-        for ch, p in zip(unit, pslices):
-            x = block_train(p, x, cfg, ch, positions, num_groups)
+        x = unit_body(x, pslices)
     for ch, p in zip(rest, params["rest"]):
-        x = block_train(p, x, cfg, ch, positions, num_groups)
+        x = _remat(functools.partial(block_train, cfg=cfg, ch=ch,
+                                     positions=positions,
+                                     num_groups=num_groups), cfg)(p, x)
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               num_groups: int = 1) -> torch.Tensor:
+    """The mean next-token loss of ``batch`` (``tokens`` and ``labels``,
+    each (B, S)): a 0-d f32 tensor."""
+    h = forward_hidden(params, batch, cfg, num_groups)
+    return layers.lm_loss(params["head"], h, batch["labels"], cfg)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

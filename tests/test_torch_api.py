@@ -1,28 +1,43 @@
-"""The control plane's and the meshes' public surface against the
-reference's: every public class, method and function of the ported
-modules has the reference's parameter names, order, kinds and defaults.
-The only differences are listed in ``EXCEPTIONS`` (the port's entry
-points take a ``device``) and ``NOT_PORTED`` (with the ROADMAP step that
-ports them)."""
+"""The control plane's, the meshes' and the training path's public
+surface against the reference's: every public class, method and function
+of the ported modules has the reference's parameter names, order, kinds
+and defaults (a dtype default by its name).  The only differences are
+listed in ``EXCEPTIONS`` (the port's entry points take a ``device``, its
+random draws a ``torch.Generator``, its collectives a process group) and
+``NOT_PORTED`` (with the ROADMAP step that ports them)."""
 import dataclasses
 import inspect
 
+import numpy as np
 import pytest
+import torch
 
 import repro.serve
 import repro_torch.serve
 from repro.core import batch_sharded as ref_batch_sharded
 from repro.core import distributed as ref_distributed
 from repro.launch import mesh as ref_mesh
+from repro.launch import elastic as ref_elastic
 from repro.launch import placement as ref_placement
+from repro.launch import train as ref_launch_train
+from repro.models import api as ref_api
+from repro.parallel import collectives as ref_collectives
 from repro.serve import cluster as ref_cluster
 from repro.serve import fleet as ref_fleet
 from repro.serve import rm as ref_rm
 from repro.serve import trace as ref_trace
 from repro.serve import transport as ref_transport
+from repro.train import checkpoint as ref_checkpoint
+from repro.train import data as ref_data
+from repro.train import optimizer as ref_optimizer
+from repro.train import step as ref_step
 from repro_torch.core import batch_sharded, distributed
-from repro_torch.launch import mesh, placement
+from repro_torch.launch import elastic, mesh, placement
+from repro_torch.launch import train as launch_train
+from repro_torch.models import api
+from repro_torch.parallel import collectives
 from repro_torch.serve import cluster, fleet, rm, trace, transport
+from repro_torch.train import checkpoint, data, optimizer, step
 
 MODULES = {
     "core.batch_sharded": (ref_batch_sharded, batch_sharded),
@@ -34,6 +49,14 @@ MODULES = {
     "serve.rm": (ref_rm, rm),
     "serve.trace": (ref_trace, trace),
     "launch.placement": (ref_placement, placement),
+    "models.api": (ref_api, api),
+    "train.data": (ref_data, data),
+    "train.optimizer": (ref_optimizer, optimizer),
+    "train.step": (ref_step, step),
+    "train.checkpoint": (ref_checkpoint, checkpoint),
+    "launch.train": (ref_launch_train, launch_train),
+    "launch.elastic": (ref_elastic, elastic),
+    "parallel.collectives": (ref_collectives, collectives),
 }
 
 # qualified name -> (parameters the port drops, parameters it adds)
@@ -41,6 +64,12 @@ EXCEPTIONS = {
     "launch.placement.PlacementService.__init__": (set(), {"device"}),
     "launch.mesh.make_local_mesh": (set(), {"device"}),
     "launch.mesh.make_instance_mesh": (set(), {"device"}),
+    "models.api.Model.__init__": (set(), {"device"}),
+    "models.api.Model.init": ({"key"}, {"generator", "seed"}),
+    "models.api.make_concrete_batch": ({"key"}, {"generator"}),
+    "train.checkpoint.CheckpointManager.restore": ({"shardings"}, {"device"}),
+    "launch.train.train": (set(), {"device"}),
+    "parallel.collectives.compressed_allreduce_mean": ({"axis"}, {"group"}),
 }
 
 # Reference names the port does not have, each with the ROADMAP step
@@ -52,6 +81,10 @@ NOT_PORTED = {
     # step 6: the LM stack's production meshes
     "launch.mesh": {"make_production_mesh", "production_shape",
                     "activate_mesh"},
+    # step 6: sharding specs (parallel/sharding)
+    "train.optimizer": {"state_specs"},
+    "models.api": {"batch_partition_specs"},
+    "models.api.Model": {"specs", "cache_specs"},
     # no step: JAX's shard_map across its versions; the port's ranks are
     # processes that run the solver bodies themselves
     "core.distributed": {"shard_map"},
@@ -85,6 +118,11 @@ def _members(cls):
 def _default(value):
     if value is inspect.Parameter.empty:
         return value
+    if isinstance(value, torch.dtype):
+        return ("dtype", str(value).split(".")[-1])
+    if isinstance(value, type) and isinstance(getattr(value, "dtype", None),
+                                              np.dtype):
+        return ("dtype", value.dtype.name)      # jnp.float32 and the like
     if callable(value) and hasattr(value, "__name__"):
         return ("callable", value.__name__)
     return value

@@ -264,7 +264,7 @@ def test_four_shard_engine_on_one_card_matches_unsharded(cuda, algorithm):
     """A mesh that names cuda:0 four times: a three-request wave pads to
     four shards and trims back, every response equal to the unsharded
     engine's on the card."""
-    from repro_torch.launch.mesh import (make_instance_mesh,
+    from repro_torch.launch.mesh import (canonical_device, make_instance_mesh,
                                          make_mesh_with_devices)
     with pytest.raises(ValueError, match="num_devices"):
         make_instance_mesh(torch.cuda.device_count() + 1)
@@ -280,7 +280,8 @@ def test_four_shard_engine_on_one_card_matches_unsharded(cuda, algorithm):
     out = {}
     for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
         engine = MappingEngine(sa_cfg=sa, ga_cfg=ga, polish_rounds=50, **kw)
-        assert engine.device == torch.device("cuda", 0)
+        # the unsharded engine's "cuda" is the current card, cuda:0
+        assert canonical_device(engine.device) == torch.device("cuda", 0)
         futs = [engine.submit(r) for r in reqs]
         engine.flush()
         out[name] = [f.result() for f in futs]
@@ -563,6 +564,69 @@ def test_selective_scan_kernel_matches_plain(cuda, shape):
         assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
     with pytest.raises(ValueError, match="float32"):
         ops.selective_scan(args[0].double(), *args[1:])
+
+
+@pytest.mark.parametrize("shape", [(2, 49, 200, 4), (2, 130, 1024, 16)])
+def test_selective_scan_gradient_on_the_card_matches_plain(cuda, shape):
+    """K8 under autograd: its outputs carry a ``grad_fn`` (no gradient
+    through the scan is dropped), the forward is one K8 launch, and every
+    input's gradient is within 2e-4 of its largest magnitude of autograd
+    through the plain scan on the same inputs."""
+    args = [x.requires_grad_(True) for x in _scan_args(shape, cuda)]
+    rng = np.random.default_rng(1)
+    gy = torch.as_tensor(rng.standard_normal(tuple(args[0].shape)),
+                         dtype=torch.float32, device=cuda)
+    gh = torch.as_tensor(rng.standard_normal(
+        (shape[0], shape[2], shape[3])), dtype=torch.float32, device=cuda)
+    before = ops.launch_counts()["selective_scan"]
+    y, h = ops.selective_scan(*args)
+    assert y.grad_fn is not None and h.grad_fn is not None
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    got = torch.autograd.grad((y, h), args, (gy, gh))
+    plain_args = [x.detach().requires_grad_(True) for x in args]
+    want = torch.autograd.grad(selective_scan_plain(*plain_args), plain_args,
+                               (gy, gh))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 2e-4 * float(w.abs().max())
+
+
+def test_jamba_train_loss_grads_on_card_match_cpu(cuda):
+    """Jamba's SMOKE width in f32: ``Model.loss`` and every weight's
+    gradient on the card within 1e-4 of the CPU's (of the leaf's largest
+    magnitude); the card's forward launches K8 once per Mamba layer and
+    again in each layer's recomputation, and every Mamba weight gets a
+    nonzero gradient."""
+    from repro_torch.models.param import tree_flatten, tree_unflatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.smoke_config("jamba_v0_1_52b").with_overrides(
+        compute_dtype=torch.float32)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 49))
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cuda", "cpu"):
+        leaves, treedef = tree_flatten(params)
+        leaves = [l.to(device).requires_grad_(True) for l in leaves]
+        batch = {k: torch.as_tensor(v, dtype=torch.int32, device=device)
+                 for k, v in (("tokens", toks[:, :-1]),
+                              ("labels", toks[:, 1:]))}
+        ops.reset_launch_counts()
+        loss = Model(cfg, device=device).loss(tree_unflatten(treedef, leaves),
+                                              batch)
+        grads = torch.autograd.grad(loss, leaves)
+        mamba = sum(ch in "mM" for ch in cfg.layer_pattern)
+        assert ops.launch_counts()["selective_scan"] == (
+            2 * mamba if device == "cuda" else 0)
+        out[device] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                       tree_unflatten(treedef, [g.cpu() for g in grads]))
+    (lc, gc, tc), (lp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(gc, gp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for ch, p in zip(cfg.layer_pattern, tc["unit"]):
+        if ch in "mM":
+            assert all(bool(g.abs().max() > 0) for g in p["mixer"].values())
 
 
 def test_lm_engine_on_card_matches_engine_on_cpu(cuda):

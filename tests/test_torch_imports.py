@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.launch.serve, "
             "repro_torch.serve.cluster, repro_torch.serve.transport, "
             "repro_torch.serve.fleet, repro_torch.serve.rm, "
-            "repro_torch.serve.trace, repro_torch.launch.placement; "
+            "repro_torch.serve.trace, repro_torch.launch.placement, "
+            "repro_torch.launch.train, repro_torch.launch.elastic, "
+            "repro_torch.parallel.collectives, repro_torch.train.step, "
+            "repro_torch.train.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
