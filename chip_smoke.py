@@ -71,6 +71,19 @@ Phases, each of which must pass:
    ``find_mapping(mesh=)`` at world size 4 on cuda:0 (gloo) and 1
    (NCCL), and three of them at world size 4 on the CPU: every rank the
    same answer, f = F(perm), card == CPU;
+   then a twelfth route, ``lm-families``, run right after ``lm-serve``:
+   the repo's other model families at full width with bf16 weights
+   drawn on the card from a seeded generator -- RWKV6-7B at full depth
+   (32 ``R`` layers, 7,534,546,944 parameters) served through
+   ``Engine.generate`` on 4 prompts of 512 tokens, 16 greedy tokens;
+   MusicGen-medium at full depth (48 layers, 1,818,576,384 parameters)
+   and InternVL2-76B at 4 of its 80 layers (5,550,186,496 parameters),
+   each prefilled from 4 x 512 ``embeds`` (audio frames of 128, vision
+   patches of 3200) and decoded 16 steps from ``embeds`` (B, 1, fd);
+   a 64-position prefill and a decode step of each profiled; no
+   hand-written kernel is on this path, so every launch count stays 0,
+   each model's serving and the whole route read once each (the counts
+   set to 0 once, at the route's start);
    then an eleventh route, ``train``: Qwen3-4B at full width (d_model
    2560, 32 heads / 8 KV, head_dim 128, d_ff 9728, vocab 151936,
    qk_norm), 4 of its 36 layers, trained through ``train.step`` for 6
@@ -80,11 +93,15 @@ Phases, each of which must pass:
    the first, the first step's loss within 1e-2 and its grad norm within
    5e-2 of the same step in f32 compute, and one more step under
    ``torch.profiler`` (the device's busy share and its time by kernel
-   class); then Qwen3-4B, Mixtral-8x22B and
-   Jamba at ``SMOKE`` width in f32, 3 AdamW steps on the card against the
-   CPU (losses within 1e-4 relative, first-step gradients within 1e-4 of
-   each leaf's largest magnitude; Jamba's training forward launches K8
-   and every Mamba weight gets a gradient); then
+   class); then Qwen3-4B, Mixtral-8x22B,
+   Jamba, RWKV6-7B, MusicGen-medium and InternVL2-76B (the last two on
+   ``embeds``) at ``SMOKE`` width in f32, 3 AdamW steps on the card
+   against the CPU (losses within 1e-4 relative, first-step gradients
+   within 1e-4 of each leaf's largest magnitude; Jamba's training forward
+   launches K8 and every Mamba weight gets a gradient; every RWKV weight
+   of both layers gets a gradient; RWKV's gradients, ill-conditioned at
+   its own init, within 1e-4 plus the CPU's own f32 distance from the
+   CPU's f64 gradients); then
    ``launch.train.train`` on examples/train_lm.py's ``CFG_QUICK``: 6 steps
    against 3 steps, a checkpoint, and a fresh run resuming to 6 (losses
    within 1e-5 relative);
@@ -98,7 +115,18 @@ Phases, each of which must pass:
    within 1e-3 of their largest magnitude; the served bf16 arithmetic's
    agreement over 16 prompts is printed), and Jamba's ``SMOKE`` width
    in f32 on the card against the CPU (the same greedy tokens, prefill
-   logits within 1e-4 of their largest magnitude); on ``paper``, every
+   logits within 1e-4 of their largest magnitude); on ``lm-families``,
+   every token in the vocabulary and every logit finite, RWKV6-7B's
+   decode against teacher forcing in f32 compute on the same bf16
+   weights (prefill 448 tokens, decode tokens 448-511 one at a time,
+   against prefill(512): the same argmax on every row, logits within
+   1e-3 of their largest magnitude), MusicGen-medium's as ``lm-serve``'s
+   (prefill(512) then one decode step against prefill(513), argmax
+   agreement >= 0.95, within 1e-3), the served bf16 agreement of both
+   printed, and the three at ``SMOKE`` width in f32 card against CPU
+   (the same greedy tokens, prefill logits -- from ``embeds`` for the
+   frontend models -- within 1e-4 of their largest magnitude); on
+   ``paper``, every
    Table 1 and figure row's permutation scoring its reported F in numpy
    float64 (exactly while F < 2^24, else within n * 2^-24 of F, f32's
    rounding) and no better than F0, and Table 1's rows at orders 27 and
@@ -112,6 +140,7 @@ it.  It imports nothing of JAX or of the reference package.
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -154,6 +183,18 @@ RM_MAX_RESPAWNS = 2
 # The lm-serve route: 4 prompts of 512 tokens, 16 new tokens, greedy.
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 16
 LM_TF_ROWS = 16          # prompts in the bf16 teacher-forcing measurement
+
+# The lm-families route: the repo's other model families at full width,
+# bf16 weights, LM_BATCH x LM_PROMPT inputs and LM_NEW greedy tokens.
+# RWKV6-7B whole (32 layers); MusicGen-medium whole (48 layers, audio
+# frames as embeds); InternVL2-76B at 4 of its 80 layers (vision patches
+# as embeds).  RWKV's teacher forcing prefills 448 tokens and decodes 64.
+FAMILY_ARCHS = ("rwkv6_7b", "musicgen_medium", "internvl2_76b")
+FAMILY_VISION_LAYERS = 4
+FAMILY_PARAMS = {"rwkv6_7b": 7_534_546_944, "musicgen_medium": 1_818_576_384,
+                 "internvl2_76b": 5_550_186_496}
+FAMILY_TF_PREFIX = 448
+FAMILY_PROFILE_PREFILL = 64   # positions of the profiled prefills (one RWKV chunk)
 
 # The paper route: the port's harness (benchmarks_torch/) -- Table 1 at
 # all seven taiXe orders at PAPER_SCALE with one run a cell, Figs 1-7 at
@@ -215,8 +256,16 @@ MESH_KERNELS = {"psa-event": ("qap_delta",), "psa-fused": ("qap_sa_step",),
 # examples/).
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH = 4, 4096, 4
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 6, 2, 3e-4
-TRAIN_CPU_ARCHS = ("qwen3_4b", "mixtral_8x22b", "jamba_v0_1_52b")
+TRAIN_CPU_ARCHS = ("qwen3_4b", "mixtral_8x22b", "jamba_v0_1_52b",
+                   "rwkv6_7b", "musicgen_medium", "internvl2_76b")
 TRAIN_CPU_STEPS, TRAIN_CPU_SEQ, TRAIN_CPU_BATCH = 3, 48, 2
+# Archs whose SMOKE gradients are also computed in f64 on the CPU: at
+# RWKV's own init (bonus u = 0, zero state and token shift) the first
+# token's time-mix output is 0 and its group norm divides by sqrt(eps),
+# so f32 alone fixes some gradients only to ~1e-4 of their largest
+# magnitude; the card's bar against the CPU there is 1e-4 plus that
+# distance, read from an f64 run on the CPU (check_train_against_cpu).
+TRAIN_F64_ARCHS = ("rwkv6_7b",)
 TRAIN_QUICK = dict(name="lm-quick", num_layers=4, d_model=128, num_heads=4,
                    num_kv_heads=2, head_dim=32, d_ff=512, vocab_size=2048,
                    layer_pattern="T" * 4, attn_q_chunk=32, attn_kv_chunk=64,
@@ -252,6 +301,13 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launches_since(before):
+    """Launches by kernel since ``before`` was read from
+    ``ops.launch_counts()``."""
+    from repro_torch.kernels import ops
+    return {k: v - before[k] for k, v in ops.launch_counts().items()}
 
 
 def graph_ms(fn, reps):
@@ -1371,7 +1427,6 @@ def drive_lm_serve():
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.api import Model
-    from repro_torch.models.param import tree_leaves
     from repro_torch.serve import Engine, ServeConfig
     cfg = lm_config()
     mamba_layers = sum(ch in "mM" for ch in cfg.layer_pattern)
@@ -1414,13 +1469,11 @@ def drive_lm_serve():
           f"{out.size / wall:.2f} generated tokens/s, peak "
           f"{peak / 2 ** 30:.2f} GiB, launches {counts}", flush=True)
     print(f"[lm-serve] tokens {out[:, :8].tolist()}", flush=True)
-    # a decode step reads every weight but the embedding (dropless MoE
-    # runs all experts): its least time at the card's memory rate
-    step_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
-                     if t is not params["embed"]["embedding"])
+    # dropless MoE runs all experts: a decode step reads every weight
+    step_bytes, bound = decode_bound_ms(params)
     print(f"[lm-serve] a decode step reads {step_bytes / 1e9:.3f} GB of "
-          f"weights: bound {step_bytes / H100_BYTES_PER_S * 1e3:.3f} ms "
-          f"(bytes), measured {decode_s * 1e3:.3f} ms", flush=True)
+          f"weights: bound {bound:.3f} ms (bytes), measured "
+          f"{decode_s * 1e3:.3f} ms", flush=True)
 
     # decode against teacher forcing at full width: the gate in f32
     # compute on the same bf16 weights, then the served bf16 arithmetic
@@ -1442,35 +1495,51 @@ def drive_lm_serve():
     return counts
 
 
-def teacher_forcing(model, params, rows, label):
-    """Logits of [prefill(S) -> decode token S] against the last logits of
-    prefill(S + 1) for ``rows`` prompts of ``LM_PROMPT`` tokens (K8 7
-    times per prefill).  Returns the agreement of the argmaxes, the max
-    abs difference and the largest logit; prints each row's max
-    difference and top-2 gap, and for each row whose argmaxes differ the
-    gap between the two tokens' prefill logits."""
+def teacher_forcing(model, params, rows, label, inputs=None,
+                    tag="lm-serve"):
+    """Logits of [prefill(S) -> decode position S] against the last
+    logits of prefill(S + 1) for ``rows`` sequences of ``LM_PROMPT``
+    positions: ``inputs``, a dict of (rows, LM_PROMPT + 1, ...) tensors on
+    the card (default: token ids from ``default_rng(1)``; K8 once per
+    Mamba layer and prefill, counted without resetting the launch
+    counts).  Returns :func:`compare_logits`'s dict."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     cfg = model.cfg
-    toks = torch.as_tensor(
-        np.random.default_rng(1).integers(2, cfg.vocab_size,
-                                          (rows, LM_PROMPT + 1)),
-        dtype=torch.int32, device="cuda")
-    ops.reset_launch_counts()
-    _, cache = model.prefill(params, {"tokens": toks[:, :LM_PROMPT]},
+    if inputs is None:
+        inputs = {"tokens": torch.as_tensor(
+            np.random.default_rng(1).integers(2, cfg.vocab_size,
+                                              (rows, LM_PROMPT + 1)),
+            dtype=torch.int32, device="cuda")}
+    before = ops.launch_counts()
+    _, cache = model.prefill(params,
+                             {k: v[:, :LM_PROMPT] for k, v in inputs.items()},
                              cache_len=LM_PROMPT + 8)
-    a, _ = model.decode_step(params, cache, {"tokens": toks[:, LM_PROMPT:]},
+    a, _ = model.decode_step(params, cache,
+                             {k: v[:, LM_PROMPT:] for k, v in inputs.items()},
                              LM_PROMPT)
     del cache
-    b, _ = model.prefill(params, {"tokens": toks})
+    b, _ = model.prefill(params, inputs)
     torch.cuda.synchronize()
-    launched = ops.launch_counts()["selective_scan"]
+    launched = launches_since(before)["selective_scan"]
     mamba_layers = sum(ch in "mM" for ch in cfg.layer_pattern)
-    require(launched == 2 * mamba_layers, f"[lm-serve] {launched} "
+    require(launched == 2 * mamba_layers, f"[{tag}] {launched} "
             f"selective_scan launches for two prefills")
+    return compare_logits(a, b, f"decode vs teacher forcing at full width, "
+                          f"{label}", tag)
+
+
+def compare_logits(a, b, what, tag):
+    """Decode's logits ``a`` against prefill's ``b`` (rows x vocab): the
+    agreement of the argmaxes, the max abs difference and the largest
+    logit; prints each row's max difference and top-2 gap, and for each
+    row whose argmaxes differ the gap between the two tokens' prefill
+    logits."""
+    import torch
     require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()),
-            f"[lm-serve] non-finite teacher-forcing logits ({label})")
+            f"[{tag}] non-finite logits ({what})")
+    rows = b.shape[0]
     ia, ib = a.argmax(-1), b.argmax(-1)
     top2 = b.topk(2, dim=-1).values
     rows_idx = torch.arange(rows, device=b.device)
@@ -1479,52 +1548,292 @@ def teacher_forcing(model, params, rows, label):
     row_diff = (a - b).abs().amax(-1).tolist()
     top2_gap = (top2[:, 0] - top2[:, 1]).tolist()
     ties = (b[rows_idx, ib] - b[rows_idx, ia])[ia != ib].tolist()
-    print(f"[lm-serve] decode vs teacher forcing at full width, {label}, "
-          f"{rows} rows: max abs diff {out['diff']:.6f} (logits max "
-          f"{out['scale']:.4f}), argmax agreement {out['agree']}; per row "
-          f"max diff {[round(x, 4) for x in row_diff]}, top-2 gap "
+    print(f"[{tag}] {what}, {rows} rows: max abs diff {out['diff']:.6f} "
+          f"(logits max {out['scale']:.4f}), argmax agreement "
+          f"{out['agree']}; per row max diff "
+          f"{[round(x, 4) for x in row_diff]}, top-2 gap "
           f"{[round(x, 4) for x in top2_gap]}, prefill-logit gap of each "
           f"disagreement {ties}", flush=True)
     return out
 
 
-def check_lm_against_cpu():
-    """Jamba's SMOKE width in f32, weights drawn once on the CPU from one
-    seed: the card's greedy tokens equal the CPU's, and its prefill
-    logits agree to 1e-4 of their largest magnitude."""
+def check_lm_against_cpu(arch="jamba_v0_1_52b", tag="lm-serve"):
+    """``arch``'s SMOKE width in f32, weights drawn once on the CPU from
+    one seed: the card's greedy tokens (``Engine.generate`` on token
+    prompts) equal the CPU's, and its prefill logits (from ``embeds``
+    for a model with a frontend) agree to 1e-4 of their largest
+    magnitude; the card's prefill launches K8 once per Mamba layer
+    (counted without resetting the launch counts)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models.api import Model
+    from repro_torch.models.transformer import FRONTEND_DIMS
     from repro_torch.serve import Engine, ServeConfig
-    cfg = configs.smoke_config("jamba_v0_1_52b").with_overrides(
+    cfg = configs.smoke_config(arch).with_overrides(
         compute_dtype=torch.float32)
     prompts = np.random.default_rng(2).integers(
         2, cfg.vocab_size, (4, 49)).astype(np.int32)
+    batch = {"tokens": prompts}
+    if cfg.frontend is not None:
+        batch = {"embeds": np.random.default_rng(3).standard_normal(
+            (4, 49, FRONTEND_DIMS[cfg.frontend])).astype(np.float32)}
+    mamba_layers = sum(ch in "mM" for ch in cfg.layer_pattern)
     out, logits = {}, {}
     t = time.perf_counter()
     for device in ("cuda", "cpu"):
         model = Model(cfg, device=device)
         params = model.init(torch.Generator().manual_seed(0))
-        ops.reset_launch_counts()
+        before = ops.launch_counts()
         logits[device], _ = model.prefill(
-            params, {"tokens": torch.as_tensor(prompts, device=device)})
-        launched = ops.launch_counts()["selective_scan"]
-        require(launched == (7 if device == "cuda" else 0),
-                f"[lm-serve] smoke prefill on {device}: {launched} launches")
+            params, {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items()})
+        launched = launches_since(before)["selective_scan"]
+        require(launched == (mamba_layers if device == "cuda" else 0),
+                f"[{tag}] {arch} smoke prefill on {device}: {launched} "
+                f"launches")
         out[device] = Engine(model, params,
                              ServeConfig(max_new_tokens=8)).generate(prompts)
     err = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
     scale = float(logits["cpu"].abs().max())
     require((out["cuda"] == out["cpu"]).all(),
-            f"[lm-serve] smoke tokens: card {out['cuda'].tolist()} != cpu "
-            f"{out['cpu'].tolist()}")
-    require(err <= 1e-4 * scale, f"[lm-serve] smoke prefill logits: max err "
-            f"{err} > 1e-4 * {scale}")
-    print(f"[lm-serve] smoke width f32: card == cpu tokens {out['cuda'][0]}, "
-          f"prefill logits max err {err} (max {scale:.4f}) "
-          f"({time.perf_counter() - t:.1f} s)", flush=True)
+            f"[{tag}] {arch} smoke tokens: card {out['cuda'].tolist()} != "
+            f"cpu {out['cpu'].tolist()}")
+    require(err <= 1e-4 * scale, f"[{tag}] {arch} smoke prefill logits: max "
+            f"err {err} > 1e-4 * {scale}")
+    print(f"[{tag}] {arch} smoke width f32 (prefill from {sorted(batch)}): "
+          f"card == cpu tokens {out['cuda'][0]}, prefill logits max err "
+          f"{err} (max {scale:.4f}) ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+
+def family_config(arch):
+    """The lm-families route's configuration of ``arch``: its published
+    width in bf16 weights; InternVL2-76B cut to FAMILY_VISION_LAYERS of
+    its 80 layers."""
+    from repro_torch import configs
+    cfg = configs.get_config(arch).with_overrides(param_dtype="bf16")
+    if arch == "internvl2_76b":
+        cfg = cfg.with_overrides(num_layers=FAMILY_VISION_LAYERS,
+                                 layer_pattern="T" * FAMILY_VISION_LAYERS)
+    return cfg
+
+
+def family_model(arch, tag):
+    """(cfg, model, params) of ``arch`` on the card, weights drawn there
+    from a seeded generator; checks the parameter count."""
+    import torch
+    from repro_torch.models.api import Model
+    cfg = family_config(arch)
+    model = Model(cfg, device="cuda")
+    t = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = model.num_params()
+    require(n == FAMILY_PARAMS[arch], f"[{tag}] {n} parameters, expected "
+            f"{FAMILY_PARAMS[arch]}")
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers "
+          f"({cfg.layer_pattern[:8]}...), d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, frontend {cfg.frontend}: "
+          f"{n} parameters in {cfg.param_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    return cfg, model, params
+
+
+def decode_bound_ms(params):
+    """The least time of a decode step at the card's memory rate: every
+    weight but the embedding table read once."""
+    from repro_torch.models.param import tree_leaves
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                 if t is not params["embed"]["embedding"])
+    return nbytes, nbytes / H100_BYTES_PER_S * 1e3
+
+
+def host_launch_us(reps=2000):
+    """Host microseconds per launch of a small elementwise kernel, on the
+    host clock: the rate at which this host issues the small kernels a
+    decode step is made of."""
+    import torch
+    x = torch.zeros(1024, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
+def family_inputs(cfg, length, seed):
+    """LM_BATCH sequences of ``length`` inputs on the card: token ids
+    (``tokens``) for a model without a frontend, else standard normal
+    frontend inputs (``embeds``: EnCodec frames or InternViT patches of
+    fd), drawn with numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import FRONTEND_DIMS
+    rng = np.random.default_rng(seed)
+    if cfg.frontend is None:
+        return {"tokens": torch.as_tensor(
+            rng.integers(2, cfg.vocab_size, (LM_BATCH, length)),
+            dtype=torch.int32, device="cuda")}
+    x = rng.standard_normal((LM_BATCH, length, FRONTEND_DIMS[cfg.frontend]))
+    return {"embeds": torch.as_tensor(x, dtype=torch.float32, device="cuda")}
+
+
+def serve_tokens(model, params, inputs):
+    """LM_NEW greedy tokens after LM_PROMPT-token prompts through
+    ``Engine.generate``."""
+    import torch
+    from repro_torch.serve import Engine, ServeConfig
+    engine = Engine(model, params, ServeConfig(max_new_tokens=LM_NEW))
+    prompts = inputs["tokens"][:, :LM_PROMPT].cpu().numpy()
+    return torch.as_tensor(engine.generate(prompts))
+
+
+def serve_embeds(model, params, inputs):
+    """Prefill LM_PROMPT frontend inputs, then LM_NEW decode steps each fed
+    the next one; the greedy tokens of their logits."""
+    import torch
+    emb = inputs["embeds"]
+    logits, cache = model.prefill(params, {"embeds": emb[:, :LM_PROMPT]},
+                                  cache_len=LM_PROMPT + LM_NEW)
+    tokens = []
+    for pos in range(LM_PROMPT, LM_PROMPT + LM_NEW):
+        logits, cache = model.decode_step(
+            params, cache, {"embeds": emb[:, pos:pos + 1]}, pos)
+        tokens.append(logits.argmax(-1))
+    return torch.stack(tokens, 1)
+
+
+def rwkv_teacher_forcing(model, params, label, tag):
+    """Prefill FAMILY_TF_PREFIX tokens of LM_BATCH prompts, decode tokens
+    FAMILY_TF_PREFIX ... LM_PROMPT - 1 one at a time (the state carried
+    LM_PROMPT - FAMILY_TF_PREFIX times), and hold the last step's logits
+    against prefill(LM_PROMPT)'s.  (LM_PROMPT + 1 tokens is no legal RWKV
+    prefill: not a whole number of 64-token chunks.)"""
+    import torch
+    toks = family_inputs(model.cfg, LM_PROMPT, 1)["tokens"]
+    t = time.perf_counter()
+    _, cache = model.prefill(params, {"tokens": toks[:, :FAMILY_TF_PREFIX]})
+    for pos in range(FAMILY_TF_PREFIX, LM_PROMPT):
+        a, cache = model.decode_step(params, cache,
+                                     {"tokens": toks[:, pos:pos + 1]}, pos)
+    del cache
+    b, _ = model.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    return compare_logits(
+        a, b, f"{FAMILY_TF_PREFIX} + {LM_PROMPT - FAMILY_TF_PREFIX} decode "
+        f"steps vs prefill({LM_PROMPT}), {label} "
+        f"({time.perf_counter() - t:.1f} s)", tag)
+
+
+def frontend_teacher_forcing(model, params, label, tag):
+    """``lm-serve``'s teacher forcing on LM_BATCH sequences of
+    LM_PROMPT + 1 frontend inputs."""
+    return teacher_forcing(model, params, LM_BATCH, label,
+                           family_inputs(model.cfg, LM_PROMPT + 1, 1), tag)
+
+
+def drive_family(arch, tf=None, min_agree=None):
+    """``arch`` served on the card: LM_BATCH x LM_PROMPT inputs (token
+    prompts through ``Engine.generate``, or ``embeds`` prefilled and
+    decoded LM_NEW steps), every token in the vocabulary and every logit
+    finite, no kernel launched while it serves (counted without
+    resetting the launch counts); a FAMILY_PROFILE_PREFILL-position
+    prefill and a decode step profiled; with ``tf`` (``(model, params,
+    label, tag)`` -> :func:`compare_logits`'s dict), decode against
+    teacher forcing in f32 compute on the same bf16 weights (argmax
+    agreement >= ``min_agree``, logits within 1e-3 of their largest
+    magnitude) and in the served bf16 (printed)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    tag = f"lm-families {arch.split('_')[0]}"
+    cfg, model, params = family_model(arch, tag)
+    inputs = family_inputs(cfg, LM_PROMPT + LM_NEW, 0)
+    (key, x), = inputs.items()
+    serve = serve_tokens if key == "tokens" else serve_embeds
+    timed = TimedModel(model)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t = time.perf_counter()
+    out = serve(timed, params, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launches_since(before)
+    peak = torch.cuda.max_memory_allocated()
+    require(not any(counts.values()), f"[{tag}] launches {counts}")
+    require(tuple(out.shape) == (LM_BATCH, LM_NEW),
+            f"[{tag}] output {tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"[{tag}] a token outside the vocabulary")
+    require(all(bool(torch.isfinite(y).all()) for y in timed.logits),
+            f"[{tag}] non-finite logits")
+    prefill_s = timed.times["prefill"][0]
+    decode_s = sum(timed.times["decode"]) / len(timed.times["decode"])
+    nbytes, bound = decode_bound_ms(params)
+    print(f"[{tag}] {LM_BATCH} x {LM_PROMPT} {key} "
+          f"{tuple(x.shape[2:])}, {LM_NEW} greedy tokens: wall "
+          f"{wall:.4f} s, prefill {prefill_s:.4f} s, decode "
+          f"{decode_s * 1e3:.3f} ms per step "
+          f"({len(timed.times['decode'])} steps), peak "
+          f"{peak / 2 ** 30:.2f} GiB; a decode step reads "
+          f"{nbytes / 1e9:.3f} GB of weights: bound {bound:.3f} ms (bytes); "
+          f"launches {counts}; tokens {out[:, :8].tolist()}", flush=True)
+    if "R" in cfg.layer_pattern:
+        state = 4 * LM_BATCH * cfg.d_model * cfg.rwkv_head_size
+        print(f"[{tag}] state {state / 2 ** 20:.1f} MiB a layer", flush=True)
+    # one chunk: the profiler's own cost grows with the 85k kernels of
+    # RWKV's whole-prompt recurrence
+    profile_step(tag, lambda: model.prefill(
+        params, {key: x[:, :FAMILY_PROFILE_PREFILL]}),
+        f"prefill of {LM_BATCH} x {FAMILY_PROFILE_PREFILL}")
+    cache = model.make_cache(LM_BATCH, LM_PROMPT + 1)
+    profile_step(tag, lambda: model.decode_step(
+        params, cache, {key: x[:, :1]}, LM_PROMPT), "decode step")
+    del cache
+    if tf is not None:
+        gate = tf(Model(cfg.with_overrides(compute_dtype=torch.float32),
+                        device="cuda"), params, "f32 compute", tag)
+        require(gate["agree"] >= min_agree,
+                f"[{tag}] f32 argmax agreement {gate['agree']} < {min_agree}")
+        require(gate["diff"] <= 1e-3 * gate["scale"],
+                f"[{tag}] f32 teacher forcing: max diff {gate['diff']} > "
+                f"1e-3 * {gate['scale']}")
+        tf(model, params, "bf16 compute", tag)
+    del params, timed
+    torch.cuda.empty_cache()
+
+
+def drive_lm_families():
+    """The twelfth route: RWKV6-7B (its teacher forcing: every row's
+    argmax equal), MusicGen-medium (``lm-serve``'s teacher forcing) and
+    InternVL2-76B on the card, then their SMOKE widths card against CPU.
+    The launch counts are set to 0 once, just before, and read just
+    after; no helper resets them in between.  The path runs no
+    hand-written kernel (the WKV recurrence and the frontends are plain
+    PyTorch), so every count must stay 0.  The host's launch rate is
+    printed before and after (decode is bound by it)."""
+    from repro_torch.kernels import ops
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    print(f"[lm-families] host launch {host_launch_us():.2f} us per small "
+          f"kernel", flush=True)
+    drive_family("rwkv6_7b", rwkv_teacher_forcing, 1.0)
+    drive_family("musicgen_medium", frontend_teacher_forcing, 0.95)
+    drive_family("internvl2_76b")
+    for arch in FAMILY_ARCHS:
+        check_lm_against_cpu(arch, "lm-families")
+    counts = ops.launch_counts()
+    require(not any(counts.values()), f"[lm-families] launches {counts}")
+    print(f"[lm-families] host launch {host_launch_us():.2f} us per small "
+          f"kernel; route wall {time.perf_counter() - t:.1f} s; launches "
+          f"{counts}", flush=True)
+    return counts
 
 
 def paper_modules():
@@ -1974,10 +2283,12 @@ def kernel_class(name):
     return "other"
 
 
-def profile_train_step(step_fn, params, state, batch):
-    """One more train step under ``torch.profiler`` (CPU and CUDA): its
+def profile_step(tag, fn, what="step"):
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): its
     wall, the device's busy time (the sum of its kernels' durations) and
-    that time by kernel class and by the largest kernels."""
+    that time by kernel class and by the largest kernels, and the host's
+    waits on the card (``cudaStreamSynchronize``/``cudaDeviceSynchronize``
+    calls, the last one the profiler's own)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1985,11 +2296,14 @@ def profile_train_step(step_fn, params, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step_fn(params, state, batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    by_class, by_name, n = {}, {}, 0
+    by_class, by_name, n, waits, wait_us = {}, {}, 0, 0, 0.0
     for evt in prof.events():
+        if evt.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            waits += 1
+            wait_us += evt.time_range.elapsed_us()
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.time_range.elapsed_us()
@@ -1999,11 +2313,12 @@ def profile_train_step(step_fn, params, state, batch):
         by_name[evt.name] = by_name.get(evt.name, 0.0) + us
     busy = sum(by_class.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[train] profiled step: wall {wall:.4f} s (profiler on), "
+    print(f"[{tag}] profiled {what}: wall {wall:.4f} s (profiler on), "
           f"{n} device kernels, device busy {busy:.4f} s "
           f"({busy / wall:.3f} of the wall); by class (s) "
           f"{ {k: round(v / 1e6, 4) for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])} }; "
-          f"largest {[(name[:60], round(us / 1e6, 4)) for name, us in top]}",
+          f"largest {[(name[:60], round(us / 1e6, 4)) for name, us in top]}; "
+          f"host waits on the card {waits}, {wait_us / 1e6:.4f} s",
           flush=True)
 
 
@@ -2078,7 +2393,8 @@ def drive_train_full_width(card, device="cuda"):
     require(norm_gap <= 5e-2, f"[train] bf16 first grad norm {norm0} vs f32 "
             f"{f32_norm}: {norm_gap} > 5e-2")
     if on_card:
-        profile_train_step(step_fn, params, state, batches[0])
+        profile_step("train",
+                     lambda: step_fn(params, state, batches[0]))
     steady = walls[1:]
     print(f"[train] {TRAIN_STEPS} steps: first step wall {walls[0]:.4f} s, "
           f"then mean {sum(steady) / len(steady):.4f} s (min {min(steady):.4f},"
@@ -2093,52 +2409,94 @@ def drive_train_full_width(card, device="cuda"):
     return counts
 
 
-def smoke_train(arch, device):
-    """``arch`` at SMOKE width in f32 on ``device``, weights from a CPU
-    generator (seed 0): the first step's loss and gradient leaves, the K8
-    launches of that forward and backward, then TRAIN_CPU_STEPS AdamW
-    steps' losses."""
+def smoke_grads(arch, device, dtype=None):
+    """``arch`` at SMOKE width in f32 compute on ``device``, weights drawn
+    from a CPU generator (seed 0) -- or, with ``dtype``, weights and
+    compute cast to it: the model, its weights, TRAIN_CPU_STEPS batches of numpy draws
+    (``embeds`` for a frontend model), and the first batch's loss and
+    gradient leaves (on the CPU) with the K8 launches of that forward
+    and backward."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models.api import Model
     from repro_torch.models.param import tree_flatten, tree_unflatten
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import make_train_step
+    from repro_torch.models.transformer import FRONTEND_DIMS
     cfg = configs.smoke_config(arch).with_overrides(
-        compute_dtype=torch.float32)
+        compute_dtype=dtype or torch.float32)
     model = Model(cfg, device=device)
-    params = model.init(torch.Generator().manual_seed(0))
-    toks = np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (TRAIN_CPU_STEPS, TRAIN_CPU_BATCH,
-                            TRAIN_CPU_SEQ + 1))
+    leaves, treedef = tree_flatten(
+        model.init(torch.Generator().manual_seed(0)))
+    leaves = [(p if dtype is None else p.to(dtype)).detach()
+              .requires_grad_(True) for p in leaves]
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_CPU_STEPS, TRAIN_CPU_BATCH,
+                                            TRAIN_CPU_SEQ + 1))
     batches = [{"tokens": torch.as_tensor(t[:, :-1], dtype=torch.int32,
                                           device=device),
                 "labels": torch.as_tensor(t[:, 1:], dtype=torch.int32,
                                           device=device)} for t in toks]
-    leaves, treedef = tree_flatten(params)
-    leaves = [p.detach().requires_grad_(True) for p in leaves]
-    ops.reset_launch_counts()
+    if cfg.frontend is not None:      # frames or patches in place of tokens
+        fd = FRONTEND_DIMS[cfg.frontend]
+        emb = rng.standard_normal(toks.shape[:2] + (TRAIN_CPU_SEQ, fd))
+        for batch, e in zip(batches, emb):
+            batch["embeds"] = torch.as_tensor(
+                e, dtype=cfg.compute_dtype, device=device)
+            del batch["tokens"]
+    before = ops.launch_counts()
     loss = model.loss(tree_unflatten(treedef, leaves), batches[0])
-    grads = [g.detach().cpu() for g in torch.autograd.grad(loss, leaves)]
-    launched = ops.launch_counts()["selective_scan"]
+    # a frontend model's embedding table is unused on embeds: zero
+    grads = [torch.zeros_like(p).cpu() if g is None else g.detach().cpu()
+             for p, g in zip(leaves, torch.autograd.grad(
+                 loss, leaves, allow_unused=True))]
+    return dict(model=model, params=tree_unflatten(
+        treedef, [p.detach() for p in leaves]), batches=batches,
+        grads=grads, treedef=treedef, first=float(loss.detach()),
+        launched=launches_since(before)["selective_scan"],
+        pattern=cfg.layer_pattern)
+
+
+def smoke_train(arch, device):
+    """:func:`smoke_grads` in f32, then TRAIN_CPU_STEPS AdamW steps'
+    losses."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    run = smoke_grads(arch, device)
     ocfg = opt.OptConfig(lr=1e-3)
-    step_fn = make_train_step(model, ocfg, opt.warmup_cosine(1e-3, 1, 10))
-    state, losses = opt.init(ocfg, params), []
-    for batch in batches:
+    step_fn = make_train_step(run["model"], ocfg,
+                              opt.warmup_cosine(1e-3, 1, 10))
+    params, losses = run["params"], []
+    state = opt.init(ocfg, params)
+    for batch in run["batches"]:
         params, state, m = step_fn(params, state, batch)
         losses.append(float(m["loss"]))
-    return dict(grads=grads, treedef=treedef, launched=launched,
-                losses=losses, first=float(loss.detach()),
-                pattern=cfg.layer_pattern)
+    return dict(run, losses=losses)
+
+
+def grad_gaps(got, want):
+    """Each leaf's max abs difference over the largest magnitude of
+    ``want``'s leaf (where that leaf is 0: 0 if ``got``'s is too, else
+    infinite)."""
+    out = []
+    for a, b in zip(got, want):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        out.append(err / scale if scale else 0.0 if err == 0 else math.inf)
+    return out
 
 
 def check_train_against_cpu(device="cuda"):
-    """(c) TRAIN_CPU_ARCHS at SMOKE width in f32: losses within 1e-4
-    relative of the CPU's, first-step gradients per leaf within 1e-4 of
-    the leaf's largest magnitude; Jamba launches K8 in its training
-    forward and every Mamba weight gets a nonzero gradient."""
+    """(c) TRAIN_CPU_ARCHS at SMOKE width in f32 (the frontend models on
+    ``embeds``): losses within 1e-4 relative of the CPU's, first-step
+    gradients per leaf within 1e-4 of the leaf's largest magnitude of the
+    CPU's -- for TRAIN_F64_ARCHS within 1e-4 plus the CPU's own f32
+    distance from its f64 gradient (relative to the same maximum);
+    Jamba launches K8 in its
+    training forward and every Mamba weight gets a nonzero gradient;
+    every RWKV weight of every layer gets a nonzero gradient
+    (``decay_a``, ``decay_b`` and ``bonus_u`` included)."""
+    import torch
+    from repro_torch.models.param import tree_unflatten
     t = time.perf_counter()
     launched = {}
     for arch in TRAIN_CPU_ARCHS:
@@ -2148,29 +2506,46 @@ def check_train_against_cpu(device="cuda"):
                         cpu["losses"] + [cpu["first"]]):
             require(abs(a - b) <= 1e-4 * abs(b), f"[train] {arch}: card loss "
                     f"{a} != cpu {b}")
-        worst = 0.0
-        for i, (a, b) in enumerate(zip(card["grads"], cpu["grads"])):
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            require(err <= 1e-4 * scale, f"[train] {arch} grad leaf {i}: "
-                    f"max err {err} > 1e-4 * {scale}")
-            worst = max(worst, err / scale if scale else 0.0)
+        gaps = grad_gaps(card["grads"], cpu["grads"])
+        bars = [1e-4] * len(gaps)
+        if arch in TRAIN_F64_ARCHS:
+            exact = smoke_grads(arch, "cpu", torch.float64)["grads"]
+            card_gaps = grad_gaps(card["grads"], exact)
+            cpu_gaps = grad_gaps(cpu["grads"], exact)
+            bars = [1e-4 + e for e in cpu_gaps]
+            i = max(range(len(gaps)), key=cpu_gaps.__getitem__)
+            print(f"[train] {arch} first-step grads against f64 on the cpu: "
+                  f"card within {max(card_gaps):.3e}, cpu f32 within "
+                  f"{max(cpu_gaps):.3e} of each leaf's max; the cpu's worst "
+                  f"leaf {i}: card {card_gaps[i]:.3e}, cpu {cpu_gaps[i]:.3e} "
+                  f"from f64, card vs cpu {gaps[i]:.3e} (bar {bars[i]:.3e})",
+                  flush=True)
+        for i, (gap, bar) in enumerate(zip(gaps, bars)):
+            require(gap <= bar, f"[train] {arch} grad leaf {i}: card vs cpu "
+                    f"{gap} of the leaf's max > {bar}")
         if arch == "jamba_v0_1_52b":
             require(card["launched"] > 0 or device == "cpu",
                     "[train] jamba: no selective_scan launch in the "
                     "training forward")
-            from repro_torch.models.param import tree_unflatten
             tree = tree_unflatten(card["treedef"], card["grads"])
             for ch, p in zip(card["pattern"], tree["unit"]):
                 if ch in "mM":
                     require(all(bool(g.abs().max() > 0)
                                 for g in p["mixer"].values()),
                             "[train] jamba: a Mamba weight has no gradient")
+        if arch == "rwkv6_7b":
+            tm = tree_unflatten(card["treedef"], card["grads"])["unit"][0]["tm"]
+            silent = [(name, layer) for name, g in sorted(tm.items())
+                      for layer in range(g.shape[0])
+                      if not bool(g[layer].abs().max() > 0)]
+            require(len(tm) == 20 and not silent,
+                    f"[train] rwkv: weights without a gradient {silent}")
         launched[arch] = card["launched"]
         print(f"[train] {arch} smoke f32, card == cpu: losses "
               f"{[round(x, 6) for x in card['losses']]}, first-step grads "
-              f"within {worst:.2e} of each leaf's max, K8 launches in the "
-              f"first forward and backward {card['launched']}", flush=True)
+              f"within {max(gaps):.2e} of each leaf's max, K8 launches in "
+              f"the first forward and backward {card['launched']}",
+              flush=True)
     print(f"[train] card vs cpu {time.perf_counter() - t:.1f} s", flush=True)
     return launched
 
@@ -2234,7 +2609,7 @@ def main():
     sys.path.insert(0, src)
     from repro_torch.kernels import build
 
-    t = time.perf_counter()
+    t = t_script = time.perf_counter()
     build.build_all()
     print(f"build {time.perf_counter() - t:.2f} s", flush=True)
     for name, log in build.build_log().items():
@@ -2286,12 +2661,16 @@ def main():
     runs["lm-serve"] = drive_lm_serve()
     check_lm_against_cpu()
     phase_done("lm-serve")
+    runs["lm-families"] = drive_lm_families()
+    phase_done("lm-families")
     runs["paper"] = drive_paper()
     phase_done("paper")
     runs["mesh"] = drive_mesh(dense)
     phase_done("mesh")
     runs["train"] = drive_train(card)
     phase_done("train")
+    print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
+          f"build included", flush=True)
 
     d = delta[("event", "batched")]
     o = obj[("generation", "smem", "batched")]

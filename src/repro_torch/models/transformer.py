@@ -12,10 +12,12 @@ which a Python loop walks here.  Jamba's ``mMmMaMmM`` is one super-block.
 each layer (each repeat of the unit) under the config's ``remat`` mode
 (:func:`_remat`), then ``layers.lm_loss``.
 
-This port serves the attention, MLP, MoE and Mamba blocks (pattern
-characters ``TEGLWmMaA``).  The RWKV block (``R``) and the audio/vision
-frontends raise ``NotImplementedError``: they are later items of
-``ROADMAP.md`` step 10.
+Every block of the pattern alphabet is served: attention, MLP, MoE,
+Mamba and RWKV-6 (``R``, whose decode cache is a state, not a KV cache).
+A model with a ``frontend`` (audio or vision) also takes ``embeds``
+(B, S, ``FRONTEND_DIMS[frontend]``) in place of ``tokens``, projected to
+``d_model`` by ``frontend.proj``; its ``embed`` table stays, for decode
+over token ids.
 """
 from __future__ import annotations
 
@@ -27,23 +29,15 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from . import layers, moe, ssm
+from . import layers, moe, rwkv, ssm
 from .config import ModelConfig
 from .param import PDecl, stack, tree_map
 
-# The audio/vision frontends' input widths (EnCodec frames, InternViT
-# patches); their blocks are not ported yet, their input shapes are.
-FRONTEND_DIMS = {"audio": 128, "vision": 3200}
+FRONTEND_DIMS = {"audio": 128, "vision": 3200}   # EnCodec frames / InternViT patches
 
 ATTN_CHARS = "TEGLWaA"
 MOE_CHARS = "EWMA"
 WINDOW_CHARS = "LW"
-
-
-def _unsupported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, module step 10: RWKV and "
-        f"the frontends come after the Jamba serving slice)")
 
 
 def layer_plan(pattern: str, scan_layers: bool = True) -> Tuple[str, int, str]:
@@ -66,21 +60,15 @@ def _window_for(cfg: ModelConfig, ch: str) -> Optional[int]:
     return None
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if "R" in cfg.layer_pattern:
-        raise _unsupported("the RWKV block ('R')")
-    if cfg.frontend is not None:
-        raise _unsupported(f"the {cfg.frontend} frontend")
-
-
 # ---------------------------------------------------------------------------
 # One block (mixer + ffn with pre-norms)
 # ---------------------------------------------------------------------------
 
 def block_decls(cfg: ModelConfig, ch: str) -> Dict[str, Any]:
-    if ch == "R":
-        raise _unsupported("the RWKV block ('R')")
     d = cfg.d_model
+    if ch == "R":
+        return {"norm1": layers.rmsnorm_decls(d), "tm": rwkv.rwkv_decls(cfg),
+                "norm2": layers.rmsnorm_decls(d)}
     decls: Dict[str, Any] = {"norm1": layers.rmsnorm_decls(d),
                              "norm2": layers.rmsnorm_decls(d)}
     if ch in "mM":
@@ -103,7 +91,7 @@ def _ffn(params, x, cfg: ModelConfig, ch: str, num_groups: int):
 def block_train(params, x: torch.Tensor, cfg: ModelConfig, ch: str,
                 positions: torch.Tensor, num_groups: int) -> torch.Tensor:
     if ch == "R":
-        raise _unsupported("the RWKV block ('R')")
+        return _rwkv_block(params, x, cfg, None)[0]
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if ch in "mM":
         y = ssm.mamba_train(params["mixer"], h, cfg)
@@ -113,10 +101,26 @@ def block_train(params, x: torch.Tensor, cfg: ModelConfig, ch: str,
     return _ffn(params, x + y, cfg, ch, num_groups)
 
 
+def _rwkv_block(params, x, cfg: ModelConfig, cache):
+    """The ``R`` block: time-mix and channel-mix, each under a pre-norm,
+    from ``cache`` (the token shifts and the state) or, when it is
+    ``None`` (train, prefill), from zeros.  Returns (x, new cache)."""
+    if cache is None:
+        cache = rwkv.rwkv_make_cache(cfg, x.shape[0], x.device)
+    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    y, tm_xprev, s_last = rwkv.rwkv_time_mix(params["tm"], h, cfg,
+                                             cache["tm_xprev"], cache["s"])
+    x = x + y
+    h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    y, cm_xprev = rwkv.rwkv_channel_mix(params["tm"], h, cfg,
+                                        cache["cm_xprev"])
+    return x + y, {"s": s_last, "tm_xprev": tm_xprev, "cm_xprev": cm_xprev}
+
+
 def block_make_cache(cfg: ModelConfig, ch: str, batch: int, seq_len: int,
                      device=None):
     if ch == "R":
-        raise _unsupported("the RWKV block ('R')")
+        return rwkv.rwkv_make_cache(cfg, batch, device)
     if ch in "mM":
         return ssm.mamba_make_cache(cfg, batch, device)
     return layers.make_cache(cfg, batch, seq_len, _window_for(cfg, ch), device)
@@ -125,7 +129,7 @@ def block_make_cache(cfg: ModelConfig, ch: str, batch: int, seq_len: int,
 def block_prefill(params, x, cfg, ch, positions, num_groups, cache_len=None):
     """Returns (x, cache)."""
     if ch == "R":
-        raise _unsupported("the RWKV block ('R')")
+        return _rwkv_block(params, x, cfg, None)
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if ch in "mM":
         # Mamba prefill: one pass returns both outputs and the decode state.
@@ -140,7 +144,7 @@ def block_prefill(params, x, cfg, ch, positions, num_groups, cache_len=None):
 def block_decode(params, x, cfg, ch, cache, pos, num_groups):
     """x (B, 1, D); returns (x, new_cache)."""
     if ch == "R":
-        raise _unsupported("the RWKV block ('R')")
+        return _rwkv_block(params, x, cfg, cache)
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if ch in "mM":
         y, cache = ssm.mamba_decode(params["mixer"], h, cfg, cache)
@@ -155,9 +159,12 @@ def block_decode(params, x, cfg, ch, cache, pos, num_groups):
 # ---------------------------------------------------------------------------
 
 def model_decls(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_supported(cfg)
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
-    decls: Dict[str, Any] = {"embed": layers.embed_decls(cfg)}
+    decls: Dict[str, Any] = {}
+    if cfg.frontend is not None:
+        fd = FRONTEND_DIMS[cfg.frontend]
+        decls["frontend"] = {"proj": PDecl((fd, cfg.d_model))}
+    decls["embed"] = layers.embed_decls(cfg)   # decode over token ids too
     unit_decls = [block_decls(cfg, ch) for ch in unit]
     decls["unit"] = [stack(d, reps) for d in unit_decls] if reps > 1 else unit_decls
     decls["rest"] = [block_decls(cfg, ch) for ch in rest]
@@ -173,8 +180,9 @@ def model_decls(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _embed_inputs(params, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> torch.Tensor:
-    if "embeds" in batch:
-        raise _unsupported("frontend input ('embeds')")
+    if cfg.frontend is not None and "embeds" in batch:
+        dt = cfg.compute_dtype
+        return batch["embeds"].to(dt) @ params["frontend"]["proj"].to(dt)
     return layers.embed(params["embed"], batch["tokens"], cfg)
 
 
@@ -265,8 +273,9 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                num_groups: int = 1) -> torch.Tensor:
-    """The mean next-token loss of ``batch`` (``tokens`` and ``labels``,
-    each (B, S)): a 0-d f32 tensor."""
+    """The mean next-token loss of ``batch`` (``labels`` (B, S) and
+    ``tokens`` (B, S) or, with a frontend, ``embeds`` (B, S, fd)): a 0-d
+    f32 tensor."""
     h = forward_hidden(params, batch, cfg, num_groups)
     return layers.lm_loss(params["head"], h, batch["labels"], cfg)
 
@@ -304,9 +313,10 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
-    """One decode step: batch has 'tokens' (B, 1); ``pos`` the position
-    of that token.  Attention caches are updated in place
-    (``layers.attention_decode``)."""
+    """One decode step: batch has 'tokens' (B, 1) or, with a frontend,
+    'embeds' (B, 1, fd); ``pos`` the position of that token.  Attention
+    caches are updated in place (``layers.attention_decode``); RWKV
+    states are carried, and ignore ``pos``."""
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
     x = _embed_inputs(params, batch, cfg)
 
@@ -338,7 +348,6 @@ def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
 # ---------------------------------------------------------------------------
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    _check_supported(cfg)
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
 
     def one(ch):

@@ -1,5 +1,5 @@
-"""The control plane's, the meshes' and the training path's public
-surface against the reference's: every public class, method and function
+"""The control plane's, the meshes', the training path's and the RWKV
+block's public surface against the reference's: every public class, method and function
 of the ported modules has the reference's parameter names, order, kinds
 and defaults (a dtype default by its name).  The only differences are
 listed in ``EXCEPTIONS`` (the port's entry points take a ``device``, its
@@ -21,6 +21,7 @@ from repro.launch import elastic as ref_elastic
 from repro.launch import placement as ref_placement
 from repro.launch import train as ref_launch_train
 from repro.models import api as ref_api
+from repro.models import rwkv as ref_rwkv
 from repro.parallel import collectives as ref_collectives
 from repro.serve import cluster as ref_cluster
 from repro.serve import fleet as ref_fleet
@@ -34,7 +35,7 @@ from repro.train import step as ref_step
 from repro_torch.core import batch_sharded, distributed
 from repro_torch.launch import elastic, mesh, placement
 from repro_torch.launch import train as launch_train
-from repro_torch.models import api
+from repro_torch.models import api, rwkv
 from repro_torch.parallel import collectives
 from repro_torch.serve import cluster, fleet, rm, trace, transport
 from repro_torch.train import checkpoint, data, optimizer, step
@@ -50,6 +51,7 @@ MODULES = {
     "serve.trace": (ref_trace, trace),
     "launch.placement": (ref_placement, placement),
     "models.api": (ref_api, api),
+    "models.rwkv": (ref_rwkv, rwkv),
     "train.data": (ref_data, data),
     "train.optimizer": (ref_optimizer, optimizer),
     "train.step": (ref_step, step),
@@ -67,6 +69,7 @@ EXCEPTIONS = {
     "models.api.Model.__init__": (set(), {"device"}),
     "models.api.Model.init": ({"key"}, {"generator", "seed"}),
     "models.api.make_concrete_batch": ({"key"}, {"generator"}),
+    "models.rwkv.rwkv_make_cache": (set(), {"device"}),
     "train.checkpoint.CheckpointManager.restore": ({"shardings"}, {"device"}),
     "launch.train.train": (set(), {"device"}),
     "parallel.collectives.compressed_allreduce_mean": ({"axis"}, {"group"}),
@@ -85,6 +88,7 @@ NOT_PORTED = {
     "train.optimizer": {"state_specs"},
     "models.api": {"batch_partition_specs"},
     "models.api.Model": {"specs", "cache_specs"},
+    "models.rwkv": {"rwkv_cache_specs"},
     # no step: JAX's shard_map across its versions; the port's ranks are
     # processes that run the solver bodies themselves
     "core.distributed": {"shard_map"},

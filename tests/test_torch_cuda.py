@@ -657,3 +657,41 @@ def test_lm_engine_on_card_matches_engine_on_cpu(cuda):
     want = logits["cpu"]
     err = float((logits["cuda"].cpu() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "musicgen_medium",
+                                  "internvl2_76b"])
+def test_lm_families_on_card_match_cpu(cuda, arch):
+    """RWKV6's and the frontend models' SMOKE widths in f32, weights drawn
+    once on the CPU: prefill logits (from ``embeds`` for the frontend
+    models) within 1e-4 * max|logit| of the CPU's, a decode step's too,
+    and the greedy tokens of ``Engine.generate`` equal."""
+    from repro_torch.models.transformer import FRONTEND_DIMS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.smoke_config(arch).with_overrides(
+        compute_dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(2, cfg.vocab_size, (2, 49)).astype(np.int32)
+    batch = {"tokens": prompts}
+    if cfg.frontend is not None:
+        batch = {"embeds": rng.standard_normal(
+            (2, 49, FRONTEND_DIMS[cfg.frontend])).astype(np.float32)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = Model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        inputs = {k: torch.as_tensor(v, device=device)
+                  for k, v in batch.items()}
+        logits, cache = model.prefill(
+            params, {k: v[:, :48] for k, v in inputs.items()}, cache_len=56)
+        step, _ = model.decode_step(
+            params, cache, {k: v[:, 48:] for k, v in inputs.items()}, 48)
+        gen = Engine(model, params, ServeConfig(max_new_tokens=8)).generate(
+            prompts)
+        out[device] = (logits.cpu(), step.cpu(), gen)
+    (lc, sc, gc), (lp, sp, gp) = out["cuda"], out["cpu"]
+    for got, want in ((lc, lp), (sc, sp)):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    np.testing.assert_array_equal(gc, gp)

@@ -2,8 +2,11 @@
 
 Jamba's ``SMOKE`` configuration (``mMmMaMmM``, one super-block), a
 16-layer variant (the pattern twice, so ``layer_plan`` stacks the unit
-with ``reps=2``) and Gemma3's (windowed layers with a ring cache), with
-``compute_dtype=float32`` for tight comparisons;
+with ``reps=2``), Gemma3's (windowed layers with a ring cache), RWKV6's
+(``RR``: the RWKV block stacked, its cache a state) and the frontend
+models' (MusicGen's audio and InternVL2's vision input, from ``tokens``
+and from ``embeds``), with ``compute_dtype=float32`` for tight
+comparisons;
 weights drawn by the reference and carried over by
 ``convert.lm_params_from_reference``; inputs from
 ``numpy.random.default_rng``.
@@ -20,9 +23,11 @@ The bf16 cases (the default ``SMOKE``) hold the JAX serving test's bar
 (``tests/test_serve.py``: 0.15 absolute and relative, argmax agreement
 >= 0.95): the port's prefill and decode logits against the reference's,
 and the port's decode against teacher forcing.  bf16 rounds at other
-places in the two frameworks (XLA keeps a fused chain of elementwise
-ops in f32 and rounds once, PyTorch rounds after each op); the port
-rounds its Mamba conv once, as the reference's fused code does.
+places in the two frameworks (XLA keeps some fused chains of
+elementwise ops in f32 and rounds once, PyTorch rounds after each op);
+the port rounds its Mamba conv once, as the reference's fused code does,
+and its RWKV block where the reference's does
+(``tests/test_torch_rwkv.py``).
 """
 import dataclasses
 import io
@@ -49,6 +54,7 @@ from repro_torch.core import keys
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import layers, moe, ssm, transformer
 from repro_torch.models.api import Model
+from repro_torch.models.param import tree_map
 from repro_torch.serve import Engine, ServeConfig
 
 ARCH = "jamba_v0_1_52b"
@@ -62,7 +68,10 @@ CASES = {"smoke": (ARCH, F32),
          "jamba-shape": (ARCH, dict(F32, mamba_d_state=16, mamba_d_conv=4,
                                     num_experts=16, num_heads=8,
                                     num_kv_heads=2, head_dim=32)),
-         "gemma3": ("gemma3_4b", F32)}
+         "gemma3": ("gemma3_4b", F32),
+         "rwkv": ("rwkv6_7b", F32),
+         "musicgen": ("musicgen_medium", F32),
+         "internvl2": ("internvl2_76b", F32)}
 MODULE_TOL, MODEL_TOL = 1e-5, 1e-4
 B, S, NEW = 2, 48, 8
 
@@ -291,6 +300,15 @@ def test_generate_greedy_matches_reference(lm):
     np.testing.assert_array_equal(out, lm.generated)
 
 
+def _serving_bar(got, want):
+    """``tests/test_serve.py``'s bar: 0.15 absolute and relative, argmax
+    agreement >= 0.95."""
+    got, want = _np(got), _np(want)
+    np.testing.assert_allclose(got, want, rtol=0.15, atol=0.15)
+    agree = (got.argmax(-1) == want.argmax(-1)).mean()
+    assert agree >= 0.95, f"argmax agreement {agree}"
+
+
 def _teacher_forcing(tcfg, tparams, toks):
     """Logits of [prefill(S) -> decode token S] and of prefill(S + 1)."""
     model = Model(tcfg, device="cpu")
@@ -311,9 +329,27 @@ def test_decode_matches_teacher_forcing(dtype):
     _, tcfg, tparams = _pair(jcfg)
     logits_a, logits_b = _teacher_forcing(tcfg, tparams,
                                           _tokens(jcfg.vocab_size, 6))
-    np.testing.assert_allclose(logits_a, logits_b, rtol=0.15, atol=0.15)
-    agree = (logits_a.argmax(-1) == logits_b.argmax(-1)).mean()
-    assert agree >= 0.95, f"argmax agreement {agree}"
+    _serving_bar(logits_a, logits_b)
+
+
+def _prefill_decode_both(jcfg, jparams, tcfg, tparams, prompt, step):
+    """The reference's jitted prefill of ``prompt`` (S positions, 8 of
+    headroom) and one decode step of ``step`` at position S, then the
+    port's: ``(logits, cache, step logits, step cache)`` for each, the
+    port's prefill cache copied before the step writes into it."""
+    jmodel = JModel(jcfg)
+    jl, jc = jax.jit(jmodel.prefill, static_argnames=("cache_len",))(
+        jparams, jax.tree.map(jnp.asarray, prompt), cache_len=S + 8)
+    jd, jdc = jax.jit(jmodel.decode_step)(
+        jparams, jc, jax.tree.map(jnp.asarray, step), jnp.int32(S))
+    model = Model(tcfg, device="cpu")
+    tl, tc = model.prefill(tparams, {k: torch.as_tensor(v)
+                                     for k, v in prompt.items()},
+                           cache_len=S + 8)
+    tc0 = tree_map(torch.clone, tc)
+    td, tdc = model.decode_step(tparams, tc, {k: torch.as_tensor(v)
+                                              for k, v in step.items()}, S)
+    return (jl, jc, jd, jdc), (tl, tc0, td, tdc)
 
 
 def test_bf16_matches_reference_at_serving_bar():
@@ -323,23 +359,77 @@ def test_bf16_matches_reference_at_serving_bar():
     jparams, tcfg, tparams = _pair(jcfg)
     assert tcfg.compute_dtype == torch.bfloat16
     toks = _tokens(jcfg.vocab_size, 7)
-    jmodel = JModel(jcfg)
-    jl, jc = jax.jit(jmodel.prefill, static_argnames=("cache_len",))(
-        jparams, {"tokens": jnp.asarray(toks[:, :S])}, cache_len=S + 8)
-    jd, _ = jax.jit(jmodel.decode_step)(jparams, jc,
-                                        {"tokens": jnp.asarray(toks[:, S:])},
-                                        jnp.int32(S))
-    model = Model(tcfg, device="cpu")
-    tl, tc = model.prefill(tparams, {"tokens": torch.as_tensor(toks[:, :S])},
-                           cache_len=S + 8)
+    (jl, _, jd, _), (tl, tc, td, _) = _prefill_decode_both(
+        jcfg, jparams, tcfg, tparams, {"tokens": toks[:, :S]},
+        {"tokens": toks[:, S:]})
     assert tc["unit"][4]["k"].dtype == torch.bfloat16
-    td, _ = model.decode_step(tparams, tc,
-                              {"tokens": torch.as_tensor(toks[:, S:])}, S)
     for got, want in ((tl, jl), (td, jd)):
-        got, want = _np(got), _np(want)
-        np.testing.assert_allclose(got, want, rtol=0.15, atol=0.15)
-        agree = (got.argmax(-1) == want.argmax(-1)).mean()
-        assert agree >= 0.95, f"argmax agreement {agree}"
+        _serving_bar(got, want)
+
+
+RWKV = "rwkv6_7b"
+FRONTENDS = ["musicgen_medium", "internvl2_76b"]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rwkv_decode_matches_teacher_forcing(dtype):
+    """``tests/test_serve.py``'s check (b = 2, s = 48) for the port's
+    RWKV alone: the state and the token shifts that prefill carries into
+    decode.  In f32 also within MODEL_TOL."""
+    over = F32 if dtype == "f32" else {}
+    jcfg = jconfigs.smoke_config(RWKV).with_overrides(**over)
+    _, tcfg, tparams = _pair(jcfg)
+    logits_a, logits_b = _teacher_forcing(tcfg, tparams,
+                                          _tokens(jcfg.vocab_size, 6))
+    if dtype == "f32":
+        _close(logits_a, logits_b, MODEL_TOL)
+    _serving_bar(logits_a, logits_b)
+
+
+def test_rwkv_bf16_matches_reference_at_serving_bar():
+    """RWKV's default ``SMOKE`` (bf16 compute): prefill and a decode
+    step against the reference; the state stays f32, the token shifts
+    bf16."""
+    jcfg = jconfigs.smoke_config(RWKV)
+    jparams, tcfg, tparams = _pair(jcfg)
+    assert tcfg.compute_dtype == torch.bfloat16
+    toks = _tokens(jcfg.vocab_size, 7)
+    (jl, jc, jd, _), (tl, tc, td, tdc) = _prefill_decode_both(
+        jcfg, jparams, tcfg, tparams, {"tokens": toks[:, :S]},
+        {"tokens": toks[:, S:]})
+    unit = tc["unit"][0]
+    assert unit["s"].dtype == torch.float32
+    assert unit["tm_xprev"].dtype == unit["cm_xprev"].dtype == torch.bfloat16
+    _trees_close(tree_map(lambda t: t.float(), tc), jc, 2.0 ** -7)
+    for got, want in ((tl, jl), (td, jd)):
+        _serving_bar(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_prefill_and_decode_from_embeds_match_reference(arch, dtype):
+    """MusicGen's audio frames and InternVL2's vision patches through
+    ``frontend.proj``: prefill of 48 positions and a decode step, each
+    from ``embeds``; f32 within MODEL_TOL (logits and caches), bf16 at
+    the serving bar."""
+    over = F32 if dtype == "f32" else {}
+    jcfg = jconfigs.smoke_config(arch).with_overrides(**over)
+    jparams, tcfg, tparams = _pair(jcfg)
+    fd = transformer.FRONTEND_DIMS[tcfg.frontend]
+    assert fd == jtransformer.FRONTEND_DIMS[jcfg.frontend]
+    emb = np.random.default_rng(8).standard_normal(
+        (B, S + 1, fd)).astype(np.float32)
+    (jl, jc, jd, jdc), (tl, tc, td, tdc) = _prefill_decode_both(
+        jcfg, jparams, tcfg, tparams, {"embeds": emb[:, :S]},
+        {"embeds": emb[:, S:]})
+    if dtype == "f32":
+        _close(tl, jl, MODEL_TOL, "prefill logits")
+        _trees_close(tc, jc, MODEL_TOL)
+        _close(td, jd, MODEL_TOL, "decode logits")
+        _trees_close(tdc, jdc, MODEL_TOL)
+    else:
+        _serving_bar(tl, jl)
+        _serving_bar(td, jd)
 
 
 # ---------------------------------------------------------------- sampling
@@ -389,8 +479,7 @@ def test_config_registry_matches_reference(arch, which):
     assert get(configs, arch) == want
 
 
-SUPPORTED = [a for a in jconfigs.ARCH_IDS
-             if a not in ("rwkv6_7b", "musicgen_medium", "internvl2_76b")]
+SUPPORTED = jconfigs.ARCH_IDS
 
 
 @pytest.mark.parametrize("arch", SUPPORTED)
@@ -413,13 +502,6 @@ def test_decls_match_reference(arch):
             JModel(jcfg).num_params()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6_7b", "musicgen_medium",
-                                  "internvl2_76b"])
-def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.smoke_config(arch), device="cpu").decls()
-
-
 def test_layer_plan_matches_reference():
     for arch in jconfigs.ARCH_IDS:
         for cfg in (jconfigs.get_config(arch), jconfigs.smoke_config(arch)):
@@ -439,6 +521,24 @@ def test_full_width_jamba_served_at_eight_layers_fits_the_card():
         < 51.6e9
 
 
+# name -> (overrides of the full config, parameters): the configurations
+# the card serves (RWKV6-7B and MusicGen-medium whole, InternVL2-76B at
+# 4 of its 80 layers in bf16)
+SERVED = {"rwkv6_7b": ({}, 7_534_546_944),
+          "musicgen_medium": ({}, 1_818_576_384),
+          "internvl2_76b": (dict(num_layers=4, layer_pattern="T" * 4,
+                                 param_dtype="bf16"), 5_550_186_496)}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED))
+def test_full_width_parameter_counts_of_the_served_configurations(arch):
+    over, count = SERVED[arch]
+    jcfg = jconfigs.get_config(arch).with_overrides(**over)
+    tcfg = convert.model_config_from_reference(dataclasses.asdict(jcfg))
+    assert Model(tcfg, device="cpu").num_params() == \
+        JModel(jcfg).num_params() == count
+
+
 def test_model_takes_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves to it")
@@ -446,11 +546,20 @@ def test_model_takes_the_card_by_default():
         Model(configs.smoke_config(ARCH))
 
 
-def test_launch_serve_runs_on_cpu():
+def _launch_serve(arch):
     buf = io.StringIO()
     with redirect_stdout(buf):
-        launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+        launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--batch", "2", "--prompt-len", "8",
                            "--max-new", "4"])
     assert "generated 8 tokens" in buf.getvalue()
     assert "on cpu" in buf.getvalue()
+
+
+def test_launch_serve_runs_on_cpu():
+    _launch_serve(ARCH)
+
+
+def test_launch_serve_rwkv_runs_on_cpu():
+    """An 8-token prompt: one chunk of 8 through the RWKV prefill."""
+    _launch_serve(RWKV)

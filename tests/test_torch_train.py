@@ -21,6 +21,7 @@ gradients only.  The bf16 train step holds losses to ``1e-2``: bf16
 rounds at other places in the two frameworks.
 """
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -48,6 +49,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.launch.world import run_world
 from repro_torch.models import layers
 from repro_torch.models.api import Model, input_specs, make_concrete_batch
+from repro_torch.models.transformer import FRONTEND_DIMS
 from repro_torch.models.config import ShapeCell
 from repro_torch.models.param import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.parallel import collectives
@@ -59,10 +61,7 @@ from repro_torch.train import step as step_lib
 import test_torch_train_world
 
 F32 = dict(compute_dtype=jnp.float32)
-# every architecture the port serves (RWKV and the frontends wait for
-# ROADMAP step 4)
-ARCHS = [a for a in configs.ARCH_IDS
-         if a not in ("rwkv6_7b", "musicgen_medium", "internvl2_76b")]
+ARCHS = configs.ARCH_IDS          # every architecture
 B, S = 2, 64
 # examples/train_lm.py's CFG_QUICK
 QUICK = dict(name="lm-quick", num_layers=4, d_model=128, num_heads=4,
@@ -123,6 +122,18 @@ def _lm_batch(vocab, seed=1, b=B, s=S):
     toks = np.random.default_rng(seed).integers(0, vocab, (b, s + 1)
                                                 ).astype(np.int32)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _arch_batch(jcfg, seed=1):
+    """``_lm_batch``, with ``embeds`` (B, S, fd) from the same seed's
+    generator in place of ``tokens`` for a model with a frontend."""
+    batch = _lm_batch(jcfg.vocab_size, seed)
+    if jcfg.frontend is None:
+        return batch
+    fd = FRONTEND_DIMS[jcfg.frontend]
+    emb = np.random.default_rng(seed + 1000).standard_normal(
+        (B, S, fd)).astype(np.float32)
+    return {"embeds": emb, "labels": batch["labels"]}
 
 
 def _torch_batch(batch):
@@ -273,18 +284,23 @@ def test_lm_loss_equals_reference(chunk):
                            loss_chunk=16))
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch_grads(request):
+@functools.lru_cache(maxsize=None)
+def _arch_grads(arch):
     """One architecture at SMOKE width in f32: the reference's loss and
     gradients, and the port's."""
-    jcfg = jconfigs.smoke_config(request.param).with_overrides(**F32)
+    jcfg = jconfigs.smoke_config(arch).with_overrides(**F32)
     jparams, tcfg, tparams = _pair(jcfg)
-    batch = _lm_batch(jcfg.vocab_size)
+    batch = _arch_batch(jcfg)
     jl, jg = jax.jit(jax.value_and_grad(JModel(jcfg).loss))(
         jparams, jax.tree.map(jnp.asarray, batch))
     ops.reset_launch_counts()
     tl, tg = _port_loss_grads(tcfg, tparams, batch)
-    return request.param, tcfg, tparams, batch, (jl, jg), (tl, tg)
+    return arch, tcfg, tparams, batch, (jl, jg), (tl, tg)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_grads(request):
+    return _arch_grads(request.param)
 
 
 def test_train_loss_and_grads_equal_reference(arch_grads):
@@ -320,13 +336,30 @@ def test_every_mamba_weight_gets_its_gradient():
             _close(p.grad, jg["unit"][i]["mixer"][name], 1e-4, f"{i} {name}")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_4b", "jamba_v0_1_52b", "gemma3_4b"])
+def test_every_rwkv_weight_gets_its_gradient():
+    """RWKV6's time-mix and channel-mix weights in both stacked layers:
+    every one has a nonzero gradient (the decay's low-rank factors and
+    the bonus included), equal to the reference's."""
+    _, _, tparams, _, (_, jg), (_, tg) = _arch_grads("rwkv6_7b")
+    tree = tree_unflatten(tree_flatten(tparams)[1], tg)
+    tm, want = tree["unit"][0]["tm"], jg["unit"][0]["tm"]
+    assert sorted(tm) == sorted(want) and len(tm) == 20
+    for name, g in tm.items():
+        assert g.shape[0] == 2, name                  # "RR": two layers
+        for layer in range(2):
+            assert bool(g[layer].abs().max() > 0), (name, layer)
+        _close(g, want[name], 1e-4, name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "jamba_v0_1_52b", "gemma3_4b",
+                                  "rwkv6_7b", "musicgen_medium",
+                                  "internvl2_76b"])
 def test_remat_modes_give_the_same_gradients(arch):
     """``none``, ``full`` and ``dots`` change what the backward keeps,
     never the numbers."""
     jcfg = jconfigs.smoke_config(arch).with_overrides(**F32)
     _, tcfg, tparams = _pair(jcfg)
-    batch = _lm_batch(jcfg.vocab_size, seed=3)
+    batch = _arch_batch(jcfg, seed=3)
     base_loss, base = _port_loss_grads(tcfg.with_overrides(remat="none"),
                                        tparams, batch)
     for mode in ("full", "dots"):
