@@ -105,6 +105,28 @@ Phases, each of which must pass:
    ``launch.train.train`` on examples/train_lm.py's ``CFG_QUICK``: 6 steps
    against 3 steps, a checkpoint, and a fresh run resuming to 6 (losses
    within 1e-5 relative);
+   then a thirteenth route, ``placement``, the paper's placement of a
+   training job: Qwen3-4B's ``train_4k`` cell (4096 x 256) at full width
+   and all 36 layers lowered on meshes (64, 1) and (256, 1) without
+   devices (``launch.lowering``: the card's allocation unchanged), each
+   C solved on a fresh default ``PlacementService`` against the mesh's
+   torus and the resource manager's ``scatter`` candidate of as many
+   nodes on the rm-replay 8 x 8 x 8 torus (F of the identity, F, gain,
+   seconds, launches by kernel and branch; K1, K2, K6 and K7 launched):
+   at 64 ranks psa on C, and psa, pga and pca on C scaled to a unit
+   maximum (the byte counts put F near 1e12, past f32's exact integers,
+   where the engines' differences are rounding); at 256 ranks psa, pga
+   and pca on C, all three the multilevel route's one answer, and psa on
+   C / max(C); every unit solve card == CPU bit for bit (the CPU's in a
+   pool of processes beside the card's solves, whose walls are printed
+   as such); then
+   ``launch.train.train`` on a (4, 1) mesh of gloo ranks on cuda:0 with
+   ``placement="psa"`` -- Qwen3-4B at full width cut to 2 layers, 4 x
+   4096 tokens (one sequence a rank), 3 steps -- gain 1/3 with a
+   permutation other than the identity, every rank's live collectives
+   equal to the lowered cell's, losses within 1e-3 relative of one
+   device's on the same batches (run first and freed), each rank's peak
+   printed;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -272,6 +294,27 @@ TRAIN_QUICK = dict(name="lm-quick", num_layers=4, d_model=128, num_heads=4,
                    loss_chunk=32)
 TRAIN_QUICK_KW = dict(global_batch=4, seq_len=64, lr=1e-3, warmup=2,
                       log_every=1)
+
+# The placement route: Qwen3-4B's train_4k cell (4096 x 256) at full
+# width and depth lowered on meshes (n, 1) without devices; its C solved
+# on the default PlacementService against the mesh's torus and the
+# resource manager's scatter candidate of n nodes on the rm-replay torus,
+# card against CPU (the CPU in a pool of processes beside the card's
+# solves); then launch.train on a (4, 1) mesh of gloo ranks on cuda:0
+# with placement psa, alone on the host: depth 36 -> 2, 4 x 4096 tokens
+# (one sequence a rank), 3 steps, against one device on the same batches.
+PLACE_RANKS = (64, 256)
+PLACE_ALGOS = ("psa", "pga", "pca")
+# ranks -> the algorithms run on C of bytes.  At 64 its F is near 1e12,
+# where the engines' differences are f32 rounding: pga and pca run on C /
+# max(C) alone.  At 256 all three take the multilevel route (one answer).
+PLACE_RAW = {64: ("psa",), 256: PLACE_ALGOS}
+# ranks -> the algorithms run on C / max(C) (every F an exact small
+# integer), each held card == CPU bit for bit
+PLACE_UNIT = {64: PLACE_ALGOS, 256: ("psa",)}
+PLACE_CPU_WORKERS = 3
+PLACE_LAYERS, PLACE_STEPS, PLACE_WORLD = 2, 3, 4
+PLACE_LOSS_RTOL = 1e-3
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -2596,6 +2639,246 @@ def drive_train(card):
     return counts, launched
 
 
+def placement_config():
+    """Qwen3-4B at full width cut to PLACE_LAYERS layers (the placement
+    route's training job), as ``train_config``'s."""
+    from repro_torch import configs
+    return configs.get_config("qwen3_4b").with_overrides(
+        num_layers=PLACE_LAYERS, layer_pattern="T" * PLACE_LAYERS,
+        remat="full", loss_chunk=512)
+
+
+def place_cpu_solve(src, c, m, algorithm):
+    """One placement on the CPU's default-budget PlacementService, in a
+    pool process: ``(perm, F(identity), F)``."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import placement as pl
+    res = pl.PlacementService(device="cpu").solve(c, m, algorithm)
+    return res.perm.tolist(), res.cost_before, res.cost_after
+
+
+def scatter_graph(n):
+    """M of the resource manager's ``scatter`` candidate of ``n`` nodes on
+    the empty rm-replay torus."""
+    from repro_torch.serve.cluster import ClusterState
+    cluster = ClusterState(torus(RM_TORUS).M)
+    cand, = cluster.candidate_subsets(n, k=1, policies=("scatter",))
+    return cluster.induced(cand.nodes)
+
+
+def lower_job_cells(device):
+    """Lower the train_4k cell of Qwen3-4B (full width and depth) on
+    meshes (n, 1) of logical devices: ``{n: (mesh, LoweredCell)}``, the
+    card's allocation unchanged."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.config import shape_cell
+    from repro_torch.topology import traffic
+    cfg, cell = configs.get_config("qwen3_4b"), shape_cell("train_4k")
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for n in PLACE_RANKS:
+        mesh = Mesh(np.arange(n, dtype=object).reshape(n, 1),
+                    ("data", "model"))
+        sync(device)
+        before = torch.cuda.memory_allocated() if on_card else 0
+        lowered = lowering.lower_train_cell(cfg, cell, mesh)
+        sync(device)
+        after = torch.cuda.memory_allocated() if on_card else 0
+        require(after == before, f"[placement] lowering on {n} allocated "
+                f"{after - before} bytes of card memory")
+        kinds = {}
+        for op in lowered.collectives:
+            k = kinds.setdefault(op.kind, [0, 0])
+            k[0] += 1
+            k[1] += op.bytes
+        require(all(op.groups == [list(range(n))]
+                    for op in lowered.collectives),
+                f"[placement] a collective off the data group on {n}")
+        print(f"[placement] lowered {cfg.name} ({cfg.num_layers} layers, "
+              f"train_4k {cell.global_batch} x {cell.seq_len}, "
+              f"{cell.global_batch // n} sequence(s) a rank) on ({n}, 1) in "
+              f"{lowered.seconds:.2f} s: ops by kind (count, result bytes) "
+              f"{ {k: tuple(v) for k, v in sorted(kinds.items())} }, "
+              f"total_collective_bytes "
+              f"{traffic.total_collective_bytes(lowered.collectives)}; card "
+              f"allocation {before} -> {after} bytes", flush=True)
+        out[n] = (mesh, lowered)
+    return out
+
+
+def solve_job_placement(service, c, m, algorithm, device, label):
+    """One solve, printed with its launches: ``(perm, F(identity), F)``."""
+    from repro_torch.kernels import ops
+    n = c.shape[0]
+    before, branches = ops.launch_counts(), ops.branch_counts()
+    t = time.perf_counter()
+    res = service.solve(c, m, algorithm)
+    sync(device)
+    wall = time.perf_counter() - t
+    launched = {k: v for k, v in launches_since(before).items() if v}
+    by_branch = {k: v - branches.get(k, 0)
+                 for k, v in ops.branch_counts().items()
+                 if v - branches.get(k, 0)}
+    perm = res.perm.tolist()
+    require(sorted(perm) == list(range(n)),
+            f"[placement] {label}: not a permutation")
+    require(res.cost_after <= res.cost_before,
+            f"[placement] {label}: F above F(identity)")
+    print(f"[placement] {label}: F(identity) {res.cost_before!r}, F "
+          f"{res.cost_after!r}, gain {res.gain:.6f}, {wall:.3f} s beside "
+          f"the CPU pool; launches {launched}, by branch {by_branch}",
+          flush=True)
+    return perm, res.cost_before, res.cost_after
+
+
+def job_instances(cells):
+    """Each cell's C against its mesh's torus and the scatter candidate:
+    ``{(n, graph): (C, M)}``."""
+    from repro_torch.launch import placement as pl
+    return {(n, graph): (pl.traffic_from_compiled(lowered, n), m)
+            for n, (mesh, lowered) in cells.items()
+            for graph, m in (("torus", pl.system_graph_for_mesh(mesh)),
+                             ("scatter", scatter_graph(n)))}
+
+
+def solve_job_placements(instances, device):
+    """The PLACE_RAW solves of each C and the PLACE_UNIT solves of C /
+    max(C), each on a fresh default PlacementService: ``{(n, graph,
+    algorithm): (perm, F(identity), F)}`` of each."""
+    from repro_torch.launch import placement as pl
+
+    def fresh():
+        pl.reset_default_service()
+        return pl.default_service() if device == "cuda" else \
+            pl.PlacementService(device=device)
+
+    raw, unit = {}, {}
+    for (n, graph), (c, m) in instances.items():
+        for algorithm in PLACE_RAW[n]:
+            raw[n, graph, algorithm] = solve_job_placement(
+                fresh(), c, m, algorithm, device,
+                f"{n} ranks, {graph}, {algorithm}")
+        for algorithm in PLACE_UNIT[n]:
+            unit[n, graph, algorithm] = solve_job_placement(
+                fresh(), c / c.max(), m, algorithm, device,
+                f"{n} ranks, {graph}, {algorithm}, C / max(C)")
+    pl.reset_default_service()
+    for (n, graph, algorithm), got in raw.items():
+        require(got == raw[n, graph, PLACE_RAW[n][0]],
+                f"[placement] {n} ranks, {graph}: {algorithm} {got[1:]} != "
+                f"{PLACE_RAW[n][0]} {raw[n, graph, PLACE_RAW[n][0]][1:]}")
+    return raw, unit
+
+
+def train_placed_job(card, device):
+    """``launch.train.train`` on a (4, 1) mesh with placement psa against
+    one device on the same batches: the world's losses, its placement
+    and every rank's live trace against the lowered cell."""
+    import torch
+    from repro_torch.launch import lowering, train as launch_train
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    from repro_torch.models.api import Model
+    from repro_torch.models.config import ShapeCell
+    cfg = placement_config()
+    on_card = torch.device(device).type == "cuda"
+    kw = dict(steps=PLACE_STEPS, global_batch=PLACE_WORLD,
+              seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+              log_every=1, seed=0)
+    print(f"[placement] {cfg.name} at full width cut to {cfg.num_layers} "
+          f"layers ({Model(cfg, device='meta').num_params()} parameters), "
+          f"{PLACE_WORLD} x {TRAIN_SEQ} tokens, {PLACE_STEPS} steps: one "
+          f"device first", flush=True)
+    t = time.perf_counter()
+    one = launch_train.train(cfg, device=device, **kw)
+    sync(device)
+    one_wall = time.perf_counter() - t
+    want = [h["loss"] for h in one["history"]]
+    del one
+    if on_card:
+        torch.cuda.empty_cache()
+        print(f"[placement] one device {one_wall:.2f} s, losses {want}; "
+              f"card allocation before the world "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    mesh = make_mesh_with_devices([device] * PLACE_WORLD, (PLACE_WORLD, 1),
+                                  ("data", "model"))
+    t = time.perf_counter()
+    world = launch_train.train(cfg, mesh=mesh, placement="psa", **kw)
+    world_wall = time.perf_counter() - t
+    got = [h["loss"] for h in world["history"]]
+    info = world["placement"]
+    lowered = lowering.lower_train_cell(
+        cfg, ShapeCell("train", TRAIN_SEQ, PLACE_WORLD, "train"), mesh)
+    require(abs(info["gain"] - 1 / 3) <= 1e-6,
+            f"[placement] 4-rank gain {info['gain']} != 1/3")
+    require(info["perm"] != list(range(PLACE_WORLD)),
+            "[placement] 4-rank placement is the identity")
+    for r, rank in enumerate(world["ranks"]):
+        require(rank["trace"] == lowered.collectives,
+                f"[placement] rank {r}'s live trace != the lowered trace")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    require(len(got) == len(want) == PLACE_STEPS and
+            max(gaps) <= PLACE_LOSS_RTOL,
+            f"[placement] world losses {got} vs one device {want}")
+    peaks = [rank["peak_bytes"] / 2 ** 30 if rank["peak_bytes"] else 0.0
+             for rank in world["ranks"]]
+    print(f"[placement] world of {PLACE_WORLD} gloo ranks on {device}, "
+          f"alone on the host: "
+          f"placement {info}, losses {got} (one device {want}, max "
+          f"relative gap {max(gaps):.3e}), {len(lowered.collectives)} "
+          f"collectives a step on every rank == lowered; rank walls "
+          f"{[round(rank['seconds'], 2) for rank in world['ranks']]} s, "
+          f"peaks {[round(p, 2) for p in peaks]} GiB; world wall "
+          f"{world_wall:.2f} s; card {card}", flush=True)
+    del world
+
+
+def drive_placement(card, device="cuda"):
+    """The thirteenth route: the paper's placement of a training job.
+    Returns the route's launch counts."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.kernels import ops
+    t_route = time.perf_counter()
+    start = ops.launch_counts()
+    instances = job_instances(lower_job_cells(device))
+    keys = [(n, graph, a) for n, graph in instances for a in PLACE_UNIT[n]]
+    src = os.path.join(ROOT, "src")
+    t_cpu = time.perf_counter()
+    with ProcessPoolExecutor(PLACE_CPU_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        futures = {(n, graph, a): pool.submit(
+            place_cpu_solve, src, c / c.max(), m, a)
+            for (n, graph), (c, m) in instances.items()
+            for a in PLACE_UNIT[n]}
+        _, card_results = solve_job_placements(instances, device)
+        cpu = {k: f.result() for k, f in futures.items()}
+    cpu_wall = time.perf_counter() - t_cpu
+    counts = launches_since(start)
+    for kernel in ("qap_delta", "qap_objective", "qap_objective_sparse",
+                   "qap_delta_sparse"):
+        require(counts[kernel] > 0, f"[placement] the solves launched no "
+                f"{kernel}")
+    for k in keys:
+        require(cpu[k] == card_results[k],
+                f"[placement] {k}: card {card_results[k][1:]} != cpu "
+                f"{cpu[k][1:]}")
+    print(f"[placement] card == cpu on {len(keys)} solves of C / max(C) "
+          f"{sorted(keys)} (the CPU pool's wall {cpu_wall:.1f} s, beside "
+          f"the card's solves)", flush=True)
+    train_placed_job(card, device)
+    print(f"[placement] route wall {time.perf_counter() - t_route:.1f} s",
+          flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2669,6 +2952,8 @@ def main():
     phase_done("mesh")
     runs["train"] = drive_train(card)
     phase_done("train")
+    runs["placement"] = drive_placement(card)
+    phase_done("placement")
     print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
           f"build included", flush=True)
 

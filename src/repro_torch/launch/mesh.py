@@ -1,8 +1,9 @@
-"""The instance mesh: a grid of local devices that one engine drives.
+"""Meshes: the instance mesh of local devices, and the LM stack's
+production meshes of logical devices.
 
-The port of the instance-mesh half of ``repro/launch/mesh.py``.  The
-reference uses one JAX ``Mesh`` for two different programs; the port
-takes PyTorch's own form of each:
+The port of ``repro/launch/mesh.py``.  The reference uses one JAX
+``Mesh`` for two different programs; the port takes PyTorch's own form
+of each:
 
 * **Instances** (this module, ``core.batch_sharded``): a single-process
   :class:`Mesh` of local devices.  One engine splits a wave's instances
@@ -17,11 +18,18 @@ the counterpart of XLA's ``--xla_force_host_platform_device_count``) and
 a single card (``make_mesh_with_devices([cuda:0] * 4, (4,),
 ("instances",))``) stand in for four devices.
 
-``make_production_mesh``, ``production_shape`` and ``activate_mesh``
-serve the LM stack and are not ported yet.
+``make_production_mesh`` builds the LM stack's meshes -- (16, 16) over
+("data", "model"), (2, 16, 16) over ("pod", "data", "model") -- as grids
+of logical device ids (0 .. n-1), which need no devices: a cell is
+lowered against one on a single card (``launch.lowering``), and
+``launch.placement.apply_placement`` decides which physical device backs
+each id.  :func:`activate_mesh` makes a mesh ambient
+(:func:`current_mesh`), as the reference's does.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
@@ -69,6 +77,41 @@ def make_mesh_with_devices(devices: Sequence, shape: Tuple[int, ...],
     flat = np.empty(len(devices), dtype=object)
     flat[:] = [canonical_device(d) for d in devices]
     return Mesh(flat.reshape(shape), axes)
+
+
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh as a grid of logical device ids (ints): 256
+    single-pod, 512 over two pods."""
+    shape, axes = production_shape(multi_pod)
+    return Mesh(np.arange(int(np.prod(shape)), dtype=object).reshape(shape),
+                axes)
+
+
+_ambient = threading.local()
+
+
+@contextlib.contextmanager
+def activate_mesh(mesh):
+    """Make ``mesh`` (a :class:`Mesh` or a ``DeviceMesh``) ambient for the
+    body of a ``with``: :func:`current_mesh` returns it there."""
+    prev = getattr(_ambient, "mesh", None)
+    _ambient.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _ambient.mesh = prev
+
+
+def current_mesh():
+    """The innermost :func:`activate_mesh`'s mesh, else ``None``."""
+    return getattr(_ambient, "mesh", None)
 
 
 def _local_devices(device) -> list:

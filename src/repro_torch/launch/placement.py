@@ -1,13 +1,25 @@
-"""Topology-aware placement services: the paper's technique as a launcher
+"""Topology-aware device placement: the paper's technique as a launcher
 feature.
 
-The port of the services half of ``repro/launch/placement.py``.  At job
-launch -- exactly the paper's deployment: the mapping search runs before
-the job starts -- a launcher hands the job's *program graph* C (its
-processes' traffic matrix) and the allocation's *system graph* M (node
-distances) to one of the paper's three parallel algorithms (PSA / PGA /
-PCA), which returns a permutation p: logical -> physical.  The predicted
-communication cost F(p) against F(identity) is the placement gain.
+The port of ``repro/launch/placement.py``.  At job launch -- exactly the
+paper's deployment: the mapping search runs before the job starts --
+
+  1. the step is lowered once with the default device order
+     (``launch.lowering.lower_train_cell``); its collectives give the
+     *program graph* C (logical-device traffic matrix,
+     ``topology.traffic``);
+  2. the machine gives the *system graph* M (torus hop distances,
+     ``topology.tpu``);
+  3. one of the paper's three parallel algorithms (PSA / PGA / PCA)
+     solves the QAP functional (1) for a permutation p: logical ->
+     physical;
+  4. the mesh is rebuilt with the permuted device order
+     (:func:`apply_placement`) and the job runs on it.
+
+The predicted communication cost F(p) against F(identity) is the
+placement gain.  :func:`traffic_from_compiled` also reads the reference's
+input, HLO text (or an object with ``.as_text()``), through
+``topology.hlocost``.
 
 Public surface: :class:`PlacementService` is the explicit object owning
 the engine; ``default_service()`` / ``reset_default_service()`` manage the
@@ -20,10 +32,8 @@ service.
 ``PlacementService(mesh=, instance_axis=)``, :meth:`PlacementService.
 configure_mesh` and :func:`configure_engine_mesh` shard the engine's
 bucket waves over an instance mesh (``launch.mesh.Mesh``,
-``core.batch_sharded``) with bitwise-identical results.  The reference's
-HLO half (``apply_placement``, ``place_job``, ``traffic_from_compiled``,
-``system_graph_for_mesh``) reads compiled HLO and is not ported yet.  The
-services run on the card unless ``device="cpu"`` is passed, and give the
+``core.batch_sharded``) with bitwise-identical results.  The services
+run on the card unless ``device="cpu"`` is passed, and give the
 reference's answers for the same key words.
 """
 from __future__ import annotations
@@ -33,10 +43,14 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import annealing, genetic, mapping as mapping_lib
 from repro_torch.serve.fleet import EngineFleet, FaultPlan
 from repro_torch.serve.mapper import MapFuture, MapRequest, MappingEngine
+from repro_torch.topology import hlocost, tpu, traffic as traffic_lib
+from .lowering import LoweredCell, mesh_layout
+from .mesh import Mesh
 
 
 @dataclass
@@ -51,6 +65,28 @@ class PlacementResult:
     def gain(self) -> float:
         return 0.0 if self.cost_before == 0 else \
             (self.cost_before - self.cost_after) / self.cost_before
+
+
+def traffic_from_compiled(compiled, num_devices: int) -> np.ndarray:
+    """Program graph C of a lowered step: a :class:`LoweredCell`'s
+    collectives through ``traffic.traffic_matrix``; HLO text, or an
+    object with ``.as_text()``, through the trip-count-aware
+    ``hlocost.analyze``, as the reference reads its compiled step."""
+    if isinstance(compiled, LoweredCell):
+        return traffic_lib.traffic_matrix(compiled.collectives, num_devices)
+    text = compiled if isinstance(compiled, str) else compiled.as_text()
+    hc = hlocost.analyze(text, num_devices)
+    c = np.zeros((num_devices, num_devices), np.float64)
+    for op in hc.collective_ops:
+        c += traffic_lib.traffic_matrix([op], num_devices).astype(np.float64)
+    return c.astype(np.float32)
+
+
+def system_graph_for_mesh(mesh) -> np.ndarray:
+    """M of the torus that ``topology.tpu.spec_for_mesh_shape`` gives the
+    mesh's shape (a ``launch.mesh.Mesh`` or a ``DeviceMesh``)."""
+    spec = tpu.spec_for_mesh_shape(mesh_layout(mesh)[0])
+    return tpu.distance_matrix(spec)
 
 
 # Budget presets follow the paper's S5 conclusions: SA meets resource-manager
@@ -285,6 +321,35 @@ def solve_placement(c: np.ndarray, m: np.ndarray, algorithm: str = "psa",
     return default_service().solve(c, m, algorithm, key=key,
                                    num_processes=num_processes,
                                    sa_cfg=sa_cfg, ga_cfg=ga_cfg)
+
+
+def apply_placement(mesh, perm: np.ndarray):
+    """Rebuild the mesh with logical coordinate k backed by device
+    ``perm[k]``: a :class:`~repro_torch.launch.mesh.Mesh` permutes its
+    devices (or logical ids); a ``DeviceMesh`` is rebuilt with its ranks
+    in the permuted order (on every rank, as any ``DeviceMesh``)."""
+    perm = np.asarray(perm)
+    if isinstance(mesh, Mesh):
+        devices = np.asarray(mesh.devices).reshape(-1)[perm]
+        return Mesh(devices.reshape(mesh.devices.shape), mesh.axis_names)
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = mesh.mesh.reshape(-1)[torch.as_tensor(perm, dtype=torch.long)]
+    return DeviceMesh(mesh.device_type, ranks.reshape(mesh.mesh.shape),
+                      mesh_dim_names=mesh.mesh_dim_names)
+
+
+def place_job(compiled, mesh, algorithm: str = "psa", key=None,
+              service: Optional[PlacementService] = None
+              ) -> Tuple[object, PlacementResult]:
+    """One-call integration used by ``launch.train``: C of ``compiled``,
+    M of ``mesh``, one solve on ``service`` (default: the shared
+    :func:`default_service`, on the card), and the placed mesh."""
+    ndev = int(np.prod(mesh_layout(mesh)[0]))
+    c = traffic_from_compiled(compiled, ndev)
+    m = system_graph_for_mesh(mesh)
+    svc = service if service is not None else default_service()
+    result = svc.solve(c, m, algorithm, key=key)
+    return apply_placement(mesh, result.perm), result
 
 
 # ------------------------------------------------------- deprecation shims

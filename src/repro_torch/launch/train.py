@@ -1,55 +1,54 @@
 """End-to-end training launcher.
 
-Wires together: config registry -> model on one device -> data pipeline
--> train step -> checkpoint manager with auto-resume.  The reference's
-``repro/launch/train.py`` on the card (``device`` defaults to ``cuda``
-and raises without one; pass ``device="cpu"`` / ``--device cpu`` for the
-CPU):
+Wires together: config registry -> mesh (+ optional QAP placement, the
+paper's technique) -> data pipeline -> train step -> checkpoint manager
+with auto-resume.  The reference's ``repro/launch/train.py`` on the card
+(``device`` defaults to ``cuda`` and raises without one; pass
+``device="cpu"`` / ``--device cpu`` for the CPU, and a mesh of CPU
+devices for a world on the CPU):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
         --smoke --steps 20 --device cpu
 
-The port trains on one device.  A mesh of more than one device raises
-``NotImplementedError``: sharding the parameters, optimizer state and
-batch over a mesh is ROADMAP step 6, and the placement of a job's mesh
-onto the machine (``placement != "none"``) is step 3.  On a one-device
-mesh placement is skipped, as the reference skips it.
+Without a mesh, or on a mesh of one device, the model trains on one
+device (``train.step.make_train_step``).  A mesh whose ``data`` (x
+``pod``) width is above 1 and whose ``model`` axis is 1 trains
+data-parallel (``parallel.data_parallel``) in a world of one rank per
+mesh position (``launch.world.run_world``): rank r runs on the mesh's
+r-th device, NCCL when those are distinct cards, else gloo (several
+ranks on one card, or the CPU).  With ``placement`` ("psa", "pga" or
+"pca") the step is first lowered (``launch.lowering``), its collectives
+placed on the mesh's torus (``launch.placement.place_job``) and the
+world's mesh built in the placed rank order: logical coordinate k on rank
+``perm[k]``.  A ``model`` axis above 1 raises ``NotImplementedError``:
+the tensor-parallel step is a later step of ``ROADMAP.md``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import tempfile
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import configs, resolve_device
 from ..models.api import Model
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, ShapeCell
+from ..models.param import tree_map
 from ..models.transformer import FRONTEND_DIMS
+from ..parallel import sharding as sh
 from ..train import checkpoint as ckpt_lib
 from ..train import data as data_lib
 from ..train import optimizer as opt_lib
 from ..train.step import make_train_step
-from .mesh import Mesh
+from .mesh import Mesh, canonical_device
 
-
-def _one_device(mesh: Optional[Mesh], device, placement: str) -> torch.device:
-    """The device a one-device mesh names (``device`` when no mesh is
-    given); raises for a larger mesh."""
-    if mesh is None:
-        return resolve_device(device)
-    if mesh.size > 1:
-        what = "sharding training over a mesh of several devices is " \
-               "ROADMAP step 6"
-        if placement != "none":
-            what += f", and the job's placement ({placement!r}, " \
-                    "launch.placement.place_job) is ROADMAP step 3"
-        raise NotImplementedError(
-            f"the port trains on one device; this mesh has {mesh.size} "
-            f"({dict(mesh.shape)}): {what}")
-    return resolve_device(mesh.devices.flat[0])
+WORLD_TIMEOUT_S = 3600.0
 
 
 def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
@@ -60,16 +59,54 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     """Train ``cfg`` for ``steps`` steps from random weights (seeded by
     ``seed``) or from the latest checkpoint in ``checkpoint_dir``.
     Returns ``history`` (a ``{"step", "loss", "grad_norm"}`` every
-    ``log_every`` steps and at the last), ``placement`` (None: no
-    placement on one device), ``final_loss`` and ``params``."""
-    dev = _one_device(mesh, device, placement)
-    model = Model(cfg, device=dev)
-    ocfg = opt_lib.OptConfig(lr=lr, moment_dtype=cfg.opt_dtype)
-    sched = opt_lib.warmup_cosine(lr, warmup, steps)
-    dcfg = data_lib.DataConfig(
+    ``log_every`` steps and at the last), ``placement`` (None, or
+    ``{"algorithm", "gain", "cost_before", "cost_after", "perm"}``),
+    ``final_loss`` and ``params`` (on the device, or on the CPU after a
+    world).  A world's run adds ``ranks``: each rank's first-step
+    collectives (``trace``), peak device bytes (``peak_bytes``) and wall
+    seconds before its loop (``setup_seconds``) and in it, the final
+    gather included (``seconds``)."""
+    if mesh is None or mesh.size == 1:
+        dev = resolve_device(device if mesh is None
+                             else mesh.devices.flat[0])
+        return _train_one_device(
+            cfg, dev, steps=steps, global_batch=global_batch,
+            seq_len=seq_len, lr=lr, warmup=warmup, microbatch=microbatch,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            log_every=log_every, seed=seed)
+    sh.check_data_parallel(mesh)
+    return _train_world(
+        cfg, mesh, steps=steps, global_batch=global_batch, seq_len=seq_len,
+        lr=lr, warmup=warmup, microbatch=microbatch,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        placement=placement, log_every=log_every, seed=seed)
+
+
+def _log(history, s, start_step, t0, metrics) -> None:
+    loss = float(metrics["loss"])
+    history.append({"step": s + 1, "loss": loss,
+                    "grad_norm": float(metrics["grad_norm"])})
+    rate = (s + 1 - start_step) / (time.time() - t0)
+    print(f"step {s+1:5d}  loss {loss:.4f}  "
+          f"gnorm {float(metrics['grad_norm']):.3f}  "
+          f"{rate:.2f} steps/s", flush=True)
+
+
+def _data_config(cfg: ModelConfig, global_batch: int, seq_len: int,
+                 seed: int) -> data_lib.DataConfig:
+    return data_lib.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
         seed=seed, frontend=cfg.frontend,
         frontend_dim=FRONTEND_DIMS.get(cfg.frontend, 0))
+
+
+def _train_one_device(cfg, dev, *, steps, global_batch, seq_len, lr, warmup,
+                      microbatch, checkpoint_dir, checkpoint_every, log_every,
+                      seed) -> Dict[str, Any]:
+    model = Model(cfg, device=dev)
+    ocfg = opt_lib.OptConfig(lr=lr, moment_dtype=cfg.opt_dtype)
+    sched = opt_lib.warmup_cosine(lr, warmup, steps)
+    dcfg = _data_config(cfg, global_batch, seq_len, seed)
     # one device: one data-parallel group (the reference's num_groups is
     # the mesh's data x pod width)
     step_fn = make_train_step(model, ocfg, sched, microbatch=microbatch)
@@ -100,13 +137,7 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
         batch = data_lib.to_device(data_lib.batch_at(dcfg, s), dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (s + 1) % log_every == 0 or s + 1 == steps:
-            loss = float(metrics["loss"])
-            history.append({"step": s + 1, "loss": loss,
-                            "grad_norm": float(metrics["grad_norm"])})
-            rate = (s + 1 - start_step) / (time.time() - t0)
-            print(f"step {s+1:5d}  loss {loss:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.3f}  "
-                  f"{rate:.2f} steps/s", flush=True)
+            _log(history, s, start_step, t0, metrics)
         if mgr and (s + 1) % checkpoint_every == 0:
             mgr.save(s + 1, {"params": params, "opt": opt_state})
     if mgr:
@@ -115,6 +146,174 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     return {"history": history, "placement": None,
             "final_loss": history[-1]["loss"] if history else None,
             "params": params}
+
+
+def _train_world(cfg, mesh: Mesh, *, steps, global_batch, seq_len, lr, warmup,
+                 microbatch, checkpoint_dir, checkpoint_every, placement,
+                 log_every, seed) -> Dict[str, Any]:
+    from .world import run_world
+    devices = [canonical_device(d) for d in mesh.devices.reshape(-1)]
+    kinds = {d.type for d in devices}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh of {sorted(kinds)} devices")
+    device_type = kinds.pop()
+    resolve_device(device_type)
+    n = len(devices)
+    distinct = len({d.index for d in devices}) == n
+    backend = "nccl" if device_type == "cuda" and distinct else "gloo"
+    cell = ShapeCell("train", seq_len, global_batch, "train")
+
+    # ---- paper technique: topology-aware placement ------------------------
+    perm = np.arange(n)
+    placement_info = None
+    if placement != "none":
+        from .lowering import lower_train_cell
+        from .placement import PlacementService, default_service, place_job
+        lowered = lower_train_cell(cfg, cell, mesh)
+        service = default_service() if device_type == "cuda" \
+            else PlacementService(device=device_type)
+        _, pres = place_job(lowered, mesh, algorithm=placement,
+                            service=service)
+        perm = np.asarray(pres.perm)
+        placement_info = {"algorithm": placement, "gain": pres.gain,
+                          "cost_before": pres.cost_before,
+                          "cost_after": pres.cost_after,
+                          "perm": perm.tolist()}
+        print(f"[placement] {placement}: predicted comm-cost gain "
+              f"{pres.gain:.1%}")
+
+    # rank 0 hands the whole parameters back through a file: a pickle
+    # through the world's result queue would copy them several times
+    handoff = tempfile.mkdtemp(prefix="repro_train_")
+    try:
+        t = time.time()
+        ranks = run_world(
+            _train_rank, n, device_type=device_type, backend=backend,
+            timeout_s=WORLD_TIMEOUT_S, args=(
+                cfg, perm.reshape(mesh.devices.shape).tolist(),
+                tuple(mesh.axis_names), [str(d) for d in devices], cell,
+                dict(steps=steps, lr=lr, warmup=warmup, microbatch=microbatch,
+                     checkpoint_dir=checkpoint_dir,
+                     checkpoint_every=checkpoint_every, log_every=log_every,
+                     seed=seed, handoff=os.path.join(handoff, "params.pt"))))
+        world_s = time.time() - t
+        params = torch.load(os.path.join(handoff, "params.pt"),
+                            weights_only=True)
+    finally:
+        shutil.rmtree(handoff, ignore_errors=True)
+    print(f"[train] world of {n} {backend} ranks on {device_type}: "
+          f"{world_s:.1f} s (rank 0: setup {ranks[0]['setup_seconds']:.1f} "
+          f"s, loop {ranks[0]['seconds']:.1f} s); parameters read back in "
+          f"{time.time() - t - world_s:.1f} s", flush=True)
+    history = ranks[0].pop("history")
+    return {"history": history, "placement": placement_info,
+            "final_loss": history[-1]["loss"] if history else None,
+            "params": params, "ranks": ranks}
+
+
+def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
+                devices: List[str], cell: ShapeCell, kw: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """One rank of :func:`train`'s world: the data-parallel loop on this
+    rank's position of the placed mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from ..parallel import collectives as coll
+    from ..parallel import data_parallel as dp
+
+    t_rank = time.time()
+    rank = dist.get_rank()
+    dev = canonical_device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    else:       # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // dist.get_world_size()))
+    mesh = DeviceMesh(dev.type, torch.as_tensor(rank_grid),
+                      mesh_dim_names=tuple(axis_names))
+    axis = dp.data_axis(mesh)
+    steps = kw["steps"]
+    model = Model(cfg, device=dev)
+    ocfg = opt_lib.OptConfig(lr=kw["lr"], moment_dtype=cfg.opt_dtype)
+    sched = opt_lib.warmup_cosine(kw["lr"], kw["warmup"], steps)
+    dcfg = _data_config(cfg, cell.global_batch, cell.seq_len, kw["seed"])
+    dims = dp.shard_dims(model, axis)
+    odims = dp.spec_dims(opt_lib.state_specs(ocfg, model.specs()), axis)
+    step_fn = dp.make_data_parallel_step(model, ocfg, sched, axis,
+                                         microbatch=kw["microbatch"])
+
+    def shard_state(params, opt_state):
+        return (dp.shard_params(params, dims, axis), opt_lib.OptState(
+            step=opt_state.step,
+            mu=dp.shard_params(opt_state.mu, odims.mu, axis),
+            nu=dp.shard_params(opt_state.nu, odims.nu, axis)))
+
+    def whole_state(params, opt_state):
+        return {"params": dp.gather_params(params, dims, axis),
+                "opt": opt_lib.OptState(
+                    step=opt_state.step,
+                    mu=dp.gather_params(opt_state.mu, odims.mu, axis),
+                    nu=dp.gather_params(opt_state.nu, odims.nu, axis))}
+
+    # ---- init or resume (whole trees, then this rank's shards) -----------
+    mgr = None
+    start_step = 0
+    params = opt_state = None
+    if kw["checkpoint_dir"]:
+        mgr = ckpt_lib.CheckpointManager(
+            kw["checkpoint_dir"], cfg_hash=ckpt_lib.config_hash((cfg, ocfg)))
+        latest = mgr.latest_step()
+        if latest is not None:
+            if rank == 0:
+                print(f"[resume] restoring step {latest}")
+            like = {"params": model.abstract(),
+                    "opt": opt_lib.abstract_state(ocfg, model.abstract())}
+            restored = mgr.restore(latest, like, device=dev)
+            params, opt_state = shard_state(restored["params"],
+                                            restored["opt"])
+            del restored
+            start_step = latest
+    if params is None:
+        whole = model.init(seed=kw["seed"])
+        params = dp.shard_params(whole, dims, axis)
+        del whole
+        opt_state = opt_lib.init(ocfg, params)     # zeros: the shards'
+
+    def save(step, blocking=False):
+        state = whole_state(params, opt_state)
+        if rank == 0:
+            mgr.save(step, state, blocking=blocking)
+        del state
+
+    # ---- loop --------------------------------------------------------------
+    history, trace = [], None
+    t0 = time.time()
+    setup_s = t0 - t_rank
+    for s in range(start_step, steps):
+        batch = dp.shard_batch(
+            cfg, cell, data_lib.to_device(data_lib.batch_at(dcfg, s), dev),
+            axis)
+        with coll.record_collectives() as ops:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if trace is None:
+            trace = list(ops)
+        if (s + 1) % kw["log_every"] == 0 or s + 1 == steps:
+            if rank == 0:
+                _log(history, s, start_step, t0, metrics)
+        if mgr and (s + 1) % kw["checkpoint_every"] == 0:
+            save(s + 1)
+    if mgr:
+        save(steps, blocking=True)
+    whole = dp.gather_params(params, dims, axis)
+    out = {"trace": trace, "setup_seconds": setup_s,
+           "seconds": time.time() - t0,
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else None)}
+    if rank == 0:
+        torch.save(tree_map(lambda t: t.cpu(), whole), kw["handoff"])
+        out["history"] = history
+    return out
 
 
 def main() -> None:

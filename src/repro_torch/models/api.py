@@ -8,9 +8,10 @@ structure; :meth:`Model.init` draws them from an explicit
 
 :func:`input_specs` gives meta tensors with the shapes and dtypes of a
 shape cell's inputs (no storage), :func:`make_concrete_batch` random
-inputs of the same shapes.  The reference's sharding specs
-(``Model.specs``, ``batch_partition_specs``) wait for the port's
-``parallel/sharding`` (ROADMAP step 6).
+inputs of the same shapes.  The logical sharding specs -- ``Model.specs``
+(every parameter's), ``Model.cache_specs`` (the decode cache's) and
+:func:`batch_partition_specs` (a cell's inputs') -- are the reference's,
+metadata that ``parallel.sharding`` resolves against a mesh.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import torch
 from .. import resolve_device
 from . import transformer
 from .config import ModelConfig, ShapeCell
-from .param import abstract_params, count_params, init_params, tree_map
+from ..parallel.sharding import PartitionSpec as P
+from .param import (abstract_params, count_params, init_params, param_specs,
+                    tree_map)
 from .transformer import FRONTEND_DIMS
 
 
@@ -53,6 +56,11 @@ class Model:
         """The parameter tree as meta tensors (shapes and dtypes only)."""
         return abstract_params(self.decls())
 
+    def specs(self) -> Any:
+        """Every parameter's logical ``PartitionSpec``, in the parameter
+        tree."""
+        return param_specs(self.decls())
+
     def num_params(self) -> int:
         return count_params(self.decls())
 
@@ -75,6 +83,9 @@ class Model:
         """The decode cache as meta tensors."""
         return transformer.make_cache(self.cfg, batch, seq_len, "meta")
 
+    def cache_specs(self):
+        return transformer.cache_spec_tree(self.cfg)
+
 
 def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
     """Meta tensors of one (arch x shape) cell's inputs, with the
@@ -94,6 +105,19 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
     # decode: one new token against a seq_len cache
     return {"embeds": emb(b, 1, fd)} if fd is not None \
         else {"tokens": tok(b, 1)}
+
+
+def batch_partition_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, P]:
+    """The logical specs of :func:`input_specs`' inputs: rows over
+    ``batch``."""
+    specs: Dict[str, P] = {}
+    if cell.kind == "train":
+        specs["labels"] = P("batch", None)
+    if cfg.frontend is not None:
+        specs["embeds"] = P("batch", None, None)
+    else:
+        specs["tokens"] = P("batch", None)
+    return specs
 
 
 def make_concrete_batch(cfg: ModelConfig, cell: ShapeCell,

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel.sharding import PartitionSpec as P
 
 NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -35,7 +36,7 @@ NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
 # ---------------------------------------------------------------------------
 
 def rmsnorm_decls(d: int) -> Dict[str, PDecl]:
-    return {"scale": PDecl((d,), init="ones")}
+    return {"scale": PDecl((d,), P(None), init="ones")}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,18 +74,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def attn_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     decls = {
-        "wq": PDecl((d, h * hd)),
-        "wk": PDecl((d, kv * hd)),
-        "wv": PDecl((d, kv * hd)),
-        "wo": PDecl((h * hd, d)),
+        "wq": PDecl((d, h * hd), P("fsdp", "tp")),
+        "wk": PDecl((d, kv * hd), P("fsdp", "tp")),
+        "wv": PDecl((d, kv * hd), P("fsdp", "tp")),
+        "wo": PDecl((h * hd, d), P("tp", "fsdp")),
     }
     if cfg.qkv_bias:
-        decls |= {"bq": PDecl((h * hd,), init="zeros"),
-                  "bk": PDecl((kv * hd,), init="zeros"),
-                  "bv": PDecl((kv * hd,), init="zeros")}
+        decls |= {"bq": PDecl((h * hd,), P("tp"), init="zeros"),
+                  "bk": PDecl((kv * hd,), P("tp"), init="zeros"),
+                  "bv": PDecl((kv * hd,), P("tp"), init="zeros")}
     if cfg.qk_norm:
-        decls |= {"q_norm": PDecl((hd,), init="ones"),
-                  "k_norm": PDecl((hd,), init="ones")}
+        decls |= {"q_norm": PDecl((hd,), P(None), init="ones"),
+                  "k_norm": PDecl((hd,), P(None), init="ones")}
     return decls
 
 
@@ -195,6 +196,12 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
             "v": torch.zeros(kvshape, dtype=cfg.compute_dtype, device=device)}
 
 
+def cache_specs(windowed: bool) -> Dict[str, P]:
+    # KV caches are sequence-sharded over the tensor axis (flash-decoding).
+    return {"k": P("batch", "seq", None, None),
+            "v": P("batch", "seq", None, None)}
+
+
 def attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                       window: Optional[int], positions: torch.Tensor,
                       cache_len: Optional[int] = None
@@ -272,9 +279,10 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
 
 def mlp_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d, f = cfg.d_model, cfg.d_ff
-    decls = {"wi": PDecl((d, f)), "wo": PDecl((f, d))}
+    decls = {"wi": PDecl((d, f), P("fsdp", "tp")),
+             "wo": PDecl((f, d), P("tp", "fsdp"))}
     if cfg.mlp_gated:
-        decls["wg"] = PDecl((d, f))
+        decls["wg"] = PDecl((d, f), P("fsdp", "tp"))
     return decls
 
 
@@ -292,8 +300,8 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
-    return {"embedding": PDecl((cfg.vocab_size, cfg.d_model), init="embed",
-                               fan_in=cfg.d_model)}
+    return {"embedding": PDecl((cfg.vocab_size, cfg.d_model), P("tp", "fsdp"),
+                               init="embed", fan_in=cfg.d_model)}
 
 
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -301,7 +309,7 @@ def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def head_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
-    return {"w": PDecl((cfg.d_model, cfg.vocab_size))}
+    return {"w": PDecl((cfg.d_model, cfg.vocab_size), P("fsdp", "tp"))}
 
 
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

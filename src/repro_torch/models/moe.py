@@ -19,15 +19,20 @@ import torch
 
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel.sharding import PartitionSpec as P
 
 
 def moe_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    # the reference's rule: experts shard over 'ep' when a 16-way axis
+    # divides them, else each expert's ff dimension over 'tp'
+    ep_spec = P("ep", "fsdp", None) if e % 16 == 0 else P(None, "fsdp", "tp")
+    ep_spec_out = P("ep", None, "fsdp") if e % 16 == 0 else P(None, "tp", "fsdp")
     return {
-        "router": PDecl((d, e)),
-        "wg": PDecl((e, d, f), fan_in=d),
-        "wi": PDecl((e, d, f), fan_in=d),
-        "wo": PDecl((e, f, d), fan_in=f),
+        "router": PDecl((d, e), P("fsdp", None)),
+        "wg": PDecl((e, d, f), ep_spec, fan_in=d),
+        "wi": PDecl((e, d, f), ep_spec, fan_in=d),
+        "wo": PDecl((e, f, d), ep_spec_out, fan_in=f),
     }
 
 

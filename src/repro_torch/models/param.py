@@ -5,9 +5,10 @@ Every layer declares its parameters as a tree (nested dicts and lists) of
 weight layouts, so a tree of the reference's arrays converts leaf for
 leaf (``convert.lm_params_from_reference``).  From the declarations come
 ``init_params`` (tensors drawn from an explicit ``torch.Generator``),
-``abstract_params`` (meta tensors: shapes and dtypes, no storage) and
-``count_params``.  The reference's sharding specs (``param_specs``) wait
-for the port's ``parallel/sharding`` (ROADMAP step 6).
+``abstract_params`` (meta tensors: shapes and dtypes, no storage),
+``param_specs`` (each leaf's logical ``PartitionSpec``, the reference's,
+which ``parallel.sharding`` resolves against a mesh) and
+``count_params``.
 
 :func:`tree_flatten` and :func:`tree_unflatten` walk a tree in
 ``jax.tree_util``'s order -- dict keys sorted, lists and tuples (named
@@ -23,11 +24,14 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from ..parallel.sharding import PartitionSpec as P
+
 
 @dataclass(frozen=True)
 class PDecl:
     """Declaration of a single parameter tensor."""
     shape: Tuple[int, ...]
+    spec: P = P()
     init: str = "normal"      # normal | zeros | ones | embed
     dtype: torch.dtype = torch.float32
     fan_in: Optional[int] = None   # for "normal": stddev = 1/sqrt(fan_in)
@@ -40,15 +44,18 @@ def _rebuild(tree, children):
     return type(tree)(children)
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of a tree of dicts, lists and tuples (dicts
     walked in insertion order, so draws made by ``fn`` follow the
-    declarations)."""
+    declarations).  With further trees of the same structure ``fn`` takes
+    one leaf of each."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return _rebuild(tree, [tree_map(fn, v) for v in tree])
-    return fn(tree)
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)])
+    return fn(tree, *rest)
 
 
 class TreeDef:
@@ -63,19 +70,32 @@ class TreeDef:
         return f"TreeDef({self.skeleton!r})"
 
 
+# The walks below are module functions, not recursive closures: a nested
+# function that calls itself is a reference cycle, which would keep every
+# leaf it saw (whole parameter trees) alive until the garbage collector
+# runs.
+
+def _skeleton(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return {k: _skeleton(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_skeleton(v, leaves) for v in t])
+    leaves.append(t)
+    return None
+
+
+def _fill(t, it):
+    if isinstance(t, dict):
+        return {k: _fill(v, it) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_fill(v, it) for v in t])
+    return next(it)
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     """``(leaves, treedef)`` in ``jax.tree_util.tree_flatten``'s order."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [walk(v) for v in t])
-        leaves.append(t)
-        return None
-
-    skeleton = walk(tree)
+    skeleton = _skeleton(tree, leaves)
     return leaves, TreeDef(skeleton, len(leaves))
 
 
@@ -85,16 +105,7 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     if len(leaves) != treedef.num_leaves:
         raise ValueError(f"{len(leaves)} leaves for a tree of "
                          f"{treedef.num_leaves}")
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [build(v) for v in t])
-        return next(it)
-
-    return build(treedef.skeleton)
+    return _fill(treedef.skeleton, iter(leaves))
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -103,8 +114,10 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 
 def stack(decls, n: int):
-    """Prepend a layer dimension (the reference scans over it)."""
-    return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape)), decls)
+    """Prepend a layer dimension (the reference scans over it), unsharded
+    in every spec."""
+    return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape),
+                                      spec=P(None, *d.spec)), decls)
 
 
 def _init_one(d: PDecl, generator: torch.Generator,
@@ -135,6 +148,11 @@ def abstract_params(decls) -> Any:
     """Meta tensors of every leaf's shape and dtype (no storage)."""
     return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                           device="meta"), decls)
+
+
+def param_specs(decls) -> Any:
+    """Every leaf's logical ``PartitionSpec``."""
+    return tree_map(lambda d: d.spec, decls)
 
 
 def count_params(decls) -> int:

@@ -34,6 +34,7 @@ import torch
 
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel.sharding import PartitionSpec as P
 
 CHUNK = 64
 DECAY_RANK = 64
@@ -49,27 +50,27 @@ def rwkv_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d = cfg.d_model
     return {
         # time-mix
-        "mu_r": PDecl((d,), init="zeros"),
-        "mu_k": PDecl((d,), init="zeros"),
-        "mu_v": PDecl((d,), init="zeros"),
-        "mu_w": PDecl((d,), init="zeros"),
-        "mu_g": PDecl((d,), init="zeros"),
-        "wr": PDecl((d, d)),
-        "wk": PDecl((d, d)),
-        "wv": PDecl((d, d)),
-        "wg": PDecl((d, d)),
-        "wo": PDecl((d, d)),
-        "decay_base": PDecl((d,), init="zeros"),
-        "decay_a": PDecl((d, DECAY_RANK)),
-        "decay_b": PDecl((DECAY_RANK, d), fan_in=DECAY_RANK),
-        "bonus_u": PDecl((d,), init="zeros"),
-        "ln_scale": PDecl((d,), init="ones"),
+        "mu_r": PDecl((d,), P(None), init="zeros"),
+        "mu_k": PDecl((d,), P(None), init="zeros"),
+        "mu_v": PDecl((d,), P(None), init="zeros"),
+        "mu_w": PDecl((d,), P(None), init="zeros"),
+        "mu_g": PDecl((d,), P(None), init="zeros"),
+        "wr": PDecl((d, d), P("fsdp", "tp")),
+        "wk": PDecl((d, d), P("fsdp", "tp")),
+        "wv": PDecl((d, d), P("fsdp", "tp")),
+        "wg": PDecl((d, d), P("fsdp", "tp")),
+        "wo": PDecl((d, d), P("tp", "fsdp")),
+        "decay_base": PDecl((d,), P(None), init="zeros"),
+        "decay_a": PDecl((d, DECAY_RANK), P("fsdp", None)),
+        "decay_b": PDecl((DECAY_RANK, d), P(None, "tp"), fan_in=DECAY_RANK),
+        "bonus_u": PDecl((d,), P(None), init="zeros"),
+        "ln_scale": PDecl((d,), P(None), init="ones"),
         # channel-mix
-        "cmu_k": PDecl((d,), init="zeros"),
-        "cmu_r": PDecl((d,), init="zeros"),
-        "ck": PDecl((d, cfg.d_ff)),
-        "cv": PDecl((cfg.d_ff, d)),
-        "cr": PDecl((d, d)),
+        "cmu_k": PDecl((d,), P(None), init="zeros"),
+        "cmu_r": PDecl((d,), P(None), init="zeros"),
+        "ck": PDecl((d, cfg.d_ff), P("fsdp", "tp")),
+        "cv": PDecl((cfg.d_ff, d), P("tp", "fsdp")),
+        "cr": PDecl((d, d), P("fsdp", "tp")),
     }
 
 
@@ -180,3 +181,9 @@ def rwkv_make_cache(cfg: ModelConfig, batch: int, device=None
                                     dtype=cfg.compute_dtype, device=device),
             "cm_xprev": torch.zeros((batch, 1, cfg.d_model),
                                     dtype=cfg.compute_dtype, device=device)}
+
+
+def rwkv_cache_specs() -> Dict[str, P]:
+    return {"s": P("batch", "tp", None, None),
+            "tm_xprev": P("batch", None, None),
+            "cm_xprev": P("batch", None, None)}

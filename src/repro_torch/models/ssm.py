@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel.sharding import PartitionSpec as P
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -36,15 +37,15 @@ def mamba_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d = cfg.d_model
     di, n, k, dtr = _dims(cfg)
     return {
-        "in_proj": PDecl((d, 2 * di)),
-        "conv_w": PDecl((k, di), fan_in=k),
-        "conv_b": PDecl((di,), init="zeros"),
-        "x_proj": PDecl((di, dtr + 2 * n)),
-        "dt_proj": PDecl((dtr, di), fan_in=dtr),
-        "dt_bias": PDecl((di,), init="zeros"),
-        "a_log": PDecl((di, n), init="zeros"),
-        "d_skip": PDecl((di,), init="ones"),
-        "out_proj": PDecl((di, d)),
+        "in_proj": PDecl((d, 2 * di), P("fsdp", "tp")),
+        "conv_w": PDecl((k, di), P(None, "tp"), fan_in=k),
+        "conv_b": PDecl((di,), P("tp"), init="zeros"),
+        "x_proj": PDecl((di, dtr + 2 * n), P("tp", None)),
+        "dt_proj": PDecl((dtr, di), P(None, "tp"), fan_in=dtr),
+        "dt_bias": PDecl((di,), P("tp"), init="zeros"),
+        "a_log": PDecl((di, n), P("tp", None), init="zeros"),
+        "d_skip": PDecl((di,), P("tp"), init="ones"),
+        "out_proj": PDecl((di, d), P("tp", "fsdp")),
     }
 
 
@@ -123,6 +124,10 @@ def mamba_make_cache(cfg: ModelConfig, batch: int, device=None
                              device=device),
             "conv": torch.zeros((batch, k - 1, di), dtype=cfg.compute_dtype,
                                 device=device)}
+
+
+def mamba_cache_specs() -> Dict[str, P]:
+    return {"h": P("batch", "tp", None), "conv": P("batch", None, "tp")}
 
 
 def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig,

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import functools
+from dataclasses import replace
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers, moe, rwkv, ssm
 from .config import ModelConfig
 from .param import PDecl, stack, tree_map
+from ..parallel.sharding import PartitionSpec as P
 
 FRONTEND_DIMS = {"audio": 128, "vision": 3200}   # EnCodec frames / InternViT patches
 
@@ -163,7 +165,7 @@ def model_decls(cfg: ModelConfig) -> Dict[str, Any]:
     decls: Dict[str, Any] = {}
     if cfg.frontend is not None:
         fd = FRONTEND_DIMS[cfg.frontend]
-        decls["frontend"] = {"proj": PDecl((fd, cfg.d_model))}
+        decls["frontend"] = {"proj": PDecl((fd, cfg.d_model), P(None, "fsdp"))}
     decls["embed"] = layers.embed_decls(cfg)   # decode over token ids too
     unit_decls = [block_decls(cfg, ch) for ch in unit]
     decls["unit"] = [stack(d, reps) for d in unit_decls] if reps > 1 else unit_decls
@@ -173,8 +175,7 @@ def model_decls(cfg: ModelConfig) -> Dict[str, Any]:
     pdt = cfg.param_dtype
     if pdt != torch.float32:
         # serving mode: store weights directly in the compute dtype
-        decls = tree_map(lambda d: PDecl(d.shape, d.init, pdt, d.fan_in),
-                         decls)
+        decls = tree_map(lambda d: replace(d, dtype=pdt), decls)
     return decls
 
 
@@ -344,7 +345,7 @@ def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
 
 
 # ---------------------------------------------------------------------------
-# Cache constructor
+# Cache constructor and specs
 # ---------------------------------------------------------------------------
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
@@ -358,3 +359,25 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
             lambda a: a.expand((reps,) + tuple(a.shape)).clone(), c)
             for c in unit_caches]
     return {"unit": unit_caches, "rest": [one(ch) for ch in rest]}
+
+
+def block_cache_specs(cfg: ModelConfig, ch: str):
+    if ch == "R":
+        return rwkv.rwkv_cache_specs()
+    if ch in "mM":
+        return ssm.mamba_cache_specs()
+    return layers.cache_specs(ch in WINDOW_CHARS)
+
+
+def cache_spec_tree(cfg: ModelConfig):
+    """The decode cache's logical specs, in :func:`make_cache`'s tree (a
+    stacked unit's leading layer axis unsharded)."""
+    unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
+
+    def one(ch, stacked):
+        specs = block_cache_specs(cfg, ch)
+        if stacked:
+            specs = tree_map(lambda s: P(None, *s), specs)
+        return specs
+    return {"unit": [one(ch, reps > 1) for ch in unit],
+            "rest": [one(ch, False) for ch in rest]}

@@ -1,2 +1,4 @@
-"""Collectives for data-parallel training (the reference's
-``repro/parallel``; its sharding rules wait for ROADMAP step 6)."""
+"""Parallel training: the sharding rules (``sharding``), the collectives
+and their recorder (``collectives``) and the data-parallel train step
+(``data_parallel``) -- the reference's ``repro/parallel`` on
+``torch.distributed``."""

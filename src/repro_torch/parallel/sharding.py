@@ -1,0 +1,190 @@
+"""Logical->physical sharding rules (MaxText-style logical axis names).
+
+Parameter declarations and activation constraints use *logical* axis names;
+a step resolves them against its mesh:
+
+  logical   meaning                          single-pod        multi-pod
+  -------   ------------------------------   ---------------   ----------------
+  batch     global data-parallel batch       ('data',)         ('pod', 'data')
+  fsdp      weight shard (ZeRO-3 style)      ('data',)         ('pod', 'data')
+  tp        tensor-parallel (heads/ff/vocab) ('model',)        ('model',)
+  ep        expert-parallel (MoE experts)    ('model',)        ('model',)
+  seq       sequence shard (SP / KV cache)   ('model',)        ('model',)
+
+The reference's ``repro/parallel/sharding.py`` without JAX: a
+:class:`PartitionSpec` is a plain tuple of entries (an axis name,
+``None``, or a tuple of names), and the rules map it to mesh axes for
+``parallel.data_parallel``, which holds a leaf whose resolved spec names
+``data`` as its shard along that dim.  That step runs on a mesh whose
+``model`` axis is 1; the tensor-parallel axis (``named_sharding`` and
+:func:`shard` on a ``model`` axis > 1) is a later step of ``ROADMAP.md``.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional, Tuple, Union
+
+Axes = Union[None, str, Tuple[str, ...]]
+Rules = Dict[str, Axes]
+
+
+def _canonical(entry: Axes) -> Axes:
+    """An entry as ``jax.sharding.PartitionSpec`` keeps it: a sequence of
+    one name is that name, an empty one ``None``."""
+    if isinstance(entry, (list, tuple)):
+        entry = tuple(entry)
+        return None if not entry else entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class PartitionSpec:
+    """A tuple of per-dimension entries -- an axis name, ``None`` or a
+    tuple of names, canonical as the reference's ``jax.sharding.
+    PartitionSpec`` keeps them -- equal to the same tuple.  Not a tuple
+    itself, so that tree walks keep it as one leaf."""
+
+    __slots__ = ("_entries",)
+
+    def __init__(self, *entries: Axes):
+        self._entries = tuple(_canonical(e) for e in entries)
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __getitem__(self, i):
+        return self._entries[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, PartitionSpec):
+            return self._entries == other._entries
+        if isinstance(other, tuple):
+            return self._entries == other
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(self._entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self._entries!r}"
+
+
+P = PartitionSpec
+
+SINGLE_POD_RULES: Rules = {
+    "batch": ("data",),
+    "fsdp": ("data",),
+    "tp": ("model",),
+    "ep": ("model",),
+    "seq": ("model",),
+}
+
+MULTI_POD_RULES: Rules = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),
+    "tp": ("model",),
+    "ep": ("model",),
+    "seq": ("model",),
+}
+
+_state = threading.local()
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """A mesh's axis sizes by name: a ``launch.mesh.Mesh`` (``shape``) or
+    a ``DeviceMesh`` (``mesh_dim_names`` over ``mesh``)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
+    return dict(mesh.shape)
+
+
+def check_data_parallel(mesh) -> None:
+    """Raises for a mesh the port's steps cannot run on: a ``model`` axis
+    above 1 (``NotImplementedError``: the tensor-parallel step is a later
+    step of ``ROADMAP.md``) or an axis other than pod, data and model
+    (``ValueError``)."""
+    sizes = _mesh_sizes(mesh)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a mesh whose model axis is {sizes['model']} ({sizes}): the "
+            "port runs data-parallel (model == 1); the tensor-parallel step "
+            "(the model axis, named_sharding and its collectives) is a "
+            "later step of ROADMAP.md")
+    other = set(sizes) - {"pod", "data", "model"}
+    if other:
+        raise ValueError(f"mesh axes {sorted(other)} are neither pod, data "
+                         "nor model")
+
+
+def rules_for_mesh(mesh, overrides: Optional[Rules] = None) -> Rules:
+    rules = dict(MULTI_POD_RULES if "pod" in _mesh_sizes(mesh)
+                 else SINGLE_POD_RULES)
+    if overrides:
+        rules.update(overrides)
+    return rules
+
+
+@contextlib.contextmanager
+def use_rules(rules: Rules):
+    prev = getattr(_state, "rules", None)
+    _state.rules = rules
+    try:
+        yield
+    finally:
+        _state.rules = prev
+
+
+def current_rules() -> Rules:
+    r = getattr(_state, "rules", None)
+    return r if r is not None else SINGLE_POD_RULES
+
+
+def resolve_spec(spec: PartitionSpec, rules: Optional[Rules] = None
+                 ) -> PartitionSpec:
+    """Map logical axis names in a PartitionSpec to physical mesh axes."""
+    rules = rules or current_rules()
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+        elif isinstance(entry, str):
+            phys = rules.get(entry, entry)
+            if phys is None:
+                out.append(None)
+            elif isinstance(phys, tuple) and len(phys) == 1:
+                out.append(phys[0])
+            else:
+                out.append(phys)
+        else:  # tuple of logical names
+            flat = []
+            for e in entry:
+                phys = rules.get(e, e)
+                if phys is None:
+                    continue
+                flat.extend(phys if isinstance(phys, tuple) else (phys,))
+            out.append(tuple(flat) if flat else None)
+    return PartitionSpec(*out)
+
+
+def resolve_tree(spec_tree, rules: Optional[Rules] = None):
+    from ..models.param import tree_map
+    return tree_map(lambda s: resolve_spec(s, rules), spec_tree)
+
+
+def shard(x, *logical: Axes):
+    """Activation sharding constraint in logical axis names:
+    ``shard(x, 'batch', None, 'tp')`` on a (B, S, D)-like tensor.
+
+    The identity on a mesh whose ``model`` axis is 1 (each rank holds
+    its batch rows whole, as the reference's constraint leaves them) and
+    outside any mesh.  Under an ambient mesh (``launch.mesh.
+    activate_mesh``) with a ``model`` axis > 1 it raises
+    (:func:`check_data_parallel`)."""
+    from ..launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is not None:
+        check_data_parallel(mesh)
+    return x

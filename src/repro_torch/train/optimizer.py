@@ -5,8 +5,10 @@ its arithmetic in its order: moments updated in f32, the bias
 corrections ``1 - b ** step`` in f32, and the decoupled weight decay
 inside the ``lr *`` term.  The moment dtype comes from the model config
 (``opt_dtype``): a bf16 moment is rounded to nearest even, as XLA
-rounds.  Updates make new tensors; nothing is changed in place.  The
-reference's ``state_specs`` (sharding) waits for ROADMAP step 6.
+rounds.  Updates make new tensors; nothing is changed in place.
+:func:`state_specs` gives the state's logical sharding: the moments
+shard as their parameters do (``parallel.data_parallel`` updates each
+rank's shard).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from ..models.param import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..parallel.sharding import PartitionSpec as P
 
 Array = torch.Tensor
 
@@ -57,6 +60,15 @@ def init(cfg: OptConfig, params: Any) -> OptState:
 def abstract_state(cfg: OptConfig, abstract_params: Any) -> OptState:
     """:func:`init` of meta tensors: the state's shapes and dtypes."""
     return init(cfg, abstract_params)
+
+
+def state_specs(cfg: OptConfig, param_specs: Any) -> OptState:
+    """The state's specs: moments as ``param_specs``, the step (and
+    sgdm's unused second moment) replicated."""
+    mu = param_specs
+    nu = param_specs if cfg.kind == "adamw" else tree_map(
+        lambda s: P(), param_specs)
+    return OptState(step=P(), mu=mu, nu=nu)
 
 
 def global_norm(tree: Any) -> Array:

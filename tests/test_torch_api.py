@@ -1,10 +1,12 @@
-"""The control plane's, the meshes', the training path's and the RWKV
-block's public surface against the reference's: every public class, method and function
-of the ported modules has the reference's parameter names, order, kinds
-and defaults (a dtype default by its name).  The only differences are
-listed in ``EXCEPTIONS`` (the port's entry points take a ``device``, its
-random draws a ``torch.Generator``, its collectives a process group) and
-``NOT_PORTED`` (with the ROADMAP step that ports them)."""
+"""The control plane's, the meshes', the training path's, the RWKV
+block's, the topology's and the sharding rules' public surface against
+the reference's: every public class, method and function of the ported
+modules has the reference's parameter names, order, kinds and defaults
+(a dtype default by its name).  The only differences are listed in
+``EXCEPTIONS`` (the port's entry points take a ``device``, its random
+draws a ``torch.Generator``, its collectives a process group, its job
+placement the service that solves it) and ``NOT_PORTED`` (with the
+ROADMAP step that ports them)."""
 import dataclasses
 import inspect
 
@@ -23,11 +25,15 @@ from repro.launch import train as ref_launch_train
 from repro.models import api as ref_api
 from repro.models import rwkv as ref_rwkv
 from repro.parallel import collectives as ref_collectives
+from repro.parallel import sharding as ref_sharding
 from repro.serve import cluster as ref_cluster
 from repro.serve import fleet as ref_fleet
 from repro.serve import rm as ref_rm
 from repro.serve import trace as ref_trace
 from repro.serve import transport as ref_transport
+from repro.topology import hlocost as ref_hlocost
+from repro.topology import tpu as ref_tpu
+from repro.topology import traffic as ref_traffic
 from repro.train import checkpoint as ref_checkpoint
 from repro.train import data as ref_data
 from repro.train import optimizer as ref_optimizer
@@ -36,7 +42,8 @@ from repro_torch.core import batch_sharded, distributed
 from repro_torch.launch import elastic, mesh, placement
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api, rwkv
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
+from repro_torch.topology import hlocost, tpu, traffic
 from repro_torch.serve import cluster, fleet, rm, trace, transport
 from repro_torch.train import checkpoint, data, optimizer, step
 
@@ -59,6 +66,10 @@ MODULES = {
     "launch.train": (ref_launch_train, launch_train),
     "launch.elastic": (ref_elastic, elastic),
     "parallel.collectives": (ref_collectives, collectives),
+    "parallel.sharding": (ref_sharding, sharding),
+    "topology.traffic": (ref_traffic, traffic),
+    "topology.hlocost": (ref_hlocost, hlocost),
+    "topology.tpu": (ref_tpu, tpu),
 }
 
 # qualified name -> (parameters the port drops, parameters it adds)
@@ -73,22 +84,14 @@ EXCEPTIONS = {
     "train.checkpoint.CheckpointManager.restore": ({"shardings"}, {"device"}),
     "launch.train.train": (set(), {"device"}),
     "parallel.collectives.compressed_allreduce_mean": ({"axis"}, {"group"}),
+    "launch.placement.place_job": (set(), {"service"}),
 }
 
 # Reference names the port does not have, each with the ROADMAP step
 # that ports it.
 NOT_PORTED = {
-    # step 3: they read compiled HLO (topology/)
-    "launch.placement": {"apply_placement", "place_job",
-                         "traffic_from_compiled", "system_graph_for_mesh"},
-    # step 6: the LM stack's production meshes
-    "launch.mesh": {"make_production_mesh", "production_shape",
-                    "activate_mesh"},
-    # step 6: sharding specs (parallel/sharding)
-    "train.optimizer": {"state_specs"},
-    "models.api": {"batch_partition_specs"},
-    "models.api.Model": {"specs", "cache_specs"},
-    "models.rwkv": {"rwkv_cache_specs"},
+    # the tensor-parallel step: a NamedSharding over a model axis > 1
+    "parallel.sharding": {"named_sharding"},
     # no step: JAX's shard_map across its versions; the port's ranks are
     # processes that run the solver bodies themselves
     "core.distributed": {"shard_map"},
@@ -182,10 +185,14 @@ def test_every_public_name_is_ported(mod_name):
 
 @pytest.mark.parametrize("cls_name", ["Allocation", "Candidate", "FaultPlan",
                                       "FleetStats", "JobSpec", "RMStats",
-                                      "ReplayReport", "PlacementResult"])
+                                      "ReplayReport", "PlacementResult",
+                                      "CollectiveOp", "HloCost",
+                                      "Instruction", "Computation",
+                                      "PodSpec"])
 def test_dataclass_fields_match_reference(cls_name):
     mods = [(ref_cluster, cluster), (ref_fleet, fleet), (ref_rm, rm),
-            (ref_placement, placement)]
+            (ref_placement, placement), (ref_traffic, traffic),
+            (ref_hlocost, hlocost), (ref_tpu, tpu)]
     ref_cls, port_cls = next((getattr(r, cls_name), getattr(p, cls_name))
                              for r, p in mods if hasattr(r, cls_name))
     fields = lambda c: [(f.name, _default(f.default), f.kw_only)

@@ -695,3 +695,93 @@ def test_lm_families_on_card_match_cpu(cuda, arch):
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
     np.testing.assert_array_equal(gc, gp)
+
+
+def test_lowering_a_cell_allocates_no_card_memory(cuda):
+    """``launch.lowering`` runs the step on ``meta``: Qwen3-4B at full
+    width on a (64, 1) mesh's ``train_4k`` cell leaves the card's
+    allocation as it was."""
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    from repro_torch.models.config import shape_cell
+    mesh = make_mesh_with_devices(["cuda:0"] * 64, (64, 1),
+                                  ("data", "model"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cell = lowering.lower_train_cell(configs.get_config("qwen3_4b"),
+                                     shape_cell("train_4k"), mesh)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert cell.num_devices == 64 and len(cell.collectives) > 0
+    assert all(op.groups == [list(range(64))] for op in cell.collectives)
+
+
+def _world_on_the_card_matches_cpu(size, backend):
+    """``size`` ranks of ``backend`` on cuda:0 run Qwen3's SMOKE
+    data-parallel step (f32, weights from a CPU generator) with one CPU
+    device's first-step gradients and per-step losses, every rank's
+    collectives the lowered cell's."""
+    import _torch_dp_world as dpw
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    from repro_torch.launch.world import run_world
+    from repro_torch.models.param import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = run_world(dpw.dp_rank, size, device_type="cuda",
+                      backend=backend, args=("cuda",), timeout_s=600)
+    loss, grads, losses = dpw.one_device("cpu")
+    mesh = make_mesh_with_devices(["cuda:0"] * size, (size, 1), dpw.AXES)
+    lowered = lowering.lower_train_cell(dpw.config(), dpw.CELL, mesh)
+    for rank in ranks:
+        assert rank["backend"] == backend
+        assert rank["loss"] == pytest.approx(loss, rel=1e-4)
+        np.testing.assert_allclose(rank["losses"], losses, rtol=1e-4)
+        for g, want in zip(tree_flatten(rank["grads"])[0], grads):
+            assert float(np.abs(g - want).max()) <= \
+                1e-4 * float(np.abs(want).max())
+        assert all(trace == lowered.collectives for trace in rank["traces"])
+
+
+def test_data_parallel_world_on_the_card_matches_cpu(cuda):
+    """4 gloo ranks on cuda:0 (reduce-scatter as all-reduce and slice)."""
+    _world_on_the_card_matches_cpu(4, "gloo")
+
+
+def test_data_parallel_step_on_an_nccl_rank_matches_cpu(cuda):
+    """One NCCL rank on cuda:0: the NCCL branch of
+    ``collectives.reduce_scatter`` (``reduce_scatter_tensor``).  Its shard
+    order on a placed mesh is held on the CPU, where gloo's own
+    ``reduce_scatter_tensor`` runs the same branch
+    (``tests/test_torch_placement_job.py``, ``placed_native``)."""
+    _world_on_the_card_matches_cpu(1, "nccl")
+
+
+def test_placed_nccl_world_on_four_cards_matches_one_card(cuda):
+    """``launch.train.train`` on a (4, 1) mesh of four cards with
+    ``placement="psa"``: one NCCL rank a card (the launcher's choice) on
+    the placed mesh, so every reduce-scatter goes through NCCL's
+    ``reduce_scatter_tensor`` in the positions' order; gain 1/3, the
+    losses one card's on the same batches, every rank's collectives the
+    lowered cell's.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import _torch_dp_world as dpw
+    from repro_torch.launch import lowering, train as launch_train
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dpw.config()
+    kw = dict(steps=dpw.STEPS, global_batch=dpw.CELL.global_batch,
+              seq_len=dpw.CELL.seq_len, lr=dpw.LR, warmup=dpw.WARMUP,
+              log_every=1, seed=dpw.SEED)
+    one = launch_train.train(cfg, device="cuda:0", **kw)
+    mesh = make_mesh_with_devices([f"cuda:{i}" for i in range(dpw.WORLD)],
+                                  dpw.MESH_SHAPE, dpw.AXES)
+    world = launch_train.train(cfg, mesh=mesh, placement="psa", **kw)
+    assert world["placement"]["perm"] != list(range(dpw.WORLD))
+    assert world["placement"]["gain"] == pytest.approx(1 / 3, abs=1e-6)
+    np.testing.assert_allclose([h["loss"] for h in world["history"]],
+                               [h["loss"] for h in one["history"]],
+                               rtol=1e-4)
+    lowered = lowering.lower_train_cell(cfg, dpw.CELL, mesh)
+    assert all(rank["trace"] == lowered.collectives
+               for rank in world["ranks"])

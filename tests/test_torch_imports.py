@@ -45,6 +45,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.trace, repro_torch.launch.placement, "
             "repro_torch.launch.train, repro_torch.launch.elastic, "
             "repro_torch.parallel.collectives, repro_torch.train.step, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.data_parallel, "
+            "repro_torch.launch.lowering, repro_torch.topology.traffic, "
+            "repro_torch.topology.hlocost, repro_torch.topology.tpu, "
             "repro_torch.train.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

@@ -768,12 +768,15 @@ def test_launch_train_equals_reference(tmp_path):
 
 
 def test_launch_train_runs_on_one_device_only():
+    """One device, or data parallelism (``tests/test_torch_placement_job.py``
+    trains a (4, 1) world): a model axis above 1 raises, naming the
+    tensor-parallel step, before any world starts."""
     cfg = configs.smoke_config("qwen3_4b")
-    two = tmesh.make_mesh_with_devices(["cpu", "cpu"], (2, 1),
+    two = tmesh.make_mesh_with_devices(["cpu", "cpu"], (1, 2),
                                        ("data", "model"))
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(NotImplementedError, match="tensor-parallel step"):
         launch_train.train(cfg, steps=1, global_batch=2, seq_len=16, mesh=two)
-    with pytest.raises(NotImplementedError, match="step 3"):
+    with pytest.raises(NotImplementedError, match="tensor-parallel step"):
         launch_train.train(cfg, steps=1, global_batch=2, seq_len=16, mesh=two,
                            placement="psa")
     one = tmesh.make_mesh_with_devices(["cpu"], (1, 1), ("data", "model"))
