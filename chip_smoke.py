@@ -34,7 +34,7 @@ Phases, each of which must pass:
    are set to 0 just before each wave or request and read just after,
    and every K1, K2, K4 and K5 launch there must have taken the
    shared-memory branch;
-   then a seventh route, ``rm-replay``, the control plane: a 24-job
+   then a seventh route, ``rm-replay``, the control plane: a 16-job
    ``synthetic_trace`` on the 512-node 8 x 8 x 8 torus through
    ``ResourceManager``'s defaults (3 candidates, EASY backfilling, psa)
    over ``MappingEngine(warm_start=False)`` (K1, every launch on the
@@ -42,7 +42,7 @@ Phases, each of which must pass:
    subprocess ``EngineFleet`` of two workers on the card whose worker 0
    SIGKILLs itself after 4 requests (the same decisions job for job, one
    death, no failure, free device memory down by at least one CUDA
-   context per child while both live); its first 8 jobs through one
+   context per child while both live); its first 6 jobs through one
    engine and a thread fleet under a kill on the card and one engine on
    the CPU (all three equal); and ``PlacementService.solve_batch`` of the
    first job's candidates, card == CPU;
@@ -61,9 +61,9 @@ Phases, each of which must pass:
    and K2 on Table 1's tai343 and tai729 against their plain versions;
    then a tenth route, ``mesh``: each dense route's 128-bucket wave and
    one of its three-request waves (64 and 32 buckets in turn) through a
-   ``MappingEngine`` whose instance mesh names cuda:0 four times (each
-   wave split over four shards that share the card; the three-request
-   waves pad to four and trim back), every response equal to phase 4's
+   ``MappingEngine`` whose instance mesh names cuda:0 twice (each wave
+   split over two shards that share the card; the three-request waves
+   pad to four and trim back), every response equal to phase 4's
    unsharded one; then the paper's parallel algorithms on
    ``torch.distributed`` worlds spawned on one order-125 instance at the
    routes' budgets -- ``run_psa_mesh`` (event and fused loops),
@@ -122,11 +122,29 @@ Phases, each of which must pass:
    as such); then
    ``launch.train.train`` on a (4, 1) mesh of gloo ranks on cuda:0 with
    ``placement="psa"`` -- Qwen3-4B at full width cut to 2 layers, 4 x
-   4096 tokens (one sequence a rank), 3 steps -- gain 1/3 with a
+   4096 tokens (one sequence a rank), 2 steps -- gain 1/3 with a
    permutation other than the identity, every rank's live collectives
    equal to the lowered cell's, losses within 1e-3 relative of one
-   device's on the same batches (run first and freed), each rank's peak
-   printed;
+   device's on the same batches (3 steps, run first and freed; its first
+   two steps' learning rates do not depend on the step count), each
+   rank's peak printed;
+   then a fourteenth route, ``tensor-parallel``: Qwen3-4B's ``train_4k``
+   cell at full width and all 36 layers lowered on the production
+   (16, 16) ("data", "model") mesh without devices (seconds, ops by kind
+   and by axis, ``total_collective_bytes``; the card's allocation
+   unchanged) and placed with ``place_job`` (psa, a fresh default
+   service) on the 16 x 16 torus: the multilevel route, K1, K6 and K7
+   launched; psa on C / max(C) card == CPU bit for bit (the CPU's in a
+   pool process beside the card's solves); then ``launch.train.train`` on
+   a (2, 2) mesh of 4 gloo ranks on cuda:0 with ``placement="psa"`` --
+   Qwen3-4B at full width cut to 2 layers, bf16 compute, remat ``full``,
+   4 x 4096 tokens, 3 steps -- losses within 1e-3 relative of the one
+   device of the ``placement`` route, every rank's live collectives the
+   lowered cell's, each rank's peak and step walls printed; then Jamba's
+   ``SMOKE`` config in f32 on a (2, 2) world of gloo ranks on cuda:0, the
+   first step's loss and gradients within 1e-4 of one CPU device's (of
+   each leaf's largest magnitude), every rank launching K8 on its
+   ``d_inner / 2`` channels;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -198,7 +216,7 @@ ML_CHAINS, ML_K = 4, 16
 RM_TORUS = (8, 8, 8)
 RM_TRACE = dict(sizes=(16, 32, 64, 128), weights=(4, 3, 2, 1),
                 arrival_rate=0.5, mean_run_s=60.0, seed=0)
-RM_JOBS, RM_CPU_JOBS = 24, 8
+RM_JOBS, RM_CPU_JOBS = 16, 6
 RM_TIMEOUT_S = 120.0     # children dying in a loop fail the route
 RM_MAX_RESPAWNS = 2
 
@@ -224,7 +242,7 @@ FAMILY_PROFILE_PREFILL = 64   # positions of the profiled prefills (one RWKV chu
 # kernel microbenchmarks.  Table 1's orders 175/343/729 run K1 and K2 on
 # their L2 branches.  Card == CPU on Table 1's orders 27 and 45 at
 # PAPER_CPU_SCALE and on scheduler_sim's dry-run replay.
-PAPER_SCALE = 0.25
+PAPER_SCALE = 0.1
 PAPER_FIG_SCALE = 0.02
 PAPER_CPU_SCALE, PAPER_CPU_ORDERS = 0.02, (27, 45)
 F32_EXACT = 2 ** 24      # integers above it are not all f32 numbers
@@ -232,14 +250,16 @@ PAPER_KERNEL_ORDERS = (343, 729)
 
 # The mesh route: the five dense routes' waves (MESH_ENGINE_ORDERS)
 # through an engine whose instance mesh names cuda:0 MESH_SHARDS times
-# (each wave split over 4 shards that share the card), then the paper's parallel algorithms over
+# (each wave split over its shards, which share the card; run in turn,
+# they take about MESH_SHARDS times the unsharded wave), then the paper's
+# parallel algorithms over
 # spawned torch.distributed worlds on one order-125 instance at the
 # routes' budgets: world size 4 on cuda:0 (gloo: NCCL refuses several
 # ranks on one GPU), world size 1 (NCCL), and world size 4 on the CPU
 # (gloo) on the MESH_CPU_CASES.
-MESH_SHARDS = 4
+MESH_SHARDS = 2
 # route -> the orders of its sharded waves: the 128-bucket wave and one
-# three-request wave (padded to 4 shards), the 64 and 32 buckets in turn
+# three-request wave (padded to 4), the 64 and 32 buckets in turn
 MESH_ENGINE_ORDERS = {"psa-event": (ORDER, 45), "psa-fused": (ORDER, 27),
                       "pga-wide": (ORDER, 45), "pga-fused": (ORDER, 27),
                       "pca": (ORDER, 45)}
@@ -313,8 +333,17 @@ PLACE_RAW = {64: ("psa",), 256: PLACE_ALGOS}
 # integer), each held card == CPU bit for bit
 PLACE_UNIT = {64: PLACE_ALGOS, 256: ("psa",)}
 PLACE_CPU_WORKERS = 3
-PLACE_LAYERS, PLACE_STEPS, PLACE_WORLD = 2, 3, 4
+PLACE_LAYERS, PLACE_STEPS, PLACE_WORLD = 2, 2, 4
 PLACE_LOSS_RTOL = 1e-3
+
+# The tensor-parallel route: Qwen3-4B's train_4k cell lowered on the
+# production (16, 16) mesh and placed on its torus; launch.train on a
+# (2, 2) mesh of gloo ranks on cuda:0 (the placement route's job, 3
+# steps); Jamba SMOKE in f32 on a (2, 2) world against one CPU device.
+TP_STEPS = 3
+TP_WORLD_SHAPE = (2, 2)
+TP_SMOKE_ARCH, TP_SMOKE_SEQ, TP_SMOKE_BATCH = "jamba_v0_1_52b", 32, 8
+TP_SMOKE_TOL = 1e-4
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -1235,11 +1264,11 @@ def fleet_line(label, stats):
 
 
 def drive_rm_replay(ctx_bytes):
-    """The resource manager on the card: (1) the 24-job trace through one
+    """The resource manager on the card: (1) the RM_JOBS trace through one
     engine; (2) through a subprocess fleet of two workers on the card,
     worker 0 SIGKILLing itself after 4 requests: per job equal to (1),
     one death, no failure, free device memory down by at least one CUDA
-    context per child while both live; (3) the first 8 jobs through one
+    context per child while both live; (3) its first RM_CPU_JOBS through one
     engine on the card, a thread fleet under a kill on the card and one
     engine on the CPU: all three equal; (4) ``PlacementService`` on the
     first job's three candidates, card == CPU.  Returns replay 1's
@@ -1333,7 +1362,8 @@ def drive_rm_replay(ctx_bytes):
           flush=True)
     short["cpu"] = rm_decisions(rm5)
     require(short["card"] == short["thread fleet"] == short["cpu"],
-            "[rm-replay] 8-job trace: card, thread fleet and cpu disagree")
+            f"[rm-replay] {RM_CPU_JOBS}-job trace: card, thread fleet and "
+            "cpu disagree")
     print(f"[rm-replay] {RM_CPU_JOBS}-job trace: card == thread fleet == cpu",
           flush=True)
 
@@ -2713,7 +2743,8 @@ def lower_job_cells(device):
     return out
 
 
-def solve_job_placement(service, c, m, algorithm, device, label):
+def solve_job_placement(service, c, m, algorithm, device, label,
+                        tag="placement"):
     """One solve, printed with its launches: ``(perm, F(identity), F)``."""
     from repro_torch.kernels import ops
     n = c.shape[0]
@@ -2728,10 +2759,10 @@ def solve_job_placement(service, c, m, algorithm, device, label):
                  if v - branches.get(k, 0)}
     perm = res.perm.tolist()
     require(sorted(perm) == list(range(n)),
-            f"[placement] {label}: not a permutation")
+            f"[{tag}] {label}: not a permutation")
     require(res.cost_after <= res.cost_before,
-            f"[placement] {label}: F above F(identity)")
-    print(f"[placement] {label}: F(identity) {res.cost_before!r}, F "
+            f"[{tag}] {label}: F above F(identity)")
+    print(f"[{tag}] {label}: F(identity) {res.cost_before!r}, F "
           f"{res.cost_after!r}, gain {res.gain:.6f}, {wall:.3f} s beside "
           f"the CPU pool; launches {launched}, by branch {by_branch}",
           flush=True)
@@ -2780,7 +2811,8 @@ def solve_job_placements(instances, device):
 def train_placed_job(card, device):
     """``launch.train.train`` on a (4, 1) mesh with placement psa against
     one device on the same batches: the world's losses, its placement
-    and every rank's live trace against the lowered cell."""
+    and every rank's live trace against the lowered cell.  Returns one
+    device's TP_STEPS losses (the tensor-parallel route's baseline)."""
     import torch
     from repro_torch.launch import lowering, train as launch_train
     from repro_torch.launch.mesh import make_mesh_with_devices
@@ -2788,18 +2820,18 @@ def train_placed_job(card, device):
     from repro_torch.models.config import ShapeCell
     cfg = placement_config()
     on_card = torch.device(device).type == "cuda"
-    kw = dict(steps=PLACE_STEPS, global_batch=PLACE_WORLD,
-              seq_len=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
-              log_every=1, seed=0)
+    kw = dict(global_batch=PLACE_WORLD, seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+              warmup=TRAIN_WARMUP, log_every=1, seed=0)
     print(f"[placement] {cfg.name} at full width cut to {cfg.num_layers} "
           f"layers ({Model(cfg, device='meta').num_params()} parameters), "
           f"{PLACE_WORLD} x {TRAIN_SEQ} tokens, {PLACE_STEPS} steps: one "
-          f"device first", flush=True)
+          f"device first ({TP_STEPS} steps)", flush=True)
     t = time.perf_counter()
-    one = launch_train.train(cfg, device=device, **kw)
+    one = launch_train.train(cfg, device=device, steps=TP_STEPS, **kw)
     sync(device)
     one_wall = time.perf_counter() - t
-    want = [h["loss"] for h in one["history"]]
+    every = [h["loss"] for h in one["history"]]
+    want = every[:PLACE_STEPS]
     del one
     if on_card:
         torch.cuda.empty_cache()
@@ -2809,7 +2841,8 @@ def train_placed_job(card, device):
     mesh = make_mesh_with_devices([device] * PLACE_WORLD, (PLACE_WORLD, 1),
                                   ("data", "model"))
     t = time.perf_counter()
-    world = launch_train.train(cfg, mesh=mesh, placement="psa", **kw)
+    world = launch_train.train(cfg, mesh=mesh, placement="psa",
+                               steps=PLACE_STEPS, **kw)
     world_wall = time.perf_counter() - t
     got = [h["loss"] for h in world["history"]]
     info = world["placement"]
@@ -2837,11 +2870,13 @@ def train_placed_job(card, device):
           f"peaks {[round(p, 2) for p in peaks]} GiB; world wall "
           f"{world_wall:.2f} s; card {card}", flush=True)
     del world
+    return every
 
 
 def drive_placement(card, device="cuda"):
     """The thirteenth route: the paper's placement of a training job.
-    Returns the route's launch counts."""
+    Returns the route's launch counts and one device's TP_STEPS losses
+    of its training job."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.kernels import ops
@@ -2873,9 +2908,281 @@ def drive_placement(card, device="cuda"):
     print(f"[placement] card == cpu on {len(keys)} solves of C / max(C) "
           f"{sorted(keys)} (the CPU pool's wall {cpu_wall:.1f} s, beside "
           f"the card's solves)", flush=True)
-    train_placed_job(card, device)
+    want = train_placed_job(card, device)
     print(f"[placement] route wall {time.perf_counter() - t_route:.1f} s",
           flush=True)
+    return counts, want
+
+
+def by_axis(lowered, mesh_shape):
+    """A lowered cell's ops by (axis, kind): ``{(axis, kind): [count,
+    result bytes]}``, each op's groups those of the mesh's ``model`` or
+    data axis (``[d, m]`` logical ids)."""
+    import numpy as np
+    ids = np.arange(math.prod(mesh_shape)).reshape(mesh_shape)
+    groups = {"model": ids.tolist(), "data": ids.T.tolist()}
+    out = {}
+    for op in lowered.collectives:
+        axis = next((a for a, g in groups.items() if op.groups == g), None)
+        require(axis is not None, f"[tensor-parallel] {op.kind} on groups "
+                f"{op.groups[:2]}... of neither axis")
+        k = out.setdefault((axis, op.kind), [0, 0])
+        k[0] += 1
+        k[1] += op.bytes
+    return out
+
+
+def lower_tp_cell(device):
+    """Qwen3-4B's train_4k cell (full width and depth) lowered on the
+    production (16, 16) mesh of logical devices: ``(mesh, LoweredCell)``,
+    the card's allocation unchanged."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import shape_cell
+    from repro_torch.topology import traffic
+    cfg, cell = configs.get_config("qwen3_4b"), shape_cell("train_4k")
+    mesh = make_production_mesh()
+    shape = tuple(mesh.shape.values())
+    on_card = torch.device(device).type == "cuda"
+    sync(device)
+    before = torch.cuda.memory_allocated() if on_card else 0
+    lowered = lowering.lower_train_cell(cfg, cell, mesh)
+    sync(device)
+    after = torch.cuda.memory_allocated() if on_card else 0
+    require(after == before, f"[tensor-parallel] lowering allocated "
+            f"{after - before} bytes of card memory")
+    ops_ = by_axis(lowered, shape)
+    for axis in ("model", "data"):
+        require({k for a, k in ops_ if a == axis} ==
+                {"all-gather", "all-reduce", "reduce-scatter"},
+                f"[tensor-parallel] {axis} ops {sorted(ops_)}")
+    print(f"[tensor-parallel] lowered {cfg.name} ({cfg.num_layers} layers, "
+          f"train_4k {cell.global_batch} x {cell.seq_len}) on {shape} "
+          f"{tuple(mesh.axis_names)} in {lowered.seconds:.2f} s: "
+          f"{len(lowered.collectives)} ops; by (axis, kind): (count, result "
+          f"bytes) { {k: tuple(v) for k, v in sorted(ops_.items())} }, "
+          f"total_collective_bytes "
+          f"{traffic.total_collective_bytes(lowered.collectives)}; card "
+          f"allocation {before} -> {after} bytes", flush=True)
+    return mesh, lowered
+
+
+def place_tp_cell(mesh, lowered, device):
+    """``place_job`` (psa, a fresh default service) on the mesh's 16 x 16
+    torus, then psa on C / max(C) on the card beside the CPU's in a pool
+    process, bit for bit.  Returns the launches of both card solves."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import placement as pl
+    n = lowered.num_devices
+    c = pl.traffic_from_compiled(lowered, n)
+    m = pl.system_graph_for_mesh(mesh)
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        t_cpu = time.perf_counter()
+        cpu = pool.submit(place_cpu_solve, os.path.join(ROOT, "src"),
+                          c / c.max(), m, "psa")
+        before = ops.launch_counts()
+        pl.reset_default_service()
+        t = time.perf_counter()
+        placed, res = pl.place_job(lowered, mesh, "psa",
+                                   service=pl.default_service()
+                                   if device == "cuda" else
+                                   pl.PlacementService(device=device))
+        sync(device)
+        wall = time.perf_counter() - t
+        perm = res.perm.tolist()
+        require(sorted(perm) == list(range(n))
+                and placed.devices.reshape(-1).tolist() == perm,
+                "[tensor-parallel] place_job: not the placed mesh")
+        require(res.cost_after <= res.cost_before,
+                "[tensor-parallel] place_job: F above F(identity)")
+        launched = {k: v for k, v in launches_since(before).items() if v}
+        print(f"[tensor-parallel] place_job on the 16 x 16 torus: "
+              f"F(identity) {res.cost_before!r}, F {res.cost_after!r}, gain "
+              f"{res.gain:.6f}, {wall:.3f} s; launches {launched}",
+              flush=True)
+        pl.reset_default_service()
+        fresh = pl.default_service() if device == "cuda" else \
+            pl.PlacementService(device=device)
+        card = solve_job_placement(fresh, c / c.max(), m, "psa", device,
+                                   "256 ranks, torus, psa, C / max(C)",
+                                   tag="tensor-parallel")
+        pl.reset_default_service()
+        got = cpu.result()
+        cpu_wall = time.perf_counter() - t_cpu
+    counts = launches_since(before)
+    for kernel in ("qap_delta", "qap_objective_sparse", "qap_delta_sparse"):
+        require(counts[kernel] > 0, f"[tensor-parallel] the placement "
+                f"launched no {kernel}")
+    require(got == card, f"[tensor-parallel] C / max(C): card {card[1:]} "
+            f"!= cpu {got[1:]}")
+    print(f"[tensor-parallel] C / max(C): card == cpu (the CPU's solve "
+          f"{cpu_wall:.1f} s, beside the card's)", flush=True)
+    return counts
+
+
+def train_tp_world(card, device, want):
+    """``launch.train.train`` on a (2, 2) mesh with placement psa against
+    one device's losses ``want`` on the same batches: the world's losses,
+    placement, live traces against the lowered cell, peaks and walls."""
+    import torch
+    from repro_torch.launch import lowering, train as launch_train
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    from repro_torch.models.config import ShapeCell
+    cfg = placement_config()
+    size = math.prod(TP_WORLD_SHAPE)
+    mesh = make_mesh_with_devices([device] * size, TP_WORLD_SHAPE,
+                                  ("data", "model"))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    world = launch_train.train(
+        cfg, mesh=mesh, placement="psa", steps=TP_STEPS,
+        global_batch=PLACE_WORLD, seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+        warmup=TRAIN_WARMUP, log_every=1, seed=0)
+    world_wall = time.perf_counter() - t
+    got = [h["loss"] for h in world["history"]]
+    info = world["placement"]
+    lowered = lowering.lower_train_cell(
+        cfg, ShapeCell("train", TRAIN_SEQ, PLACE_WORLD, "train"), mesh)
+    for r, rank in enumerate(world["ranks"]):
+        require(rank["trace"] == lowered.collectives,
+                f"[tensor-parallel] rank {r}'s live trace != the lowered "
+                f"trace")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    require(len(got) == len(want) == TP_STEPS and
+            max(gaps) <= PLACE_LOSS_RTOL,
+            f"[tensor-parallel] world losses {got} vs one device {want}")
+    peaks = [rank["peak_bytes"] / 2 ** 30 if rank["peak_bytes"] else 0.0
+             for rank in world["ranks"]]
+    ops_ = by_axis(lowered, TP_WORLD_SHAPE)
+    print(f"[tensor-parallel] world of {size} gloo ranks on {device}, mesh "
+          f"{TP_WORLD_SHAPE}: placement {info}, losses {got} (one device "
+          f"{want}, max relative gap {max(gaps):.3e}), "
+          f"{len(lowered.collectives)} collectives a step on every rank == "
+          f"lowered, by (axis, kind) "
+          f"{ {k: tuple(v) for k, v in sorted(ops_.items())} }; step walls "
+          f"{[[round(x, 2) for x in rank['step_seconds']] for rank in world['ranks']]} "
+          f"s, rank setups "
+          f"{[round(rank['setup_seconds'], 2) for rank in world['ranks']]} s, "
+          f"peaks {[round(p, 2) for p in peaks]} GiB; world wall "
+          f"{world_wall:.2f} s; card {card}", flush=True)
+
+
+def tp_smoke_config():
+    from repro_torch import configs
+    import torch
+    return configs.smoke_config(TP_SMOKE_ARCH).with_overrides(
+        compute_dtype=torch.float32)
+
+
+def tp_smoke_rank(world_mesh):
+    """One rank of the SMOKE world: the first step's loss and whole
+    gradients on the (2, 2) mesh of the world's ranks, and this rank's
+    K8 launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model
+    from repro_torch.models.param import tree_flatten
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.train import data as data_lib
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if world_mesh.device_type == "cuda" else torch.device("cpu")
+    cfg = tp_smoke_config()
+    model = Model(cfg, device=dev)
+    mesh = DeviceMesh(dev.type, torch.arange(dist.get_world_size()).reshape(
+        TP_WORLD_SHAPE), mesh_dim_names=("data", "model"))
+    axis, model_axis = dp.data_axis(mesh), dp.model_axis(mesh)
+    layout = dp.param_layout(model, axis, model_axis)
+    params = layout.shard(model.init(torch.Generator().manual_seed(0)))
+    batch = dp.shard_batch(cfg, tp_smoke_cell(), data_lib.to_device(
+        data_lib.batch_at(tp_smoke_data(cfg), 0), dev), axis)
+    ops.reset_launch_counts()
+    loss, grads = dp.make_loss_and_grads(model, axis,
+                                         model_axis=model_axis)(params, batch)
+    k8 = ops.launch_counts()["selective_scan"]
+    return {"loss": float(loss), "k8": k8, "grads": [
+        g.cpu().numpy() for g in tree_flatten(layout.gather(grads))[0]]}
+
+
+def tp_smoke_cell():
+    from repro_torch.models.config import ShapeCell
+    return ShapeCell("train", TP_SMOKE_SEQ, TP_SMOKE_BATCH, "train")
+
+
+def tp_smoke_data(cfg):
+    from repro_torch.train import data as data_lib
+    return data_lib.DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=TP_SMOKE_SEQ,
+                               global_batch=TP_SMOKE_BATCH, seed=0)
+
+
+def check_tp_smoke_world(device):
+    """Jamba SMOKE in f32 on a (2, 2) world of gloo ranks on ``device``
+    against one CPU device: the first step's loss and gradients, and K8
+    launched on every rank."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.world import run_world
+    from repro_torch.models.api import Model
+    from repro_torch.models.param import tree_flatten, tree_unflatten
+    from repro_torch.train import data as data_lib
+    cfg = tp_smoke_config()
+    model = Model(cfg, device="cpu")
+    leaves, treedef = tree_flatten(model.init(torch.Generator().manual_seed(0)))
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss = model.loss(tree_unflatten(treedef, leaves), data_lib.to_device(
+        data_lib.batch_at(tp_smoke_data(cfg), 0), "cpu"))
+    want = [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+    loss = loss.detach()
+    t = time.perf_counter()
+    ranks = run_world(tp_smoke_rank, math.prod(TP_WORLD_SHAPE),
+                      device_type=torch.device(device).type, backend="gloo",
+                      timeout_s=600)
+    wall = time.perf_counter() - t
+    worst = 0.0
+    for r, rank in enumerate(ranks):
+        require(abs(rank["loss"] - float(loss)) <= TP_SMOKE_TOL * abs(
+            float(loss)), f"[tensor-parallel] SMOKE rank {r} loss "
+            f"{rank['loss']} != cpu {float(loss)}")
+        require(len(rank["grads"]) == len(want),
+                f"[tensor-parallel] SMOKE rank {r}: leaf count")
+        for i, (g, w) in enumerate(zip(rank["grads"], want)):
+            err = float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                    1e-30)
+            worst = max(worst, err)
+            require(err <= TP_SMOKE_TOL, f"[tensor-parallel] SMOKE rank "
+                    f"{r} leaf {i}: {err:.3e} of its largest magnitude")
+        if torch.device(device).type == "cuda":
+            require(rank["k8"] > 0, f"[tensor-parallel] SMOKE rank {r} "
+                    f"launched no selective_scan")
+    print(f"[tensor-parallel] {cfg.name} f32 on a {TP_WORLD_SHAPE} world "
+          f"of gloo ranks on {device} == one CPU device: loss "
+          f"{float(loss)!r}, worst leaf {worst:.3e} of its largest "
+          f"magnitude; K8 launches by rank {[r['k8'] for r in ranks]}; "
+          f"world wall {wall:.1f} s", flush=True)
+    return sum(r["k8"] for r in ranks)
+
+
+def drive_tensor_parallel(card, want, device="cuda"):
+    """The fourteenth route: the tensor-parallel model axis.  ``want``:
+    one device's TP_STEPS losses of the placement route's job.  Returns
+    the route's launch counts (the placement's; each SMOKE rank's K8
+    launches, counted in its own process, are added)."""
+    t_route = time.perf_counter()
+    mesh, lowered = lower_tp_cell(device)
+    counts = place_tp_cell(mesh, lowered, device)
+    train_tp_world(card, device, want)
+    counts["selective_scan"] += check_tp_smoke_world(device)
+    print(f"[tensor-parallel] route wall {time.perf_counter() - t_route:.1f} "
+          f"s", flush=True)
     return counts
 
 
@@ -2952,8 +3259,10 @@ def main():
     phase_done("mesh")
     runs["train"] = drive_train(card)
     phase_done("train")
-    runs["placement"] = drive_placement(card)
+    runs["placement"], one_device_losses = drive_placement(card)
     phase_done("placement")
+    runs["tensor-parallel"] = drive_tensor_parallel(card, one_device_losses)
+    phase_done("tensor-parallel")
     print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
           f"build included", flush=True)
 

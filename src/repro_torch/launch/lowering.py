@@ -12,9 +12,11 @@ communicated and no device memory is allocated; the step is SPMD, so
 every coordinate issues the same collectives, and a live step under the
 same recorder gives the same list (its *live trace*).
 
-This covers the data-parallel step (a ``model`` axis of 1).  The
-tensor-parallel cells of the production meshes, and the dry-run and
-roofline tools that lower them, are later steps of ``ROADMAP.md``.
+This covers the train step on any (data, model) or (pod, data, model)
+mesh, the production (16, 16) and (2, 16, 16) among them: ZeRO-3 over
+the data axes and, on a ``model`` axis above 1, the tensor-parallel
+collectives of both passes.  The dry-run and roofline tools that lower
+prefill and decode cells are later steps of ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..models.api import Model, input_specs
 from ..models.config import ModelConfig, ShapeCell
 from ..parallel import collectives as coll
 from ..parallel import data_parallel as dp
+from ..parallel import sharding as sh
 from ..topology.traffic import CollectiveOp
 from ..train import optimizer as opt_lib
 
@@ -51,7 +54,7 @@ def mesh_layout(mesh) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
 
 def lower_train_cell(cfg: ModelConfig, cell: ShapeCell,
                      mesh) -> LoweredCell:
-    """Lower ``cfg``'s data-parallel train step for ``cell`` on ``mesh``'s
+    """Lower ``cfg``'s sharded train step for ``cell`` on ``mesh``'s
     layout (any mesh: only its shape and axis names are read).  The
     optimizer and the microbatching issue no collective of their own, so
     the step is lowered with ``OptConfig(moment_dtype=cfg.opt_dtype)`` in
@@ -60,14 +63,15 @@ def lower_train_cell(cfg: ModelConfig, cell: ShapeCell,
     meta = coll.MetaMesh(shape, names)
     ocfg = opt_lib.OptConfig(moment_dtype=cfg.opt_dtype)
     t = time.perf_counter()
-    axis = dp.data_axis(meta)
+    sh.check_mesh(meta, cfg)
+    axis, model_axis = dp.data_axis(meta), dp.model_axis(meta)
     model = Model(cfg, device="meta")
-    shards = dp.shard_params(model.abstract(), dp.shard_dims(model, axis),
-                             axis)
+    shards = dp.param_layout(model, axis, model_axis).shard(model.abstract())
     opt_state = opt_lib.abstract_state(ocfg, shards)
     batch = dp.shard_batch(cfg, cell, input_specs(cfg, cell), axis)
     step = dp.make_data_parallel_step(
-        model, ocfg, opt_lib.warmup_cosine(ocfg.lr, 1, 2), axis)
+        model, ocfg, opt_lib.warmup_cosine(ocfg.lr, 1, 2), axis,
+        model_axis=model_axis)
     with coll.record_collectives() as ops:
         step(shards, opt_state, batch)
     return LoweredCell(collectives=list(ops), num_devices=meta.size(),

@@ -21,7 +21,8 @@ a single card (``make_mesh_with_devices([cuda:0] * 4, (4,),
 ``make_production_mesh`` builds the LM stack's meshes -- (16, 16) over
 ("data", "model"), (2, 16, 16) over ("pod", "data", "model") -- as grids
 of logical device ids (0 .. n-1), which need no devices: a cell is
-lowered against one on a single card (``launch.lowering``), and
+lowered against one on a single card (``launch.lowering``: ZeRO-3 over
+``data``, tensor-parallel over ``model``), and
 ``launch.placement.apply_placement`` decides which physical device backs
 each id.  :func:`activate_mesh` makes a mesh ambient
 (:func:`current_mesh`), as the reference's does.

@@ -11,17 +11,17 @@ devices for a world on the CPU):
         --smoke --steps 20 --device cpu
 
 Without a mesh, or on a mesh of one device, the model trains on one
-device (``train.step.make_train_step``).  A mesh whose ``data`` (x
-``pod``) width is above 1 and whose ``model`` axis is 1 trains
-data-parallel (``parallel.data_parallel``) in a world of one rank per
-mesh position (``launch.world.run_world``): rank r runs on the mesh's
-r-th device, NCCL when those are distinct cards, else gloo (several
-ranks on one card, or the CPU).  With ``placement`` ("psa", "pga" or
-"pca") the step is first lowered (``launch.lowering``), its collectives
-placed on the mesh's torus (``launch.placement.place_job``) and the
-world's mesh built in the placed rank order: logical coordinate k on rank
-``perm[k]``.  A ``model`` axis above 1 raises ``NotImplementedError``:
-the tensor-parallel step is a later step of ``ROADMAP.md``.
+device (``train.step.make_train_step``).  A larger mesh of ("pod",)
+"data" and "model" axes trains sharded (``parallel.data_parallel``:
+ZeRO-3 over the data axes, tensor-parallel over ``model``) in a world of
+one rank per mesh position (``launch.world.run_world``): rank r runs on
+the mesh's r-th device, NCCL when those are distinct cards, else gloo
+(several ranks on one card, or the CPU).  With ``placement`` ("psa",
+"pga" or "pca") the step is first lowered (``launch.lowering``), its
+collectives placed on the mesh's torus (``launch.placement.place_job``)
+and the world's mesh built in the placed rank order: logical coordinate
+k on rank ``perm[k]``.  A model the tensor-parallel step does not cover
+raises before any world starts (``sharding.check_mesh``).
 """
 from __future__ import annotations
 
@@ -64,8 +64,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     ``final_loss`` and ``params`` (on the device, or on the CPU after a
     world).  A world's run adds ``ranks``: each rank's first-step
     collectives (``trace``), peak device bytes (``peak_bytes``) and wall
-    seconds before its loop (``setup_seconds``) and in it, the final
-    gather included (``seconds``)."""
+    seconds before its loop (``setup_seconds``), in it, the final gather
+    included (``seconds``), and of each step (``step_seconds``)."""
     if mesh is None or mesh.size == 1:
         dev = resolve_device(device if mesh is None
                              else mesh.devices.flat[0])
@@ -74,7 +74,7 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
             seq_len=seq_len, lr=lr, warmup=warmup, microbatch=microbatch,
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             log_every=log_every, seed=seed)
-    sh.check_data_parallel(mesh)
+    sh.check_mesh(mesh, cfg)
     return _train_world(
         cfg, mesh, steps=steps, global_batch=global_batch, seq_len=seq_len,
         lr=lr, warmup=warmup, microbatch=microbatch,
@@ -214,8 +214,8 @@ def _train_world(cfg, mesh: Mesh, *, steps, global_batch, seq_len, lr, warmup,
 def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
                 devices: List[str], cell: ShapeCell, kw: Dict[str, Any]
                 ) -> Dict[str, Any]:
-    """One rank of :func:`train`'s world: the data-parallel loop on this
-    rank's position of the placed mesh."""
+    """One rank of :func:`train`'s world: the sharded loop on this rank's
+    position of the placed mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     from ..parallel import collectives as coll
@@ -232,29 +232,24 @@ def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
                                   // dist.get_world_size()))
     mesh = DeviceMesh(dev.type, torch.as_tensor(rank_grid),
                       mesh_dim_names=tuple(axis_names))
-    axis = dp.data_axis(mesh)
+    axis, model_axis = dp.data_axis(mesh), dp.model_axis(mesh)
     steps = kw["steps"]
     model = Model(cfg, device=dev)
     ocfg = opt_lib.OptConfig(lr=kw["lr"], moment_dtype=cfg.opt_dtype)
     sched = opt_lib.warmup_cosine(kw["lr"], kw["warmup"], steps)
     dcfg = _data_config(cfg, cell.global_batch, cell.seq_len, kw["seed"])
-    dims = dp.shard_dims(model, axis)
-    odims = dp.spec_dims(opt_lib.state_specs(ocfg, model.specs()), axis)
+    layout = dp.param_layout(model, axis, model_axis)
+    state_layout = dp.state_layout(model, ocfg, axis, model_axis)
     step_fn = dp.make_data_parallel_step(model, ocfg, sched, axis,
-                                         microbatch=kw["microbatch"])
+                                         microbatch=kw["microbatch"],
+                                         model_axis=model_axis)
 
     def shard_state(params, opt_state):
-        return (dp.shard_params(params, dims, axis), opt_lib.OptState(
-            step=opt_state.step,
-            mu=dp.shard_params(opt_state.mu, odims.mu, axis),
-            nu=dp.shard_params(opt_state.nu, odims.nu, axis)))
+        return layout.shard(params), state_layout.shard(opt_state)
 
     def whole_state(params, opt_state):
-        return {"params": dp.gather_params(params, dims, axis),
-                "opt": opt_lib.OptState(
-                    step=opt_state.step,
-                    mu=dp.gather_params(opt_state.mu, odims.mu, axis),
-                    nu=dp.gather_params(opt_state.nu, odims.nu, axis))}
+        return {"params": layout.gather(params),
+                "opt": state_layout.gather(opt_state)}
 
     # ---- init or resume (whole trees, then this rank's shards) -----------
     mgr = None
@@ -276,7 +271,7 @@ def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
             start_step = latest
     if params is None:
         whole = model.init(seed=kw["seed"])
-        params = dp.shard_params(whole, dims, axis)
+        params = layout.shard(whole)
         del whole
         opt_state = opt_lib.init(ocfg, params)     # zeros: the shards'
 
@@ -290,12 +285,16 @@ def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
     history, trace = [], None
     t0 = time.time()
     setup_s = t0 - t_rank
+    step_seconds = []
     for s in range(start_step, steps):
+        t_step = time.time()
         batch = dp.shard_batch(
             cfg, cell, data_lib.to_device(data_lib.batch_at(dcfg, s), dev),
             axis)
         with coll.record_collectives() as ops:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
+        float(metrics["loss"])          # waits for the step's end
+        step_seconds.append(time.time() - t_step)
         if trace is None:
             trace = list(ops)
         if (s + 1) % kw["log_every"] == 0 or s + 1 == steps:
@@ -305,9 +304,9 @@ def _train_rank(world_mesh, cfg: ModelConfig, rank_grid: List, axis_names,
             save(s + 1)
     if mgr:
         save(steps, blocking=True)
-    whole = dp.gather_params(params, dims, axis)
+    whole = layout.gather(params)
     out = {"trace": trace, "setup_seconds": setup_s,
-           "seconds": time.time() - t0,
+           "seconds": time.time() - t0, "step_seconds": step_seconds,
            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                           if dev.type == "cuda" else None)}
     if rank == 0:

@@ -12,7 +12,13 @@ the same dtypes.  Attention comes in two forms, as there:
 * decode: single-token attention over a (possibly ring/windowed) KV
   cache.
 
-The reference's sharding constraints have no counterpart on one card.
+The reference's sharding constraints become, on a tensor-parallel
+``model`` axis (``parallel.tensor_parallel``), this rank's heads, ``ff``
+columns and vocabulary rows and the collectives around them: *f* on the
+input of each column-parallel product, *g* on the output of each
+row-parallel one, k and v gathered whole before ``k_norm`` and RoPE as
+the reference orders it, and a vocab-parallel embedding and
+cross-entropy.  Off such an axis every one of them is the identity.
 :func:`lm_loss` is the training loss: the cross-entropy chunked over the
 sequence, each chunk recomputed in the backward.
 """
@@ -26,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel import tensor_parallel as tp
 from ..parallel.sharding import PartitionSpec as P
 
 NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
@@ -92,10 +99,13 @@ def attn_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), roped + normed."""
+    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), roped + normed.
+    On a model axis q holds this rank's heads, and k and v are gathered
+    whole."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
     dt = cfg.compute_dtype
+    x = tp.copy_to(x)
     q = x @ params["wq"].to(dt)
     k = x @ params["wk"].to(dt)
     v = x @ params["wv"].to(dt)
@@ -103,12 +113,14 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = tp.gather(k, 2).reshape(b, s, kv, hd)
+    v = tp.gather(v, 2).reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+        # both scales act on what serves this rank's q heads alone: their
+        # gradients are parts of the whole
+        q = rmsnorm({"scale": tp.copy_to(params["q_norm"])}, q, cfg.norm_eps)
+        k = rmsnorm({"scale": tp.copy_to(params["k_norm"])}, k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -175,17 +187,30 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(cfg.compute_dtype)
 
 
+def _kv_of_local_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads that this rank's q heads attend with (all of them off
+    a model axis).  ``sharding.check_mesh`` has made this rank's heads
+    whole groups of a kv head each, or a part of one group."""
+    if tp.size() == 1:
+        return k, v
+    lo, hi = tp.part(cfg.num_heads)
+    g = cfg.num_heads // cfg.num_kv_heads
+    return k[:, :, lo // g:(hi - 1) // g + 1], v[:, :, lo // g:(hi - 1) // g + 1]
+
+
 def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
                     window: Optional[int], positions: torch.Tensor
                     ) -> torch.Tensor:
     """Causal self-attention over (B, S, D); returns (B, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
+    k, v = _kv_of_local_heads(k, v, cfg)
     w = window if (window is not None and window < s) else None
     pos1d = positions[0]                       # (S,) -- same across batch
     o = _mea(q, k, v, pos1d, pos1d, cfg, w)
-    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return o @ params["wo"].to(cfg.compute_dtype)
+    o = o.reshape(b, s, -1)
+    return tp.reduce_from(o @ params["wo"].to(cfg.compute_dtype))
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -288,11 +313,12 @@ def mlp_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
 
 def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
+    x = tp.copy_to(x)
     if cfg.mlp_gated:
         h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["wi"].to(dt), approximate="tanh")
-    return h @ params["wo"].to(dt)
+    return tp.reduce_from(h @ params["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -304,8 +330,23 @@ def embed_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
                                init="embed", fan_in=cfg.d_model)}
 
 
+def _local_ids(ids: torch.Tensor, vocab: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(mine, row)``: which token ids fall in this rank's vocabulary
+    rows, and each one's row there (0 for the others)."""
+    lo, hi = tp.part(vocab)
+    ids = ids.long()
+    mine = (ids >= lo) & (ids < hi)
+    return mine, torch.where(mine, ids - lo, 0)
+
+
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+    if tp.size() == 1:
+        return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+    # vocab-parallel: this rank's rows looked up, the others' zeros, summed
+    mine, rows = _local_ids(tokens, cfg.vocab_size)
+    x = params["embedding"][rows].to(cfg.compute_dtype)
+    return tp.reduce_from(torch.where(mine[..., None], x, 0))
 
 
 def head_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
@@ -320,9 +361,18 @@ def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _chunk_loss(head_params, hx: torch.Tensor, tx: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     logits = logits_fn(head_params, hx, cfg)            # (B, c, V) f32
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, tx.long()[..., None])[..., 0]
-    return (lse - tgt).sum()
+    if tp.size() == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, tx.long()[..., None])[..., 0]
+        return (lse - tgt).sum()
+    # vocab-parallel: logits holds this rank's columns of the vocabulary
+    top = tp.all_max(logits.amax(dim=-1))
+    mine, cols = _local_ids(tx, cfg.vocab_size)
+    tgt = torch.gather(logits, -1, cols[..., None])[..., 0]
+    sums = tp.reduce_from(torch.stack([
+        torch.exp(logits - top[..., None]).sum(dim=-1),
+        torch.where(mine, tgt, 0.0)]))
+    return (top + torch.log(sums[0]) - sums[1]).sum()
 
 
 def lm_loss(head_params, h: torch.Tensor, targets: torch.Tensor,
@@ -337,6 +387,7 @@ def lm_loss(head_params, h: torch.Tensor, targets: torch.Tensor,
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
     total = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = tp.copy_to(h)
     for i in range(0, s, c):
         total = total + checkpoint(_chunk_loss, head_params, h[:, i:i + c],
                                    targets[:, i:i + c], cfg,

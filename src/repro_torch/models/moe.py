@@ -17,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from ..parallel import tensor_parallel as tp
 from .config import ModelConfig
 from .param import PDecl
 from ..parallel.sharding import PartitionSpec as P
@@ -131,12 +132,15 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
         cap = min(int(tg * k / e * cfg.moe_capacity_factor) + 1, tg)
 
     groups = [_dispatch_group(xf[i], ids[i], w[i], cfg, cap) for i in range(g)]
-    bufs = torch.stack([buf for buf, _ in groups])         # (g, E, cap, D)
+    bufs = tp.copy_to(torch.stack([buf for buf, _ in groups]))  # (g, E, cap, D)
 
     hg = torch.nn.functional.silu(
         torch.einsum("gecd,edf->gecf", bufs, params["wg"].to(dt)))
     hu = torch.einsum("gecd,edf->gecf", bufs, params["wi"].to(dt))
-    y = torch.einsum("gecf,efd->gecd", hg * hu, params["wo"].to(dt))
+    # each expert's ff over the model axis: y is the parts' sum, whole
+    # before the combine, so the router's gradient is whole too
+    y = tp.reduce_from(torch.einsum("gecf,efd->gecd", hg * hu,
+                                    params["wo"].to(dt)))
 
     out = torch.stack([_combine_group(y[i], w[i], groups[i][1], cfg)
                        for i in range(g)])

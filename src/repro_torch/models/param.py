@@ -35,6 +35,9 @@ class PDecl:
     init: str = "normal"      # normal | zeros | ones | embed
     dtype: torch.dtype = torch.float32
     fan_in: Optional[int] = None   # for "normal": stddev = 1/sqrt(fan_in)
+    # the dim the spec shards over ``tp`` is this many equal blocks side
+    # by side (Mamba's ``in_proj``: u and z), each sharded by itself
+    tp_blocks: int = 1
 
 
 def _rebuild(tree, children):
@@ -153,6 +156,11 @@ def abstract_params(decls) -> Any:
 def param_specs(decls) -> Any:
     """Every leaf's logical ``PartitionSpec``."""
     return tree_map(lambda d: d.spec, decls)
+
+
+def param_tp_blocks(decls) -> Any:
+    """Every leaf's ``tp_blocks``."""
+    return tree_map(lambda d: d.tp_blocks, decls)
 
 
 def count_params(decls) -> int:

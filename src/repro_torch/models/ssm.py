@@ -8,7 +8,10 @@ tensor nor the discretised ``a_bar``/``bx`` tensors are ever built, and
 the final state comes back with ``y`` for the decode cache.  Both values
 of ``mamba_fuse_proj`` compute the same ``y`` and ``h_last`` as the
 reference's two branches (``_fused_scan``, and ``_scan_chunked`` plus the
-C-projection), so both take this one path.  Under autograd the scan's
+C-projection), so both take this one path.  On a tensor-parallel
+``model`` axis each rank runs its ``d_inner / m`` channels (``in_proj``
+and ``dt_proj`` column-parallel, the conv and K8 on local channels,
+``x_proj`` and ``out_proj`` row-parallel).  Under autograd the scan's
 gradient comes from the plain scan recomputed in the backward
 (``kernels.selective_scan.SelectiveScan``), so training on the card
 differentiates what the reference differentiates.  Decode is the O(1)
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import tensor_parallel as tp
 from .config import ModelConfig
 from .param import PDecl
 from ..parallel.sharding import PartitionSpec as P
@@ -37,7 +41,7 @@ def mamba_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d = cfg.d_model
     di, n, k, dtr = _dims(cfg)
     return {
-        "in_proj": PDecl((d, 2 * di), P("fsdp", "tp")),
+        "in_proj": PDecl((d, 2 * di), P("fsdp", "tp"), tp_blocks=2),
         "conv_w": PDecl((k, di), P(None, "tp"), fan_in=k),
         "conv_b": PDecl((di,), P("tp"), init="zeros"),
         "x_proj": PDecl((di, dtr + 2 * n), P("tp", None)),
@@ -66,7 +70,9 @@ def _post_conv(params, u_conv: torch.Tensor, cfg: ModelConfig):
     parameters, in f32 (``u_act`` in the compute dtype)."""
     di, n, k, dtr = _dims(cfg)
     u_act = F.silu(u_conv)
-    xdbc = u_act.float() @ params["x_proj"].float()
+    # x_proj is row-parallel over the channels: (dt, B, C) is the parts'
+    # sum, and every rank's channels take part in its gradient
+    xdbc = tp.copy_to(tp.reduce_from(u_act.float() @ params["x_proj"].float()))
     dt, b, c = torch.split(xdbc, [dtr, n, n], dim=-1)
     dt = _softplus(dt @ params["dt_proj"].float()
                    + params["dt_bias"].float())                  # (B, S, di)
@@ -99,7 +105,7 @@ def mamba_train(params, x: torch.Tensor, cfg: ModelConfig,
     bsz, s, d = x.shape
     di, n, k, dtr = _dims(cfg)
     dt_ = cfg.compute_dtype
-    u, z = _ssm_params(params, x, cfg)
+    u, z = _ssm_params(params, tp.copy_to(x), cfg)
 
     # causal depthwise conv over sequence
     u_pad = F.pad(u, (0, 0, k - 1, 0))
@@ -111,7 +117,7 @@ def mamba_train(params, x: torch.Tensor, cfg: ModelConfig,
                                    b.contiguous(), c.contiguous())
     y = y + u_act.float() * params["d_skip"].float()
     y = (y * F.silu(z.float())).to(dt_)
-    out = y @ params["out_proj"].to(dt_)
+    out = tp.reduce_from(y @ params["out_proj"].to(dt_))
     if return_state:
         return out, {"h": h_last, "conv": u[:, s - (k - 1):].to(dt_)}
     return out

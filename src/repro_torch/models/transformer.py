@@ -276,7 +276,10 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                num_groups: int = 1) -> torch.Tensor:
     """The mean next-token loss of ``batch`` (``labels`` (B, S) and
     ``tokens`` (B, S) or, with a frontend, ``embeds`` (B, S, fd)): a 0-d
-    f32 tensor."""
+    f32 tensor.  Under a model axis (``parallel.tensor_parallel.
+    use_model_axis``, as ``parallel.data_parallel``'s step sets it),
+    ``params`` are this rank's parts and the loss is the whole batch's,
+    the same on every rank of the axis."""
     h = forward_hidden(params, batch, cfg, num_groups)
     return layers.lm_loss(params["head"], h, batch["labels"], cfg)
 

@@ -1,17 +1,22 @@
-"""Collectives of the data-parallel step, their recorder, and int8
+"""Collectives of the sharded train step, their recorder, and int8
 error-feedback gradient compression.
 
 **The step's collectives.** :func:`all_gather`, :func:`reduce_scatter`
-(a sum) and :func:`all_reduce` (a sum) act over a :class:`MeshAxis`: one
-dim of a ``torch.distributed.device_mesh.DeviceMesh``, or several taken
-together as one (("pod", "data") on a multi-pod mesh).  A
+(a sum) and :func:`all_reduce` (a sum, or a max) act over a
+:class:`MeshAxis`: one dim of a ``torch.distributed.device_mesh.
+DeviceMesh``, or several taken together as one (("pod", "data") on a
+multi-pod mesh).  :class:`CopyToModel`, :class:`ReduceFromModel` and
+:class:`GatherFromModel` are the tensor-parallel ``model`` axis's under
+autograd (``parallel.tensor_parallel``): each issues its backward's
+collective through the same functions.  A
 :class:`MetaMesh` stands in for a mesh and communicates nothing: the
 collectives over its axes return ``meta`` tensors of the right shapes,
 which is how a step is lowered without devices (``launch.lowering``).
 
-**The recorder.** Inside :func:`record_collectives` every collective is
-appended to the yielded list as a ``topology.traffic.CollectiveOp``: the
-logical collective the step asks for, named as HLO names it, with
+**The recorder.** Inside :func:`record_collectives` every collective of
+the process is appended to the yielded list as a
+``topology.traffic.CollectiveOp``: the logical collective the step asks
+for, named as HLO names it, with
 HLO's bytes (the result a participant holds: the whole tensor of an
 all-gather or all-reduce, the shard of a reduce-scatter) and the replica
 groups in the mesh's logical device ids (positions in the mesh, not the
@@ -119,29 +124,35 @@ class MeshAxis:
 # path's shard order on the CPU.
 NATIVE_REDUCE_SCATTER = {"nccl"}
 
-_recording = threading.local()
+# The open recorders of the process.  Not per thread: a backward on the
+# card, and the forward that a checkpoint recomputes inside it, run on the
+# autograd engine's device thread, and their collectives belong to the
+# step that called ``torch.autograd.grad``.
+_recorders: List[List[CollectiveOp]] = []
+_recorders_lock = threading.Lock()
 
 
 @contextlib.contextmanager
 def record_collectives():
-    """Yield a list to which every collective of this module issued on
-    this thread inside the ``with`` is appended, as a ``CollectiveOp``."""
+    """Yield a list to which every collective of this module issued in
+    this process inside the ``with`` is appended, as a ``CollectiveOp``
+    (a rank is one process, and runs one step at a time)."""
     ops: List[CollectiveOp] = []
-    stack = getattr(_recording, "stack", None)
-    if stack is None:
-        stack = _recording.stack = []
-    stack.append(ops)
+    with _recorders_lock:
+        _recorders.append(ops)
     try:
         yield ops
     finally:
-        stack.remove(ops)
+        with _recorders_lock:
+            _recorders.remove(ops)
 
 
 def _record(kind: str, result: Array, axis: MeshAxis) -> None:
-    for ops in getattr(_recording, "stack", ()):
-        ops.append(CollectiveOp(
-            kind=kind, bytes=result.numel() * result.element_size(),
-            groups=[list(g) for g in axis.groups]))
+    op = CollectiveOp(kind=kind, bytes=result.numel() * result.element_size(),
+                      groups=[list(g) for g in axis.groups])
+    with _recorders_lock:
+        for ops in _recorders:
+            ops.append(op)
 
 
 def all_gather(x: Array, axis: MeshAxis, dim: int = 0) -> Array:
@@ -189,15 +200,68 @@ def reduce_scatter(x: Array, axis: MeshAxis, dim: int = 0) -> Array:
     return out
 
 
-def all_reduce(x: Array, axis: MeshAxis) -> Array:
-    """The sum of ``x`` over the positions along ``axis``."""
+def all_reduce(x: Array, axis: MeshAxis, op: str = "sum") -> Array:
+    """The sum (``op="max"``: the largest) of ``x`` over the positions
+    along ``axis``."""
     if axis.group is None:
         out = x.new_empty(x.shape, device="meta")
     else:
         out = x.clone()
-        dist.all_reduce(out, group=axis.group)
+        dist.all_reduce(out, op=_REDUCE_OPS[op], group=axis.group)
     _record("all-reduce", out, axis)
     return out
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+# ----------------------------------------------- the model axis under autograd
+# The tensor-parallel step's collectives (Megatron-LM's f, g and the
+# gather of k and v): each issues its backward's collective through the
+# functions above too, so a step's recorded trace holds both passes.
+
+class CopyToModel(torch.autograd.Function):
+    """*f*: the identity forward, the gradients' sum over ``axis``
+    backward.  On the input of a column-parallel product, and on a
+    replicated parameter that acts on this rank's part of a sharded
+    activation: each rank's gradient is a part of the whole."""
+
+    @staticmethod
+    def forward(ctx, x: Array, axis: MeshAxis) -> Array:
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: Array):
+        return all_reduce(grad, ctx.axis), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """*g*: the sum over ``axis`` forward, the identity backward.  On the
+    output of a row-parallel product (the parts' sum)."""
+
+    @staticmethod
+    def forward(ctx, x: Array, axis: MeshAxis) -> Array:
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad: Array):
+        return grad, None
+
+
+class GatherFromModel(torch.autograd.Function):
+    """The shards along ``dim`` gathered forward; backward, the
+    gradients' sum over ``axis``, this rank's slice of it kept (a
+    reduce-scatter).  For k and v, which every rank uses whole."""
+
+    @staticmethod
+    def forward(ctx, x: Array, axis: MeshAxis, dim: int) -> Array:
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad: Array):
+        return reduce_scatter(grad.contiguous(), ctx.axis, ctx.dim), None, None
 
 
 def quantize_int8(x: Array) -> Tuple[Array, Array]:

@@ -1,30 +1,38 @@
-"""The data-parallel train step: the reference's ``jax.jit(train_step,
-in_shardings=...)`` on a mesh whose ``model`` axis is 1.
+"""The sharded train step: the reference's ``jax.jit(train_step,
+in_shardings=...)`` on a mesh of ("pod",) "data" and "model" axes.
 
 Every rank runs the same step (SPMD) on its slice of the global batch.
 The step follows the resolved specs (``Model.specs`` under
 ``sharding.rules_for_mesh``, whose ``fsdp`` and ``batch`` are ``data``,
-or ("pod", "data") on a multi-pod mesh):
+or ("pod", "data") on a multi-pod mesh, and whose ``tp`` is ``model``):
 
 * a parameter whose spec names the data-parallel axes on one dim is held
   as its shard along that dim (ZeRO-3): all-gathered for use, its
   gradient reduce-scattered back to the shard;
 * a replicated parameter is held whole, its gradient all-reduced;
+* on a ``model`` axis above 1 a parameter whose spec names ``model`` on a
+  dim is held as its part along that dim too (``tp_blocks`` of them side
+  by side for a fused weight), never gathered over ``model``: the layers
+  run on their parts and issue the tensor-parallel collectives
+  (``parallel.tensor_parallel``), so every gradient comes out whole over
+  ``model`` for what the rank holds;
 * the optimizer state shards as the parameters (``optimizer.state_specs``)
   and AdamW updates each rank's shard;
-* the batch is split on its rows as ``batch_partition_specs`` says.
+* the batch is split on its rows as ``batch_partition_specs`` says; the
+  ranks of one model group take the same rows.
 
 The loss and the gradients are the global batch's mean (each rank's
-local mean, summed over the ranks, over their number); the global
-gradient norm adds the shards' squares over the ranks and the
-replicated leaves' once, and clips as ``optimizer.apply`` clips.  Each
-rank's batch is one MoE routing group (the reference passes
-``num_groups`` = data-parallel width for the global batch).
+local mean, summed over the data ranks, over their number); the global
+gradient norm adds every element's square once over both axes, and
+clips as ``optimizer.apply`` clips.  Each rank's batch is one MoE
+routing group (the reference passes ``num_groups`` = data-parallel
+width for the global batch).
 
 Nothing in the step reads a value, so it runs on ``meta`` tensors over a
 ``collectives.MetaMesh``: that is how ``launch.lowering`` records its
 collectives without devices.  The one-device ``train.step.make_train_step``
-is unchanged.
+is unchanged, and on a ``model`` axis of 1 so is this step: it issues no
+model-axis collective and makes no model-axis group.
 """
 from __future__ import annotations
 
@@ -35,22 +43,33 @@ import torch
 
 from ..models.api import Model, batch_partition_specs
 from ..models.config import ModelConfig, ShapeCell
-from ..models.param import tree_flatten, tree_map, tree_unflatten
+from ..models.param import (param_tp_blocks, tree_flatten, tree_map,
+                            tree_unflatten)
 from ..train import optimizer as opt_lib
 from ..train import step as step_lib
 from . import collectives as coll
 from . import sharding as sh
+from . import tensor_parallel as tp
 
 Array = torch.Tensor
 
 
 def data_axis(mesh) -> coll.MeshAxis:
     """The mesh's data-parallel axis: its ("pod", "data") dims, or
-    ("data",), taken together.  Raises for a mesh the step cannot run on
-    (``sharding.check_data_parallel``: a ``model`` axis > 1)."""
-    sh.check_data_parallel(mesh)
+    ("data",), taken together.  Raises for axes other than pod, data and
+    model (``sharding.check_mesh``)."""
+    sh.check_mesh(mesh)
     return coll.MeshAxis(mesh, tuple(a for a in ("pod", "data")
                                      if a in mesh.mesh_dim_names))
+
+
+def model_axis(mesh) -> Optional[coll.MeshAxis]:
+    """The mesh's ``model`` dim when it is above 1, else ``None`` (the
+    data-parallel step)."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names or mesh.mesh.shape[names.index("model")] == 1:
+        return None
+    return coll.MeshAxis(mesh, "model")
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:
@@ -60,9 +79,9 @@ def _entry_axes(entry) -> Tuple[str, ...]:
 
 
 def shard_dim(spec: sh.PartitionSpec, axes: Tuple[str, ...]) -> Optional[int]:
-    """The dim a resolved spec shards over the data-parallel ``axes``
-    (``None``: replicated).  A dim may name ``model`` too (size 1 here);
-    a spec that names only some of ``axes`` raises."""
+    """The dim a resolved spec shards over ``axes``, the dims of a data
+    or a model axis (``None``: replicated over them); a spec that names
+    only some of ``axes`` raises."""
     found = None
     for i, entry in enumerate(spec):
         named = [a for a in _entry_axes(entry) if a in axes]
@@ -78,9 +97,8 @@ def shard_dim(spec: sh.PartitionSpec, axes: Tuple[str, ...]) -> Optional[int]:
 def spec_dims(specs: Any, axis: coll.MeshAxis) -> Any:
     """A tree of logical specs as shard dims over ``axis`` (ints or
     ``None``)."""
-    rules = sh.rules_for_mesh(axis.mesh)
-    return tree_map(lambda s: shard_dim(s, axis.dims),
-                    sh.resolve_tree(specs, rules))
+    return tree_map(lambda s: shard_dim(
+        sh.named_sharding(axis.mesh, s).spec, axis.dims), specs)
 
 
 def shard_dims(model: Model, axis: coll.MeshAxis) -> Any:
@@ -88,20 +106,33 @@ def shard_dims(model: Model, axis: coll.MeshAxis) -> Any:
     return spec_dims(model.specs(), axis)
 
 
-def _take(x: Array, dim: Optional[int], size: int, index: int) -> Array:
+def _take(x: Array, dim: Optional[int], size: int, index: int,
+          blocks: int = 1) -> Array:
     if dim is None:
         return x
-    if x.shape[dim] % size:
+    if x.shape[dim] % (size * blocks):
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                         f"into {size} shards")
-    n = x.shape[dim] // size
-    return x.narrow(dim, index * n, n).clone()
+                         f"into {size} shards" + (
+                             f" of {blocks} blocks" if blocks > 1 else ""))
+    n = x.shape[dim] // (size * blocks)
+    if blocks == 1:
+        return x.narrow(dim, index * n, n).clone()
+    return torch.cat([x.narrow(dim, (b * size + index) * n, n)
+                      for b in range(blocks)], dim)
 
 
-def shard_params(params: Any, dims: Any, axis: coll.MeshAxis) -> Any:
-    """This rank's shards of a whole parameter (or moment) tree."""
-    return tree_map(lambda p, d: _take(p, d, axis.size, axis.index),
-                    params, dims)
+def _ones(dims: Any) -> Any:
+    return tree_map(lambda d: 1, dims)
+
+
+def shard_params(params: Any, dims: Any, axis: coll.MeshAxis,
+                 blocks: Any = None) -> Any:
+    """This rank's shards of a whole parameter (or moment) tree along
+    ``dims`` over ``axis``: of each of a leaf's ``blocks`` (default 1)
+    side by side along its dim."""
+    blocks = _ones(dims) if blocks is None else blocks
+    return tree_map(lambda p, d, k: _take(p, d, axis.size, axis.index, k),
+                    params, dims, blocks)
 
 
 def shard_batch(cfg: ModelConfig, cell: ShapeCell, batch: Dict[str, Array],
@@ -114,31 +145,96 @@ def shard_batch(cfg: ModelConfig, cell: ShapeCell, batch: Dict[str, Array],
                      axis.index) for k, v in batch.items()}
 
 
-def gather_params(shards: Any, dims: Any, axis: coll.MeshAxis) -> Any:
-    """The whole parameter tree from every rank's shards."""
-    return tree_map(lambda p, d: p if d is None else
-                    coll.all_gather(p, axis, d), shards, dims)
+def _gather(p: Array, d: Optional[int], axis: coll.MeshAxis,
+            blocks: int) -> Array:
+    if d is None:
+        return p
+    whole = coll.all_gather(p, axis, d)
+    if blocks == 1:
+        return whole
+    # (position, block, part) -> (block, position, part)
+    n = p.shape[d] // blocks
+    return whole.unflatten(d, (axis.size, blocks, n)).transpose(
+        d, d + 1).flatten(d, d + 2)
+
+
+def gather_params(shards: Any, dims: Any, axis: coll.MeshAxis,
+                  blocks: Any = None) -> Any:
+    """The tree whole along ``dims`` over ``axis`` from every rank's
+    shards (:func:`shard_params`' inverse)."""
+    blocks = _ones(dims) if blocks is None else blocks
+    return tree_map(lambda p, d, k: _gather(p, d, axis, k), shards, dims,
+                    blocks)
+
+
+class Layout:
+    """Where the leaves of a tree of ``specs`` (``tp_blocks`` in
+    ``blocks``) live on a mesh's ``data`` axis and its ``model`` axis
+    (``None``: 1): each leaf's shard dim over each (``dims``,
+    ``model_dims``)."""
+
+    def __init__(self, specs: Any, blocks: Any, data: coll.MeshAxis,
+                 model: Optional[coll.MeshAxis] = None):
+        self.data, self.model, self.blocks = data, model, blocks
+        self.dims = spec_dims(specs, data)
+        self.model_dims = None if model is None else spec_dims(specs, model)
+
+    def shard(self, tree: Any) -> Any:
+        """This rank's part of a whole tree."""
+        out = shard_params(tree, self.dims, self.data)
+        if self.model is None:
+            return out
+        return shard_params(out, self.model_dims, self.model, self.blocks)
+
+    def gather(self, tree: Any) -> Any:
+        """The whole tree from every rank's parts."""
+        out = gather_params(tree, self.dims, self.data)
+        if self.model is None:
+            return out
+        return gather_params(out, self.model_dims, self.model, self.blocks)
+
+
+def param_layout(model: Model, axis: coll.MeshAxis,
+                 model_axis: Optional[coll.MeshAxis] = None) -> Layout:
+    """The parameter tree's :class:`Layout`."""
+    return Layout(model.specs(), param_tp_blocks(model.decls()), axis,
+                  model_axis)
+
+
+def state_layout(model: Model, opt_cfg: opt_lib.OptConfig,
+                 axis: coll.MeshAxis,
+                 model_axis: Optional[coll.MeshAxis] = None) -> Layout:
+    """The optimizer state's :class:`Layout` (``optimizer.state_specs``:
+    the moments as their parameters)."""
+    blocks = param_tp_blocks(model.decls())
+    return Layout(opt_lib.state_specs(opt_cfg, model.specs()),
+                  opt_lib.OptState(step=1, mu=blocks, nu=blocks), axis,
+                  model_axis)
 
 
 def make_loss_and_grads(model: Model, axis: coll.MeshAxis,
-                        microbatch: int = 1) -> Callable:
+                        microbatch: int = 1,
+                        model_axis: Optional[coll.MeshAxis] = None
+                        ) -> Callable:
     """Returns f(param shards, local batch) -> (the global batch's mean
     loss, the gradient shards of that mean) for this rank of the
     data-parallel ``axis`` (:func:`data_axis` of a ``DeviceMesh`` or a
-    ``collectives.MetaMesh``)."""
+    ``collectives.MetaMesh``) and of ``model_axis`` (:func:`model_axis`
+    of the same mesh)."""
+    if model_axis is not None:
+        sh.check_mesh(model_axis.mesh, model.cfg)
     size = axis.size
     dims: List[Optional[int]] = tree_flatten(shard_dims(model, axis))[0]
 
     def global_loss_and_grads(params, batch):
         shards, treedef = tree_flatten(params)
         with torch.no_grad():
-            full = [p if d is None else coll.all_gather(p, axis, d)
-                    for p, d in zip(shards, dims)]
-        leaves = [p.detach().requires_grad_(True) for p in full]
-        del full
+            leaves = gather_params(shards, dims, axis)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
         # each rank's batch is one MoE routing group
-        loss, grads = step_lib.loss_and_grads(model, leaves, treedef, batch,
-                                              1, microbatch)
+        with tp.use_model_axis(model_axis):
+            loss, grads = step_lib.loss_and_grads(model, leaves, treedef,
+                                                  batch, 1, microbatch)
         del leaves
         with torch.no_grad():
             grads = [coll.all_reduce(g, axis) / size if d is None
@@ -153,26 +249,38 @@ def make_loss_and_grads(model: Model, axis: coll.MeshAxis,
 def make_data_parallel_step(model: Model, opt_cfg: opt_lib.OptConfig,
                             schedule: Callable[[Array], Array],
                             axis: coll.MeshAxis,
-                            microbatch: int = 1) -> Callable:
+                            microbatch: int = 1,
+                            model_axis: Optional[coll.MeshAxis] = None
+                            ) -> Callable:
     """Returns f(param shards, opt-state shards, local batch) -> (param
     shards, opt-state shards, metrics) for this rank of the data-parallel
-    ``axis``.  ``metrics`` are the global batch's ``loss`` and
-    ``grad_norm`` (before clipping), ``lr`` and ``step`` (after the
-    update), as ``make_train_step``'s."""
-    dims: List[Optional[int]] = tree_flatten(shard_dims(model, axis))[0]
+    ``axis`` and of ``model_axis``.  ``metrics`` are the global batch's
+    ``loss`` and ``grad_norm`` (before clipping), ``lr`` and ``step``
+    (after the update), as ``make_train_step``'s."""
+    layout = param_layout(model, axis, model_axis)
+    dims: List[Optional[int]] = tree_flatten(layout.dims)[0]
+    mdims: List[Optional[int]] = [None] * len(dims) if model_axis is None \
+        else tree_flatten(layout.model_dims)[0]
     unclipped = dataclasses.replace(opt_cfg, grad_clip=0.0)
-    loss_and_grads = make_loss_and_grads(model, axis, microbatch)
+    loss_and_grads = make_loss_and_grads(model, axis, microbatch, model_axis)
+    # each square once: summed over the axes a leaf is sharded on (the
+    # identity over a model axis of 1, which keeps the data-parallel sums)
+    over_model = (lambda t: t) if model_axis is None else \
+        (lambda t: coll.all_reduce(t, model_axis))
 
     def train_step(params, opt_state, batch):
         loss, grad_tree = loss_and_grads(params, batch)
         grads, treedef = tree_flatten(grad_tree)
         with torch.no_grad():
-            sq = lambda ds: sum((torch.sum(torch.square(g.float()))
-                                 for g, d in zip(grads, dims) if ds(d)),
-                                torch.zeros((), dtype=torch.float32,
-                                            device=loss.device))
-            total = coll.all_reduce(sq(lambda d: d is not None), axis) \
-                + sq(lambda d: d is None)
+            sq = lambda on_data, on_model: sum(
+                (torch.sum(torch.square(g.float()))
+                 for g, d, md in zip(grads, dims, mdims)
+                 if (d is not None) == on_data
+                 and (md is not None) == on_model),
+                torch.zeros((), dtype=torch.float32, device=loss.device))
+            total = coll.all_reduce(over_model(sq(True, True))
+                                    + sq(True, False), axis) \
+                + over_model(sq(False, True)) + sq(False, False)
             gnorm = torch.sqrt(total)
             if opt_cfg.grad_clip > 0:
                 scale = torch.clamp(opt_cfg.grad_clip

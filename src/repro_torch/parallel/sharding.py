@@ -13,17 +13,19 @@ a step resolves them against its mesh:
 
 The reference's ``repro/parallel/sharding.py`` without JAX: a
 :class:`PartitionSpec` is a plain tuple of entries (an axis name,
-``None``, or a tuple of names), and the rules map it to mesh axes for
-``parallel.data_parallel``, which holds a leaf whose resolved spec names
-``data`` as its shard along that dim.  That step runs on a mesh whose
-``model`` axis is 1; the tensor-parallel axis (``named_sharding`` and
-:func:`shard` on a ``model`` axis > 1) is a later step of ``ROADMAP.md``.
+``None``, or a tuple of names), and the rules map it to mesh axes
+(:func:`named_sharding`) for ``parallel.data_parallel``, which holds a
+leaf whose resolved spec names ``data`` or ``model`` as its shard along
+that dim.  The layers write the reference's activation constraints out
+as ``parallel.tensor_parallel``'s collectives, so :func:`shard` is the
+identity here.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
 
 Axes = Union[None, str, Tuple[str, ...]]
 Rules = Dict[str, Axes]
@@ -101,22 +103,57 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     return dict(mesh.shape)
 
 
-def check_data_parallel(mesh) -> None:
-    """Raises for a mesh the port's steps cannot run on: a ``model`` axis
-    above 1 (``NotImplementedError``: the tensor-parallel step is a later
-    step of ``ROADMAP.md``) or an axis other than pod, data and model
+def check_mesh(mesh, cfg=None) -> None:
+    """Raises for a mesh the port's steps cannot run on: an axis other
+    than pod, data and model (``ValueError``), and, given the model's
+    ``cfg``, a ``model`` axis above 1 that the tensor-parallel step does
+    not cover (``NotImplementedError``, naming the step of ``ROADMAP.md``
+    section 1 that ports it) or whose heads do not split over it
     (``ValueError``)."""
     sizes = _mesh_sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh whose model axis is {sizes['model']} ({sizes}): the "
-            "port runs data-parallel (model == 1); the tensor-parallel step "
-            "(the model axis, named_sharding and its collectives) is a "
-            "later step of ROADMAP.md")
     other = set(sizes) - {"pod", "data", "model"}
     if other:
         raise ValueError(f"mesh axes {sorted(other)} are neither pod, data "
                          "nor model")
+    m = sizes.get("model", 1)
+    if cfg is None or m == 1:
+        return
+    where = f"{cfg.name} on a model axis of {m} ({sizes})"
+    if "R" in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{where}: RWKV blocks over tp are step 2 of ROADMAP.md "
+            "section 1")
+    from ..models.transformer import MOE_CHARS
+    if cfg.num_experts % 16 == 0 and any(ch in MOE_CHARS
+                                         for ch in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{where}: {cfg.num_experts} experts shard over ep; expert "
+            "parallelism is step 1 of ROADMAP.md section 1")
+    if cfg.attn_dp:
+        raise NotImplementedError(
+            f"{where}: attn_dp (batch-parallel attention) is queued with "
+            "step 1 of ROADMAP.md section 1")
+    h, g = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    if h % m or ((h // m) % g and g % (h // m)):
+        raise ValueError(
+            f"{where}: {h} heads in groups of {g} a kv head do not split "
+            "into whole groups, or parts of one, a rank")
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A logical spec resolved against a mesh: ``spec`` names the mesh's
+    axes (``jax.sharding.NamedSharding`` without devices)."""
+    mesh: Any
+    spec: "PartitionSpec"
+
+
+def named_sharding(mesh, spec: PartitionSpec,
+                   rules: Optional[Rules] = None) -> NamedSharding:
+    """``spec`` resolved against ``mesh`` by ``rules`` (default: the
+    mesh's, :func:`rules_for_mesh`)."""
+    return NamedSharding(mesh, resolve_spec(spec,
+                                            rules or rules_for_mesh(mesh)))
 
 
 def rules_for_mesh(mesh, overrides: Optional[Rules] = None) -> Rules:
@@ -178,13 +215,13 @@ def shard(x, *logical: Axes):
     """Activation sharding constraint in logical axis names:
     ``shard(x, 'batch', None, 'tp')`` on a (B, S, D)-like tensor.
 
-    The identity on a mesh whose ``model`` axis is 1 (each rank holds
-    its batch rows whole, as the reference's constraint leaves them) and
-    outside any mesh.  Under an ambient mesh (``launch.mesh.
-    activate_mesh``) with a ``model`` axis > 1 it raises
-    (:func:`check_data_parallel`)."""
+    The identity: a rank holds its batch rows whole, and the layers
+    issue the tensor-parallel step's collectives themselves
+    (``parallel.tensor_parallel``).  Under an ambient mesh
+    (``launch.mesh.activate_mesh``) its axes are checked
+    (:func:`check_mesh`)."""
     from ..launch.mesh import current_mesh
     mesh = current_mesh()
     if mesh is not None:
-        check_data_parallel(mesh)
+        check_mesh(mesh)
     return x

@@ -1,0 +1,91 @@
+"""The tensor-parallel ``model`` axis of a training step.
+
+The reference shards by spec (heads, ``ff`` and the vocabulary over
+``tp``; Mamba's inner channels too) and lets XLA partition the step.
+The port writes the partition out: each rank holds its columns of a
+column-parallel weight and its rows of a row-parallel one, and the
+layers call the helpers below where the reference constrains an
+activation (``sharding.shard``):
+
+* :func:`copy_to` (*f*) on the input of every column-parallel product
+  and on a replicated parameter applied to this rank's part of a
+  sharded activation (``q_norm``; ``k_norm``, whose whole k serves this
+  rank's q heads only): the identity, its gradient summed over ``model``;
+* :func:`reduce_from` (*g*) on the output of every row-parallel product:
+  the sum over ``model``, its gradient passed through;
+* :func:`gather` for k and v, which every rank uses whole: an
+  all-gather, its gradient reduce-scattered;
+* :func:`all_max` (no gradient) for the vocab-parallel logsumexp.
+
+The axis is ambient (:func:`use_model_axis`) and process-wide, not per
+thread: the autograd engine runs a backward on the card, and the forward
+a checkpoint recomputes there, on its own device thread.  With no axis
+in scope, or an axis of one position, every helper is the identity and
+issues nothing, so the one-device and data-parallel steps and their
+traces are unchanged.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from . import collectives as coll
+
+Array = torch.Tensor
+
+_axis: Optional[coll.MeshAxis] = None
+
+
+@contextlib.contextmanager
+def use_model_axis(axis: Optional[coll.MeshAxis]):
+    """Make ``axis`` (the mesh's ``model`` dim, or ``None``) the ambient
+    model axis for the body of a ``with``."""
+    global _axis
+    prev, _axis = _axis, axis
+    try:
+        yield axis
+    finally:
+        _axis = prev
+
+
+def current_axis() -> Optional[coll.MeshAxis]:
+    """The ambient model axis when it has more than one position, else
+    ``None``."""
+    return _axis if _axis is not None and _axis.size > 1 else None
+
+
+def size() -> int:
+    axis = current_axis()
+    return 1 if axis is None else axis.size
+
+
+def part(n: int) -> Tuple[int, int]:
+    """``[lo, hi)``: this rank's equal part of ``n`` (all of it off a
+    model axis)."""
+    axis = current_axis()
+    if axis is None:
+        return 0, n
+    w = n // axis.size
+    return axis.index * w, (axis.index + 1) * w
+
+
+def copy_to(x: Array) -> Array:
+    axis = current_axis()
+    return x if axis is None else coll.CopyToModel.apply(x, axis)
+
+
+def reduce_from(x: Array) -> Array:
+    axis = current_axis()
+    return x if axis is None else coll.ReduceFromModel.apply(x, axis)
+
+
+def gather(x: Array, dim: int) -> Array:
+    axis = current_axis()
+    return x if axis is None else coll.GatherFromModel.apply(x, axis, dim)
+
+
+def all_max(x: Array) -> Array:
+    axis = current_axis()
+    return x if axis is None else coll.all_reduce(x.detach(), axis, op="max")

@@ -90,8 +90,6 @@ EXCEPTIONS = {
 # Reference names the port does not have, each with the ROADMAP step
 # that ports it.
 NOT_PORTED = {
-    # the tensor-parallel step: a NamedSharding over a model axis > 1
-    "parallel.sharding": {"named_sharding"},
     # no step: JAX's shard_map across its versions; the port's ranks are
     # processes that run the solver bodies themselves
     "core.distributed": {"shard_map"},

@@ -785,3 +785,59 @@ def test_placed_nccl_world_on_four_cards_matches_one_card(cuda):
     lowered = lowering.lower_train_cell(cfg, dpw.CELL, mesh)
     assert all(rank["trace"] == lowered.collectives
                for rank in world["ranks"])
+
+
+def test_lowering_the_production_mesh_allocates_no_card_memory(cuda):
+    """Qwen3-4B at full width (2 layers) on the (16, 16) mesh's
+    ``train_4k`` cell: the tensor-parallel step runs on ``meta``."""
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import shape_cell
+    cfg = configs.get_config("qwen3_4b").with_overrides(
+        num_layers=2, layer_pattern="TT")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cell = lowering.lower_train_cell(cfg, shape_cell("train_4k"),
+                                     make_production_mesh())
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    ids = np.arange(256).reshape(16, 16)
+    assert {op.kind for op in cell.collectives
+            if op.groups == ids.tolist()} == \
+        {"all-gather", "all-reduce", "reduce-scatter"}
+    assert all(op.groups in (ids.tolist(), ids.T.tolist())
+               for op in cell.collectives)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "jamba_v0_1_52b"])
+def test_tensor_parallel_world_on_the_card_matches_cpu(cuda, arch):
+    """4 gloo ranks on cuda:0 as a (2, 2) mesh: the first step's loss and
+    gradients, on the mesh and on a placed order of its ranks, and three
+    steps' losses are one CPU device's; every step issues one trace (the
+    lowered cell's for Qwen3); Jamba's ranks launch K8 on their channel
+    slices (the backward's collectives run on the autograd engine's
+    device thread, and are recorded all the same)."""
+    import _torch_tp_world as tpw
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_mesh_with_devices
+    from repro_torch.launch.world import run_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = run_world(tpw.tp_rank, 4, device_type="cuda", backend="gloo",
+                      args=(arch, (2, 2), (3, 1, 0, 2), "cuda"),
+                      timeout_s=600)
+    loss, grads, losses = tpw.one_device(arch, "cpu")
+    for rank in ranks:
+        for got_loss, got, _ in (rank["first"], rank["placed"]):
+            assert got_loss == pytest.approx(loss, rel=1e-4)
+            for g, want in zip(got, grads):
+                assert float(np.abs(g - want).max()) <= \
+                    1e-4 * float(np.abs(want).max())
+        np.testing.assert_allclose(rank["losses"], losses, rtol=1e-4)
+        assert all(t == rank["traces"][0] for t in rank["traces"])
+        if arch == "jamba_v0_1_52b":
+            assert rank["launches"]["selective_scan"] > 0
+    if arch == "qwen3_4b":
+        mesh = make_mesh_with_devices(["cuda:0"] * 4, (2, 2), tpw.AXES)
+        lowered = lowering.lower_train_cell(tpw.config(arch), tpw.CELL, mesh)
+        assert all(rank["traces"][0] == lowered.collectives
+                   for rank in ranks)

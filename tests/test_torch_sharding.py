@@ -7,6 +7,7 @@ ambient mesh."""
 import math
 
 import jax
+import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as RefP
 
@@ -177,6 +178,27 @@ def test_resolve_spec_equals_reference(spec, rules):
             tuple(ref_sh.resolve_spec(RefP(*spec)))
 
 
+@pytest.mark.parametrize("spec", SPECS[:7], ids=str)
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_named_sharding_resolves_as_the_reference(spec, multi_pod):
+    """The port's ``named_sharding`` on the production mesh of logical ids
+    against the reference's on a one-device jax mesh of the same axes
+    (the rules read only the axis names), on the specs the declarations
+    use (the reference's ``NamedSharding`` refuses a spec that names an
+    axis the mesh lacks, or one axis twice)."""
+    shape, axes = mesh.production_shape(multi_pod)
+    ref_mesh_ = jax.sharding.Mesh(
+        np.asarray(jax.devices()[:1]).reshape((1,) * len(axes)), axes)
+    got = sh.named_sharding(mesh.make_production_mesh(multi_pod=multi_pod),
+                            sh.PartitionSpec(*spec))
+    want = ref_sh.named_sharding(ref_mesh_, RefP(*spec))
+    assert tuple(got.spec) == tuple(want.spec)
+    over = dict(sh.rules_for_mesh(MetaMesh(shape, axes)), tp=None)
+    assert tuple(sh.named_sharding(MetaMesh(shape, axes), sh.PartitionSpec(
+        *spec), over).spec) == tuple(ref_sh.named_sharding(
+            ref_mesh_, RefP(*spec), over).spec)
+
+
 def test_use_rules_nests_and_restores():
     assert sh.current_rules() == ref_sh.current_rules() == \
         sh.SINGLE_POD_RULES
@@ -197,6 +219,9 @@ def test_stack_prepends_an_unsharded_layer_axis():
 
 
 def test_activate_mesh_and_shard():
+    """``shard`` is the identity on every mesh, the production (16, 16)
+    among them (the layers issue the tensor-parallel collectives
+    themselves); a mesh of other axes raises."""
     x = object()
     assert mesh.current_mesh() is None and sh.shard(x, "batch") is x
     single = mesh.make_production_mesh()
@@ -206,8 +231,10 @@ def test_activate_mesh_and_shard():
         assert sh.shard(x, "batch", None, "tp") is x
         with mesh.activate_mesh(single):
             assert mesh.current_mesh() is single
-            with pytest.raises(NotImplementedError, match="tensor-parallel"):
-                sh.shard(x, "batch", None, "tp")
+            assert sh.shard(x, "batch", None, "tp") is x
+            with mesh.activate_mesh(MetaMesh((2, 2), ("data", "expert"))):
+                with pytest.raises(ValueError, match="expert"):
+                    sh.shard(x, "batch", None, "tp")
         assert mesh.current_mesh() is data_only
     assert mesh.current_mesh() is None
 
@@ -227,5 +254,18 @@ def test_data_parallel_shards_every_fsdp_leaf_on_one_dim(shape, axes, want):
         assert (d is None) == ("fsdp" not in tuple(s))
         if d is not None:
             assert tuple(s)[d] == "fsdp"
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        dp.data_axis(MetaMesh((4, 2), ("data", "model")))
+    # a model axis above 1: the same data shards, and each "tp" leaf's
+    # part along its tp dim
+    tp_mesh = MetaMesh(tuple(s if a != "model" else 2
+                             for s, a in zip(shape, axes)), axes)
+    axis = dp.data_axis(tp_mesh)
+    assert axis.dims == want and axis.size == math.prod(shape)
+    assert param.tree_flatten(dp.shard_dims(model, axis))[0] == dims
+    model_axis = dp.model_axis(tp_mesh)
+    assert model_axis.dims == ("model",) and model_axis.size == 2
+    assert dp.model_axis(MetaMesh(shape, axes)) is None
+    mdims = param.tree_flatten(dp.shard_dims(model, model_axis))[0]
+    for d, s in zip(mdims, specs):
+        assert (d is None) == ("tp" not in tuple(s))
+        if d is not None:
+            assert tuple(s)[d] == "tp"

@@ -768,17 +768,28 @@ def test_launch_train_equals_reference(tmp_path):
 
 
 def test_launch_train_runs_on_one_device_only():
-    """One device, or data parallelism (``tests/test_torch_placement_job.py``
-    trains a (4, 1) world): a model axis above 1 raises, naming the
-    tensor-parallel step, before any world starts."""
+    """One device, data parallelism (``tests/test_torch_placement_job.py``
+    trains a (4, 1) world) or a model axis above 1 for the families the
+    tensor-parallel step covers (``tests/test_torch_tensor_parallel.py``
+    trains (2, 2) and (1, 4) worlds).  What it leaves to later steps
+    raises before any world starts, naming the step of ``ROADMAP.md``:
+    RWKV blocks, experts sharded over ep and ``attn_dp``."""
     cfg = configs.smoke_config("qwen3_4b")
     two = tmesh.make_mesh_with_devices(["cpu", "cpu"], (1, 2),
                                        ("data", "model"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel step"):
-        launch_train.train(cfg, steps=1, global_batch=2, seq_len=16, mesh=two)
-    with pytest.raises(NotImplementedError, match="tensor-parallel step"):
-        launch_train.train(cfg, steps=1, global_batch=2, seq_len=16, mesh=two,
-                           placement="psa")
+    kw = dict(steps=1, global_batch=2, seq_len=16, mesh=two)
+    with pytest.raises(NotImplementedError, match="step 2 of ROADMAP"):
+        launch_train.train(configs.smoke_config("rwkv6_7b"), **kw)
+    ep = configs.smoke_config("qwen3_moe_235b_a22b").with_overrides(
+        num_experts=16)
+    with pytest.raises(NotImplementedError, match="step 1 of ROADMAP"):
+        launch_train.train(ep, placement="psa", **kw)
+    with pytest.raises(NotImplementedError, match="attn_dp"):
+        launch_train.train(cfg.with_overrides(attn_dp=True), **kw)
+    with pytest.raises(ValueError, match="heads"):
+        launch_train.train(cfg, steps=1, global_batch=2, seq_len=16,
+                           mesh=tmesh.make_mesh_with_devices(
+                               ["cpu"] * 8, (1, 8), ("data", "model")))
     one = tmesh.make_mesh_with_devices(["cpu"], (1, 1), ("data", "model"))
     out = launch_train.train(cfg, steps=2, global_batch=2, seq_len=16,
                              mesh=one, placement="psa", log_every=1)
