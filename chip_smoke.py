@@ -145,6 +145,22 @@ Phases, each of which must pass:
    first step's loss and gradients within 1e-4 of one CPU device's (of
    each leaf's largest magnitude), every rank launching K8 on its
    ``d_inner / 2`` channels;
+   then a fifteenth route, ``expert-parallel``, the model axis for every
+   architecture: Jamba-v0.1-52B (1 of 16 experts and ``d_inner / 16``
+   Mamba channels a model rank), Qwen3-MoE-235B-A22B (8 of 128 experts,
+   4 of 64 heads) and RWKV6-7B (4 of 64 heads) at full width and depth,
+   ``train_4k`` lowered on the production (16, 16) mesh
+   without devices (seconds, ops by kind and by axis,
+   ``total_collective_bytes``; the card's allocation unchanged), each
+   placed with ``place_job`` (psa, a fresh default service) on the
+   16 x 16 torus -- the multilevel route, K1, K6 and K7 launched -- and
+   psa on C / max(C) card == CPU bit for bit (the CPU's in a pool
+   process beside the card's solves); then one world of 4 gloo ranks on
+   cuda:0 as a (2, 2) mesh running Jamba's ``SMOKE`` config with 16
+   experts (4 a model rank, over ep) and RWKV6's ``SMOKE`` config, both
+   in f32: each first step's loss and gradients within 1e-4 of one CPU
+   device's (of each leaf's largest magnitude), every rank launching K8
+   in Jamba's Mamba layers;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -344,6 +360,13 @@ TP_STEPS = 3
 TP_WORLD_SHAPE = (2, 2)
 TP_SMOKE_ARCH, TP_SMOKE_SEQ, TP_SMOKE_BATCH = "jamba_v0_1_52b", 32, 8
 TP_SMOKE_TOL = 1e-4
+
+# The expert-parallel route: three architectures at full width and depth
+# lowered on the production (16, 16) mesh and placed on its torus; SMOKE
+# configs in f32 on one (2, 2) world of gloo ranks on cuda:0 against one
+# CPU device (16 experts, so that they shard over ep).
+EP_ARCHS = ("jamba_v0_1_52b", "qwen3_moe_235b_a22b", "rwkv6_7b")
+EP_SMOKE = (("jamba_v0_1_52b", dict(num_experts=16)), ("rwkv6_7b", {}))
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -2914,7 +2937,7 @@ def drive_placement(card, device="cuda"):
     return counts, want
 
 
-def by_axis(lowered, mesh_shape):
+def by_axis(lowered, mesh_shape, tag="tensor-parallel"):
     """A lowered cell's ops by (axis, kind): ``{(axis, kind): [count,
     result bytes]}``, each op's groups those of the mesh's ``model`` or
     data axis (``[d, m]`` logical ids)."""
@@ -2924,7 +2947,7 @@ def by_axis(lowered, mesh_shape):
     out = {}
     for op in lowered.collectives:
         axis = next((a for a, g in groups.items() if op.groups == g), None)
-        require(axis is not None, f"[tensor-parallel] {op.kind} on groups "
+        require(axis is not None, f"[{tag}] {op.kind} on groups "
                 f"{op.groups[:2]}... of neither axis")
         k = out.setdefault((axis, op.kind), [0, 0])
         k[0] += 1
@@ -2969,59 +2992,69 @@ def lower_tp_cell(device):
     return mesh, lowered
 
 
-def place_tp_cell(mesh, lowered, device):
-    """``place_job`` (psa, a fresh default service) on the mesh's 16 x 16
-    torus, then psa on C / max(C) on the card beside the CPU's in a pool
-    process, bit for bit.  Returns the launches of both card solves."""
+def place_cells(cells, device, tag):
+    """For each of ``cells`` (``{name: (mesh, LoweredCell)}`` on the
+    production mesh): ``place_job`` (psa, a fresh default service) on the
+    mesh's 16 x 16 torus, then psa on C / max(C) on the card beside the
+    CPU's in a pool process, bit for bit.  Returns the launches of all
+    the card's solves."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from repro_torch.kernels import ops
     from repro_torch.launch import placement as pl
-    n = lowered.num_devices
-    c = pl.traffic_from_compiled(lowered, n)
-    m = pl.system_graph_for_mesh(mesh)
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+
+    def fresh():
+        pl.reset_default_service()
+        return pl.default_service() if device == "cuda" else \
+            pl.PlacementService(device=device)
+
+    inst = {name: (pl.traffic_from_compiled(lowered, lowered.num_devices),
+                   pl.system_graph_for_mesh(mesh))
+            for name, (mesh, lowered) in cells.items()}
+    workers = min(len(cells), PLACE_CPU_WORKERS)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
         t_cpu = time.perf_counter()
-        cpu = pool.submit(place_cpu_solve, os.path.join(ROOT, "src"),
-                          c / c.max(), m, "psa")
+        cpu = {name: pool.submit(place_cpu_solve, os.path.join(ROOT, "src"),
+                                 c / c.max(), m, "psa")
+               for name, (c, m) in inst.items()}
         before = ops.launch_counts()
+        card = {}
+        for name, (mesh, lowered) in cells.items():
+            n = lowered.num_devices
+            c, m = inst[name]
+            start = ops.launch_counts()
+            t = time.perf_counter()
+            placed, res = pl.place_job(lowered, mesh, "psa", service=fresh())
+            sync(device)
+            wall = time.perf_counter() - t
+            perm = res.perm.tolist()
+            require(sorted(perm) == list(range(n))
+                    and placed.devices.reshape(-1).tolist() == perm,
+                    f"[{tag}] {name} place_job: not the placed mesh")
+            require(res.cost_after <= res.cost_before,
+                    f"[{tag}] {name} place_job: F above F(identity)")
+            launched = {k: v for k, v in launches_since(start).items() if v}
+            print(f"[{tag}] {name}: place_job on the 16 x 16 torus: "
+                  f"F(identity) {res.cost_before!r}, F {res.cost_after!r}, "
+                  f"gain {res.gain:.6f}, {wall:.3f} s; launches {launched}",
+                  flush=True)
+            card[name] = solve_job_placement(
+                fresh(), c / c.max(), m, "psa", device,
+                f"{name}, 256 ranks, torus, psa, C / max(C)", tag=tag)
         pl.reset_default_service()
-        t = time.perf_counter()
-        placed, res = pl.place_job(lowered, mesh, "psa",
-                                   service=pl.default_service()
-                                   if device == "cuda" else
-                                   pl.PlacementService(device=device))
-        sync(device)
-        wall = time.perf_counter() - t
-        perm = res.perm.tolist()
-        require(sorted(perm) == list(range(n))
-                and placed.devices.reshape(-1).tolist() == perm,
-                "[tensor-parallel] place_job: not the placed mesh")
-        require(res.cost_after <= res.cost_before,
-                "[tensor-parallel] place_job: F above F(identity)")
-        launched = {k: v for k, v in launches_since(before).items() if v}
-        print(f"[tensor-parallel] place_job on the 16 x 16 torus: "
-              f"F(identity) {res.cost_before!r}, F {res.cost_after!r}, gain "
-              f"{res.gain:.6f}, {wall:.3f} s; launches {launched}",
-              flush=True)
-        pl.reset_default_service()
-        fresh = pl.default_service() if device == "cuda" else \
-            pl.PlacementService(device=device)
-        card = solve_job_placement(fresh, c / c.max(), m, "psa", device,
-                                   "256 ranks, torus, psa, C / max(C)",
-                                   tag="tensor-parallel")
-        pl.reset_default_service()
-        got = cpu.result()
+        got = {name: f.result() for name, f in cpu.items()}
         cpu_wall = time.perf_counter() - t_cpu
     counts = launches_since(before)
     for kernel in ("qap_delta", "qap_objective_sparse", "qap_delta_sparse"):
-        require(counts[kernel] > 0, f"[tensor-parallel] the placement "
-                f"launched no {kernel}")
-    require(got == card, f"[tensor-parallel] C / max(C): card {card[1:]} "
-            f"!= cpu {got[1:]}")
-    print(f"[tensor-parallel] C / max(C): card == cpu (the CPU's solve "
-          f"{cpu_wall:.1f} s, beside the card's)", flush=True)
+        require(counts[kernel] > 0 or device == "cpu", f"[{tag}] the "
+                f"placements launched no {kernel}")
+    for name in cells:
+        require(got[name] == card[name], f"[{tag}] {name} C / max(C): card "
+                f"{card[name][1:]} != cpu {got[name][1:]}")
+    print(f"[{tag}] C / max(C): card == cpu on {sorted(cells)} (the CPU's "
+          f"solves {cpu_wall:.1f} s in {workers} pool process(es), beside "
+          f"the card's)", flush=True)
     return counts
 
 
@@ -3073,17 +3106,18 @@ def train_tp_world(card, device, want):
           f"{world_wall:.2f} s; card {card}", flush=True)
 
 
-def tp_smoke_config():
+def smoke_world_config(arch, overrides):
+    """``arch``'s SMOKE config in f32 compute with ``overrides``."""
     from repro_torch import configs
     import torch
-    return configs.smoke_config(TP_SMOKE_ARCH).with_overrides(
-        compute_dtype=torch.float32)
+    return configs.smoke_config(arch).with_overrides(
+        compute_dtype=torch.float32, **overrides)
 
 
-def tp_smoke_rank(world_mesh):
-    """One rank of the SMOKE world: the first step's loss and whole
-    gradients on the (2, 2) mesh of the world's ranks, and this rank's
-    K8 launches."""
+def smoke_rank(world_mesh, cases):
+    """One rank of a SMOKE world: for each of ``cases`` (``(arch,
+    overrides)``), the first step's loss and whole gradients on the
+    (2, 2) mesh of the world's ranks, and this rank's K8 launches."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -3095,21 +3129,26 @@ def tp_smoke_rank(world_mesh):
     torch.set_num_threads(1)
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if world_mesh.device_type == "cuda" else torch.device("cpu")
-    cfg = tp_smoke_config()
-    model = Model(cfg, device=dev)
-    mesh = DeviceMesh(dev.type, torch.arange(dist.get_world_size()).reshape(
-        TP_WORLD_SHAPE), mesh_dim_names=("data", "model"))
-    axis, model_axis = dp.data_axis(mesh), dp.model_axis(mesh)
-    layout = dp.param_layout(model, axis, model_axis)
-    params = layout.shard(model.init(torch.Generator().manual_seed(0)))
-    batch = dp.shard_batch(cfg, tp_smoke_cell(), data_lib.to_device(
-        data_lib.batch_at(tp_smoke_data(cfg), 0), dev), axis)
-    ops.reset_launch_counts()
-    loss, grads = dp.make_loss_and_grads(model, axis,
-                                         model_axis=model_axis)(params, batch)
-    k8 = ops.launch_counts()["selective_scan"]
-    return {"loss": float(loss), "k8": k8, "grads": [
-        g.cpu().numpy() for g in tree_flatten(layout.gather(grads))[0]]}
+    out = []
+    for arch, overrides in cases:
+        cfg = smoke_world_config(arch, overrides)
+        model = Model(cfg, device=dev)
+        mesh = DeviceMesh(dev.type, torch.arange(
+            dist.get_world_size()).reshape(TP_WORLD_SHAPE),
+            mesh_dim_names=("data", "model"))
+        axis, model_axis = dp.data_axis(mesh), dp.model_axis(mesh)
+        layout = dp.param_layout(model, axis, model_axis)
+        params = layout.shard(model.init(torch.Generator().manual_seed(0)))
+        batch = dp.shard_batch(cfg, tp_smoke_cell(), data_lib.to_device(
+            data_lib.batch_at(tp_smoke_data(cfg), 0), dev), axis)
+        ops.reset_launch_counts()
+        loss, grads = dp.make_loss_and_grads(
+            model, axis, model_axis=model_axis)(params, batch)
+        out.append({"loss": float(loss),
+                    "k8": ops.launch_counts()["selective_scan"],
+                    "grads": [g.cpu().numpy() for g in
+                              tree_flatten(layout.gather(grads))[0]]})
+    return out
 
 
 def tp_smoke_cell():
@@ -3124,51 +3163,58 @@ def tp_smoke_data(cfg):
                                global_batch=TP_SMOKE_BATCH, seed=0)
 
 
-def check_tp_smoke_world(device):
-    """Jamba SMOKE in f32 on a (2, 2) world of gloo ranks on ``device``
-    against one CPU device: the first step's loss and gradients, and K8
-    launched on every rank."""
+def check_smoke_world(device, cases, tag):
+    """``cases`` (``(arch, overrides)``: SMOKE configs in f32) in one
+    (2, 2) world of gloo ranks on ``device`` against one CPU device: each
+    first step's loss and gradients, and K8 launched on every rank of a
+    model with Mamba layers.  Returns the world's K8 launches."""
     import numpy as np
     import torch
     from repro_torch.launch.world import run_world
     from repro_torch.models.api import Model
     from repro_torch.models.param import tree_flatten, tree_unflatten
     from repro_torch.train import data as data_lib
-    cfg = tp_smoke_config()
-    model = Model(cfg, device="cpu")
-    leaves, treedef = tree_flatten(model.init(torch.Generator().manual_seed(0)))
-    leaves = [p.detach().requires_grad_(True) for p in leaves]
-    loss = model.loss(tree_unflatten(treedef, leaves), data_lib.to_device(
-        data_lib.batch_at(tp_smoke_data(cfg), 0), "cpu"))
-    want = [g.numpy() for g in torch.autograd.grad(loss, leaves)]
-    loss = loss.detach()
+    wants = []
+    for arch, overrides in cases:
+        cfg = smoke_world_config(arch, overrides)
+        model = Model(cfg, device="cpu")
+        leaves, treedef = tree_flatten(
+            model.init(torch.Generator().manual_seed(0)))
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss = model.loss(tree_unflatten(treedef, leaves), data_lib.to_device(
+            data_lib.batch_at(tp_smoke_data(cfg), 0), "cpu"))
+        wants.append((cfg, float(loss.detach()), [
+            g.numpy() for g in torch.autograd.grad(loss, leaves)]))
     t = time.perf_counter()
-    ranks = run_world(tp_smoke_rank, math.prod(TP_WORLD_SHAPE),
+    ranks = run_world(smoke_rank, math.prod(TP_WORLD_SHAPE),
                       device_type=torch.device(device).type, backend="gloo",
-                      timeout_s=600)
+                      args=(tuple(cases),), timeout_s=600)
     wall = time.perf_counter() - t
-    worst = 0.0
-    for r, rank in enumerate(ranks):
-        require(abs(rank["loss"] - float(loss)) <= TP_SMOKE_TOL * abs(
-            float(loss)), f"[tensor-parallel] SMOKE rank {r} loss "
-            f"{rank['loss']} != cpu {float(loss)}")
-        require(len(rank["grads"]) == len(want),
-                f"[tensor-parallel] SMOKE rank {r}: leaf count")
-        for i, (g, w) in enumerate(zip(rank["grads"], want)):
-            err = float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
-                                                    1e-30)
-            worst = max(worst, err)
-            require(err <= TP_SMOKE_TOL, f"[tensor-parallel] SMOKE rank "
-                    f"{r} leaf {i}: {err:.3e} of its largest magnitude")
-        if torch.device(device).type == "cuda":
-            require(rank["k8"] > 0, f"[tensor-parallel] SMOKE rank {r} "
-                    f"launched no selective_scan")
-    print(f"[tensor-parallel] {cfg.name} f32 on a {TP_WORLD_SHAPE} world "
-          f"of gloo ranks on {device} == one CPU device: loss "
-          f"{float(loss)!r}, worst leaf {worst:.3e} of its largest "
-          f"magnitude; K8 launches by rank {[r['k8'] for r in ranks]}; "
-          f"world wall {wall:.1f} s", flush=True)
-    return sum(r["k8"] for r in ranks)
+    for i, (cfg, loss, want) in enumerate(wants):
+        worst = 0.0
+        for r, rank in enumerate(ranks):
+            got = rank[i]
+            require(abs(got["loss"] - loss) <= TP_SMOKE_TOL * abs(loss),
+                    f"[{tag}] {cfg.name} rank {r} loss {got['loss']} != "
+                    f"cpu {loss}")
+            require(len(got["grads"]) == len(want),
+                    f"[{tag}] {cfg.name} rank {r}: leaf count")
+            for j, (g, w) in enumerate(zip(got["grads"], want)):
+                err = float(np.abs(g - w).max()) / max(
+                    float(np.abs(w).max()), 1e-30)
+                worst = max(worst, err)
+                require(err <= TP_SMOKE_TOL, f"[{tag}] {cfg.name} rank {r} "
+                        f"leaf {j}: {err:.3e} of its largest magnitude")
+            if torch.device(device).type == "cuda" and \
+                    "m" in cfg.layer_pattern:
+                require(got["k8"] > 0, f"[{tag}] {cfg.name} rank {r} "
+                        f"launched no selective_scan")
+        print(f"[{tag}] {cfg.name} f32 on a {TP_WORLD_SHAPE} world of gloo "
+              f"ranks on {device} == one CPU device: loss {loss!r}, worst "
+              f"leaf {worst:.3e} of its largest magnitude; K8 launches by "
+              f"rank {[rank[i]['k8'] for rank in ranks]}; world wall "
+              f"{wall:.1f} s ({len(cases)} model(s))", flush=True)
+    return sum(c["k8"] for rank in ranks for c in rank)
 
 
 def drive_tensor_parallel(card, want, device="cuda"):
@@ -3178,10 +3224,87 @@ def drive_tensor_parallel(card, want, device="cuda"):
     launches, counted in its own process, are added)."""
     t_route = time.perf_counter()
     mesh, lowered = lower_tp_cell(device)
-    counts = place_tp_cell(mesh, lowered, device)
+    counts = place_cells({"qwen3-4b": (mesh, lowered)}, device,
+                         "tensor-parallel")
     train_tp_world(card, device, want)
-    counts["selective_scan"] += check_tp_smoke_world(device)
+    counts["selective_scan"] += check_smoke_world(
+        device, ((TP_SMOKE_ARCH, {}),), "tensor-parallel")
     print(f"[tensor-parallel] route wall {time.perf_counter() - t_route:.1f} "
+          f"s", flush=True)
+    return counts
+
+
+def lower_ep_cells(device):
+    """EP_ARCHS' train_4k cells at full width and depth lowered on the
+    production (16, 16) mesh of logical devices: ``{name: (mesh,
+    LoweredCell)}``, the card's allocation unchanged."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import shape_cell
+    from repro_torch.models.moe import experts_on_ep
+    from repro_torch.topology import traffic
+    cell, mesh = shape_cell("train_4k"), make_production_mesh()
+    shape = tuple(mesh.shape.values())
+    m = mesh.shape["model"]
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for arch in EP_ARCHS:
+        cfg = configs.get_config(arch)
+        sync(device)
+        before = torch.cuda.memory_allocated() if on_card else 0
+        lowered = lowering.lower_train_cell(cfg, cell, mesh)
+        sync(device)
+        after = torch.cuda.memory_allocated() if on_card else 0
+        require(after == before, f"[expert-parallel] lowering {cfg.name} "
+                f"allocated {after - before} bytes of card memory")
+        ops_ = by_axis(lowered, shape, "expert-parallel")
+        require({k for a, k in ops_ if a == "data"} ==
+                {"all-gather", "all-reduce", "reduce-scatter"} and
+                {"all-gather", "all-reduce"} <=
+                {k for a, k in ops_ if a == "model"},
+                f"[expert-parallel] {cfg.name} ops {sorted(ops_)}")
+        split = []
+        if experts_on_ep(cfg):
+            split.append(f"{cfg.num_experts // m} of {cfg.num_experts} "
+                         f"experts")
+        if "R" in cfg.layer_pattern:
+            h = cfg.d_model // cfg.rwkv_head_size
+            split.append(f"{h // m} of {h} RWKV heads")
+        elif any(ch in "mM" for ch in cfg.layer_pattern):
+            di = cfg.mamba_expand * cfg.d_model
+            split.append(f"{di // m} of {di} Mamba channels")
+        if "R" not in cfg.layer_pattern:
+            split.append(f"{cfg.num_heads * cfg.head_dim // m} of "
+                         f"{cfg.num_heads * cfg.head_dim} q columns "
+                         f"({cfg.num_heads} heads)")
+        print(f"[expert-parallel] lowered {cfg.name} ({cfg.num_layers} "
+              f"layers, train_4k "
+              f"{cell.global_batch} x {cell.seq_len}; a model rank "
+              f"{', '.join(split)}) on {shape} {tuple(mesh.axis_names)} in "
+              f"{lowered.seconds:.2f} s: {len(lowered.collectives)} ops; by "
+              f"(axis, kind): (count, result bytes) "
+              f"{ {k: tuple(v) for k, v in sorted(ops_.items())} }, "
+              f"total_collective_bytes "
+              f"{traffic.total_collective_bytes(lowered.collectives)}; card "
+              f"allocation {before} -> {after} bytes", flush=True)
+        out[cfg.name] = (mesh, lowered)
+    return out
+
+
+def drive_expert_parallel(device="cuda"):
+    """The fifteenth route: the model axis for every architecture.
+    Returns the route's launch counts (the placements'; each SMOKE rank's
+    K8 launches, counted in its own process, are added)."""
+    t_route = time.perf_counter()
+    cells = lower_ep_cells(device)
+    counts = place_cells(cells, device, "expert-parallel")
+    k8 = check_smoke_world(device, EP_SMOKE, "expert-parallel")
+    require(k8 > 0 or device == "cpu", "[expert-parallel] the Jamba world "
+            "launched no selective_scan")
+    counts["selective_scan"] += k8
+    print(f"[expert-parallel] route wall {time.perf_counter() - t_route:.1f} "
           f"s", flush=True)
     return counts
 
@@ -3263,6 +3386,8 @@ def main():
     phase_done("placement")
     runs["tensor-parallel"] = drive_tensor_parallel(card, one_device_losses)
     phase_done("tensor-parallel")
+    runs["expert-parallel"] = drive_expert_parallel()
+    phase_done("expert-parallel")
     print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
           f"build included", flush=True)
 

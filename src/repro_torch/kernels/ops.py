@@ -174,6 +174,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``b``, ``c (B, S, N)`` -> ``(y (B, S, D), h_last (B, D, N))`` f32
     (K8 on the card; contiguous f32 inputs).  Differentiable
     (:class:`selective_scan.SelectiveScan`): K8 forward, the plain scan
-    recomputed for the backward."""
-    _route(u)
+    recomputed for the backward; on ``meta`` tensors, shapes alone)."""
+    if u.device.type != "meta":
+        _route(u)
     return SelectiveScan.apply(u, dt, a, b, c)

@@ -91,9 +91,12 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 class SelectiveScan(torch.autograd.Function):
     """The scan with a gradient: ``SelectiveScan.apply(u, dt, a, b, c)
     -> (y, h_last)``.  Forward: K8 for CUDA tensors, the plain version
-    for CPU ones.  Backward: the plain version recomputed from the saved
-    inputs and differentiated, so every input gets its gradient through
-    both outputs."""
+    for CPU ones, and for ``meta`` ones (a step lowered without devices,
+    ``launch.lowering``) the outputs' shapes, with nothing computed;
+    any other device raises.  Backward: the plain version recomputed
+    from the saved inputs and differentiated, so every input gets its
+    gradient through both outputs (on ``meta``, the gradients'
+    shapes)."""
 
     @staticmethod
     def forward(ctx, u, dt, a, b, c):
@@ -101,12 +104,21 @@ class SelectiveScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if u.is_cuda:
             return selective_scan_cuda(u, dt, a, b, c)
+        if u.device.type == "meta":
+            (bsz, s, d), n = u.shape, a.shape[1]
+            return (u.new_empty((bsz, s, d), dtype=torch.float32),
+                    u.new_empty((bsz, d, n), dtype=torch.float32))
+        if u.device.type != "cpu":
+            raise ValueError(f"selective_scan: unsupported device {u.device}")
         return selective_scan_plain(u, dt, a, b, c)
 
     @staticmethod
     def backward(ctx, gy, gh):
         saved = ctx.saved_tensors
         want = ctx.needs_input_grad
+        if saved[0].device.type == "meta":
+            return tuple(torch.empty_like(x) if w else None
+                         for x, w in zip(saved, want))
         with torch.enable_grad():
             inputs = [x.detach().requires_grad_(w)
                       for x, w in zip(saved, want)]

@@ -18,7 +18,12 @@ columns and vocabulary rows and the collectives around them: *f* on the
 input of each column-parallel product, *g* on the output of each
 row-parallel one, k and v gathered whole before ``k_norm`` and RoPE as
 the reference orders it, and a vocab-parallel embedding and
-cross-entropy.  Off such an axis every one of them is the identity.
+cross-entropy.  Under ``cfg.attn_dp`` (the reference's batch-parallel
+attention), or where the heads do not split into whole kv groups a
+rank (``sharding.whole_head_groups``), q is gathered whole too: every
+rank attends with all heads and keeps its own columns of the output for
+the row-parallel ``wo``, which is what the reference's ``_dp_reshard``
+computes.  Off such an axis every one of them is the identity.
 :func:`lm_loss` is the training loss: the cross-entropy chunked over the
 sequence, each chunk recomputed in the backward.
 """
@@ -34,6 +39,7 @@ from .config import ModelConfig
 from .param import PDecl
 from ..parallel import tensor_parallel as tp
 from ..parallel.sharding import PartitionSpec as P
+from ..parallel.sharding import whole_head_groups
 
 NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -100,8 +106,8 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), roped + normed.
-    On a model axis q holds this rank's heads, and k and v are gathered
-    whole."""
+    On a model axis q holds this rank's heads (all of them where
+    :func:`_gathers_q`), and k and v are gathered whole."""
     b, s, _ = x.shape
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     dt = cfg.compute_dtype
@@ -113,12 +119,14 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    if _gathers_q(cfg):
+        q = tp.gather(q, 2)
     q = q.reshape(b, s, -1, hd)
     k = tp.gather(k, 2).reshape(b, s, kv, hd)
     v = tp.gather(v, 2).reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        # both scales act on what serves this rank's q heads alone: their
-        # gradients are parts of the whole
+        # both scales act on what serves this rank's q heads (or columns
+        # of the output) alone: their gradients are parts of the whole
         q = rmsnorm({"scale": tp.copy_to(params["q_norm"])}, q, cfg.norm_eps)
         k = rmsnorm({"scale": tp.copy_to(params["k_norm"])}, k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
@@ -187,30 +195,45 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(cfg.compute_dtype)
 
 
-def _kv_of_local_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kv heads that this rank's q heads attend with (all of them off
-    a model axis).  ``sharding.check_mesh`` has made this rank's heads
-    whole groups of a kv head each, or a part of one group."""
-    if tp.size() == 1:
-        return k, v
-    lo, hi = tp.part(cfg.num_heads)
-    g = cfg.num_heads // cfg.num_kv_heads
-    return k[:, :, lo // g:(hi - 1) // g + 1], v[:, :, lo // g:(hi - 1) // g + 1]
+def _gathers_q(cfg: ModelConfig) -> bool:
+    """On a model axis: whether every rank gathers q whole and attends
+    with all heads (``attn_dp``, or heads that do not split into whole
+    kv groups a rank)."""
+    m = tp.size()
+    return m > 1 and (cfg.attn_dp or not whole_head_groups(cfg, m))
+
+
+def _attend(params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            cfg: ModelConfig, window: Optional[int], positions: torch.Tensor
+            ) -> torch.Tensor:
+    """The attention of :func:`_project_qkv`'s q, k, v through the
+    row-parallel ``wo``: (B, S, D), summed over a model axis.  A rank
+    with its own q heads attends with the kv heads they use
+    (``sharding.check_mesh`` has made them whole groups of a kv head
+    each, or a part of one group); one with all heads keeps its columns
+    of the output."""
+    b, s = q.shape[:2]
+    gathered = _gathers_q(cfg)
+    if tp.size() > 1 and not gathered:
+        lo, hi = tp.part(cfg.num_heads)
+        g = cfg.num_heads // cfg.num_kv_heads
+        kv = slice(lo // g, (hi - 1) // g + 1)
+        k, v = k[:, :, kv], v[:, :, kv]
+    w = window if (window is not None and window < s) else None
+    pos1d = positions[0]                       # (S,) -- same across batch
+    o = _mea(q, k, v, pos1d, pos1d, cfg, w).reshape(b, s, -1)
+    if gathered:
+        lo, hi = tp.part(o.shape[-1])
+        o = o[..., lo:hi]
+    return tp.reduce_from(o @ params["wo"].to(cfg.compute_dtype))
 
 
 def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
                     window: Optional[int], positions: torch.Tensor
                     ) -> torch.Tensor:
     """Causal self-attention over (B, S, D); returns (B, S, D)."""
-    b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
-    k, v = _kv_of_local_heads(k, v, cfg)
-    w = window if (window is not None and window < s) else None
-    pos1d = positions[0]                       # (S,) -- same across batch
-    o = _mea(q, k, v, pos1d, pos1d, cfg, w)
-    o = o.reshape(b, s, -1)
-    return tp.reduce_from(o @ params["wo"].to(cfg.compute_dtype))
+    return _attend(params, q, k, v, cfg, window, positions)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -239,11 +262,7 @@ def attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     cache_len = cache_len or s
     q, k, v = _project_qkv(params, x, cfg, positions)
-    w = window if (window is not None and window < s) else None
-    pos1d = positions[0]
-    o = _mea(q, k, v, pos1d, pos1d, cfg, w)
-    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    y = o @ params["wo"].to(cfg.compute_dtype)
+    y = _attend(params, q, k, v, cfg, window, positions)
 
     if window and window < cache_len:
         keep = min(window, s)

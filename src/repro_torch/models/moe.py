@@ -10,6 +10,17 @@ side).  Top-k ties go to the lower expert id, as ``jax.lax.top_k``.
 Capacity: ``cap = tokens_per_group * top_k / E * moe_capacity_factor``
 (+1, at most the group size); overflow tokens are dropped.  A factor
 ``<= 0`` is dropless (``cap`` = group size), which serving runs.
+
+On a tensor-parallel ``model`` axis (``parallel.tensor_parallel``) the
+experts shard as the reference declares them.  Where a 16-way axis
+divides them (:func:`experts_on_ep`) each rank holds ``E / m`` whole
+experts: the ranks of a model group route the same tokens alike, each
+dispatches into its own experts' rows of the buffer, runs them, and
+combines their contributions alone, and the partial combines are summed
+over the group (*g*).  The tokens and the router weights enter that
+part through *f*, so the router's gradient comes out whole.  Otherwise
+each expert's ``ff`` columns shard, and the expert output is summed
+before the combine.
 """
 from __future__ import annotations
 
@@ -23,12 +34,17 @@ from .param import PDecl
 from ..parallel.sharding import PartitionSpec as P
 
 
+def experts_on_ep(cfg: ModelConfig) -> bool:
+    """The reference's rule: experts shard over 'ep' when a 16-way axis
+    divides them, else each expert's ff dimension over 'tp'."""
+    return cfg.num_experts > 0 and cfg.num_experts % 16 == 0
+
+
 def moe_decls(cfg: ModelConfig) -> Dict[str, PDecl]:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
-    # the reference's rule: experts shard over 'ep' when a 16-way axis
-    # divides them, else each expert's ff dimension over 'tp'
-    ep_spec = P("ep", "fsdp", None) if e % 16 == 0 else P(None, "fsdp", "tp")
-    ep_spec_out = P("ep", None, "fsdp") if e % 16 == 0 else P(None, "tp", "fsdp")
+    ep = experts_on_ep(cfg)
+    ep_spec = P("ep", "fsdp", None) if ep else P(None, "fsdp", "tp")
+    ep_spec_out = P("ep", None, "fsdp") if ep else P(None, "tp", "fsdp")
     return {
         "router": PDecl((d, e), P("fsdp", None)),
         "wg": PDecl((e, d, f), ep_spec, fan_in=d),
@@ -44,9 +60,20 @@ def _top_k(probs: torch.Tensor, k: int):
     return w[..., :k], ids[..., :k]
 
 
-def _dispatch_group(xg, idg, wg_, cfg: ModelConfig, cap: int):
-    """One group: xg (tg, d); idg/wg_ (tg, k) -> the expert buffer
-    (e, cap, d) and what the combine needs."""
+def _histogram(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``bincount(ids, minlength=e)`` for ids in ``[0, e)``, as a
+    scatter-add of ones: the same integers on the CPU and the card, and
+    a shape alone on ``meta``."""
+    return torch.zeros(e, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
+def _dispatch_group(xg, idg, wg_, cfg: ModelConfig, cap: int, lo: int,
+                    hi: int):
+    """One group: xg (tg, d); idg/wg_ (tg, k) -> the buffer of experts
+    ``[lo, hi)`` (hi - lo, cap, d) and what the combine needs.  Slots
+    and drops are those of the whole buffer: rows of other experts are
+    left out, not packed."""
     tg, d = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     dt = cfg.compute_dtype
@@ -55,11 +82,14 @@ def _dispatch_group(xg, idg, wg_, cfg: ModelConfig, cap: int):
     order = torch.argsort(flat_ids, stable=True)          # local sort only
     sorted_ids = flat_ids[order]
     tok = order // k                                       # source token
-    hist = torch.bincount(flat_ids, minlength=e)
+    hist = _histogram(flat_ids, e)
     start = torch.cumsum(hist, 0) - hist                   # first slot per expert
     pos = torch.arange(tg * k, device=dev) - start[sorted_ids]   # rank within expert
     keep = pos < cap
     slot = torch.where(keep, pos, cap - 1)
+    # this rank's experts: their entries, and each one's row here
+    mine = (sorted_ids >= lo) & (sorted_ids < hi)
+    row = torch.where(mine, sorted_ids - lo, 0)
 
     # Per-slot source token and router weight.  The reference scatters
     # every entry, the dropped ones as (token tg, weight 0) into slot
@@ -74,36 +104,37 @@ def _dispatch_group(xg, idg, wg_, cfg: ModelConfig, cap: int):
     tok_buf[sorted_ids, col] = tok
     w_buf = torch.zeros((e, cap + 1), dtype=torch.float32, device=dev)
     w_buf[sorted_ids, col] = wflat
-    tok_buf, w_buf = tok_buf[:, :cap], w_buf[:, :cap]
-    over = hist > cap
+    tok_buf, w_buf = tok_buf[lo:hi, :cap], w_buf[lo:hi, :cap]
+    over = hist[lo:hi] > cap
     tok_buf[:, cap - 1] = torch.where(over, tg, tok_buf[:, cap - 1])
     w_buf[:, cap - 1] = torch.where(over, 0.0, w_buf[:, cap - 1])
     if cfg.moe_combine == "scatter":
         xg_pad = torch.cat([xg.to(dt), torch.zeros((1, d), dtype=dt,
                                                    device=dev)])
-        buf = xg_pad[tok_buf]                              # (e, cap, d)
+        buf = xg_pad[tok_buf]                              # (hi - lo, cap, d)
     else:
-        buf = torch.zeros((e, cap, d), dtype=dt, device=dev)
-        buf.index_put_((sorted_ids, slot),
-                       torch.where(keep[:, None], xg[tok].to(dt), 0),
+        buf = torch.zeros((hi - lo, cap, d), dtype=dt, device=dev)
+        buf.index_put_((row, slot),
+                       torch.where((keep & mine)[:, None], xg[tok].to(dt), 0),
                        accumulate=True)
-    return buf, (sorted_ids, slot, tok, keep, order, tok_buf, w_buf)
+    return buf, (row, slot, tok, keep & mine, order, tok_buf, w_buf)
 
 
 def _combine_group(yg, wg_, meta, cfg: ModelConfig):
-    """One group's expert outputs yg (e, cap, d) back to (tg, d)."""
-    sorted_ids, slot, tok, keep, order, tok_buf, w_buf = meta
+    """One group's expert outputs yg (hi - lo, cap, d) back to (tg, d):
+    the contributions of the experts ``[lo, hi)`` that dispatched them."""
+    row, slot, tok, used, order, tok_buf, w_buf = meta
     d = yg.shape[-1]
     tg, k = wg_.shape
     dt = cfg.compute_dtype
     if cfg.moe_combine == "scatter":
         # expert-side combine: weight and scatter-add into tg + 1 rows
-        contrib = yg * w_buf[..., None].to(dt)             # (e, cap, d)
+        contrib = yg * w_buf[..., None].to(dt)             # (hi - lo, cap, d)
         out = torch.zeros((tg + 1, d), dtype=dt, device=yg.device)
         out.index_add_(0, tok_buf.reshape(-1), contrib.reshape(-1, d))
         return out[:tg]
-    gathered = yg[sorted_ids, slot]                        # (tg*k, d)
-    gathered = torch.where(keep[:, None], gathered, 0)
+    gathered = yg[row, slot]                               # (tg*k, d)
+    gathered = torch.where(used[:, None], gathered, 0)
     wflat = wg_.reshape(tg * k)[order]
     out = torch.zeros((tg, d), dtype=dt, device=yg.device)
     out.index_add_(0, tok, gathered * wflat[:, None].to(dt))
@@ -131,17 +162,29 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
     else:
         cap = min(int(tg * k / e * cfg.moe_capacity_factor) + 1, tg)
 
-    groups = [_dispatch_group(xf[i], ids[i], w[i], cfg, cap) for i in range(g)]
-    bufs = tp.copy_to(torch.stack([buf for buf, _ in groups]))  # (g, E, cap, D)
+    ep = experts_on_ep(cfg) and tp.size() > 1
+    lo, hi = tp.part(e) if ep else (0, e)
+    if ep:
+        # the tokens and their weights enter this rank's experts alone:
+        # the gradients of both are parts of the whole
+        xf, w = tp.copy_to(xf), tp.copy_to(w)
+    groups = [_dispatch_group(xf[i], ids[i], w[i], cfg, cap, lo, hi)
+              for i in range(g)]
+    bufs = torch.stack([buf for buf, _ in groups])        # (g, E', cap, D)
+    if not ep:
+        bufs = tp.copy_to(bufs)
 
     hg = torch.nn.functional.silu(
         torch.einsum("gecd,edf->gecf", bufs, params["wg"].to(dt)))
     hu = torch.einsum("gecd,edf->gecf", bufs, params["wi"].to(dt))
-    # each expert's ff over the model axis: y is the parts' sum, whole
-    # before the combine, so the router's gradient is whole too
-    y = tp.reduce_from(torch.einsum("gecf,efd->gecd", hg * hu,
-                                    params["wo"].to(dt)))
+    y = torch.einsum("gecf,efd->gecd", hg * hu, params["wo"].to(dt))
+    if not ep:
+        # each expert's ff over the model axis: y is the parts' sum, whole
+        # before the combine, so the router's gradient is whole too
+        y = tp.reduce_from(y)
 
     out = torch.stack([_combine_group(y[i], w[i], groups[i][1], cfg)
                        for i in range(g)])
+    if ep:
+        out = tp.reduce_from(out)              # the experts' parts summed
     return out.reshape(b, s, d)

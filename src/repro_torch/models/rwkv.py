@@ -25,6 +25,22 @@ token-shift mix, ``silu``, ``square(relu(k))``, ``sigmoid(r) * kv``,
 which is cast up to f32.  So in bf16 the port's values equal the
 reference's bit for bit on the CPU, up to the order of the sums inside
 products.
+
+On a tensor-parallel ``model`` axis (``parallel.tensor_parallel``) a
+rank runs its ``H / m`` heads.  Time mix: the token-shift mixes act on
+the whole ``x``, then *f*; ``wr``, ``wk``, ``wv``, ``wg`` and
+``decay_b`` are column-parallel (the rank's channels), and the
+replicated ``decay_base``, ``bonus_u`` and ``ln_scale`` act on the
+rank's slice through *f*; the recurrence and the group norm run on the
+rank's heads and ``wo`` is row-parallel (*g*).  Channel mix: ``ck``
+column- and ``cv`` row-parallel (*g*: ``kv`` whole); ``cr`` is
+column-parallel over ``d``, and its output is gathered whole
+(``tensor_parallel.gather_replicated``) to meet the whole ``kv``.  The
+gate's product then feeds the replicated stream alike on every rank,
+so its gradient is whole there: the gather's backward keeps the rank's
+slice with no collective, and ``kv``'s *g* stays an all-reduce (slicing
+``kv`` instead would leave it a part of its gradient, and need a
+reduce-scatter forward and an all-gather backward in place of *g*).
 """
 from __future__ import annotations
 
@@ -34,6 +50,7 @@ import torch
 
 from .config import ModelConfig
 from .param import PDecl
+from ..parallel import tensor_parallel as tp
 from ..parallel.sharding import PartitionSpec as P
 
 CHUNK = 64
@@ -90,26 +107,48 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def _time_mix_inputs(params, x: torch.Tensor, xs: torch.Tensor,
                      cfg: ModelConfig):
-    """(r, k, v, g, w, u): r, k, v, w (B, S, H, hd) f32, g (B, S, D) in
-    the compute dtype, u (H, hd) f32."""
-    h, hd = _dims(cfg)
+    """(r, k, v, g, w, u): r, k, v, w (B, S, H', hd) f32, g (B, S, D') in
+    the compute dtype, u (H', hd) f32 -- H' this rank's heads, D' their
+    channels (all of them off a model axis)."""
+    hd = cfg.rwkv_head_size
     b, s, d = x.shape
     dt = cfg.compute_dtype
-    r = _mix(x, xs, params["mu_r"]) @ params["wr"].to(dt)
-    k = _mix(x, xs, params["mu_k"]) @ params["wk"].to(dt)
-    v = _mix(x, xs, params["mu_v"]) @ params["wv"].to(dt)
-    g = _mix(x, xs, params["mu_g"]) @ params["wg"].to(dt)
+    lo, hi = tp.part(d)
+
+    def column(mu: str, w: str) -> torch.Tensor:
+        return tp.copy_to(_mix(x, xs, params[mu])) @ params[w].to(dt)
+    r, k, v, g = (column("mu_" + n, "w" + n) for n in "rkvg")
     g = g * _sigmoid(g)                                     # jax.nn.silu
     # the mix's last add in f32: XLA drops its rounding before the cast up
     xw = x.float() + ((xs - x) * params["mu_w"].to(x.dtype)).float()
     # Finch data-dependent decay (exact): w in (0, 1) per channel per token.
-    dec = params["decay_base"].float() + \
-        torch.tanh(xw @ params["decay_a"].float()) @ params["decay_b"].float()
+    dec = tp.copy_to(params["decay_base"].float())[lo:hi] + \
+        tp.copy_to(torch.tanh(xw @ params["decay_a"].float())) @ \
+        params["decay_b"].float()
     w = torch.exp(-torch.exp(torch.clamp(dec, -8.0, 4.0)))
-    shp = (b, s, h, hd)
+    shp = (b, s, -1, hd)
     return (r.reshape(shp).float(), k.reshape(shp).float(),
             v.reshape(shp).float(), g, w.reshape(shp),
-            params["bonus_u"].reshape(h, hd).float())
+            tp.copy_to(params["bonus_u"].float())[lo:hi].reshape(-1, hd))
+
+
+class _WKVShapes(torch.autograd.Function):
+    """:func:`_wkv_scan` on ``meta`` tensors (a step lowered without
+    devices, ``launch.lowering``): the outputs' shapes forward and the
+    inputs' gradients' shapes backward, with nothing computed -- the
+    recurrence issues no collective, and its thousands of per-token ops
+    would only cost the lowering time."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        b, s, h, hd = r.shape
+        return r.new_empty((b, s, h * hd)), s0.new_empty(s0.shape)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return tuple(torch.empty_like(x) if want else None for x, want
+                     in zip(ctx.saved_tensors, ctx.needs_input_grad))
 
 
 def _wkv_scan(r, k, v, w, u, s0):
@@ -123,6 +162,8 @@ def _wkv_scan(r, k, v, w, u, s0):
     if s % c:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"WKV chunk {c} (CHUNK = {CHUNK})")
+    if r.device.type == "meta":
+        return _WKVShapes.apply(r, k, v, w, u, s0)
     state = s0
     ys = []
     for c0 in range(0, s, c):
@@ -152,11 +193,13 @@ def rwkv_time_mix(params, x: torch.Tensor, cfg: ModelConfig,
     """Returns (y, new_x_prev, new_state)."""
     h, hd = _dims(cfg)
     dt = cfg.compute_dtype
+    lo, hi = tp.part(cfg.d_model)
     xs = _shift(x, x_prev)
     r, k, v, g, w, u = _time_mix_inputs(params, x, xs, cfg)
     y, s_last = _wkv_scan(r, k, v, w, u, s0)
-    y = _group_norm(y, params["ln_scale"], h, cfg.norm_eps)
-    y = (y.to(dt) * g) @ params["wo"].to(dt)
+    y = _group_norm(y, tp.copy_to(params["ln_scale"])[lo:hi],
+                    h // tp.size(), cfg.norm_eps)
+    y = tp.reduce_from((y.to(dt) * g) @ params["wo"].to(dt))
     return y, x[:, -1:], s_last
 
 
@@ -165,18 +208,20 @@ def rwkv_channel_mix(params, x: torch.Tensor, cfg: ModelConfig,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = cfg.compute_dtype
     xs = _shift(x, x_prev)
-    k = _mix(x, xs, params["cmu_k"]) @ params["ck"].to(dt)
+    k = tp.copy_to(_mix(x, xs, params["cmu_k"])) @ params["ck"].to(dt)
     k = torch.square(torch.relu(k))
-    kv = k @ params["cv"].to(dt)
-    r = _mix(x, xs, params["cmu_r"]) @ params["cr"].to(dt)
-    return _sigmoid(r) * kv, x[:, -1:]
+    kv = tp.reduce_from(k @ params["cv"].to(dt))
+    r = tp.copy_to(_mix(x, xs, params["cmu_r"])) @ params["cr"].to(dt)
+    return _sigmoid(tp.gather_replicated(r, 2)) * kv, x[:, -1:]
 
 
 def rwkv_make_cache(cfg: ModelConfig, batch: int, device=None
                     ) -> Dict[str, torch.Tensor]:
+    """Zero token shifts and a zero state of this rank's heads (all of
+    them off a model axis)."""
     h, hd = _dims(cfg)
-    return {"s": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
-                             device=device),
+    return {"s": torch.zeros((batch, h // tp.size(), hd, hd),
+                             dtype=torch.float32, device=device),
             "tm_xprev": torch.zeros((batch, 1, cfg.d_model),
                                     dtype=cfg.compute_dtype, device=device),
             "cm_xprev": torch.zeros((batch, 1, cfg.d_model),

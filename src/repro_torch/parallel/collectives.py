@@ -5,10 +5,11 @@ error-feedback gradient compression.
 (a sum) and :func:`all_reduce` (a sum, or a max) act over a
 :class:`MeshAxis`: one dim of a ``torch.distributed.device_mesh.
 DeviceMesh``, or several taken together as one (("pod", "data") on a
-multi-pod mesh).  :class:`CopyToModel`, :class:`ReduceFromModel` and
-:class:`GatherFromModel` are the tensor-parallel ``model`` axis's under
-autograd (``parallel.tensor_parallel``): each issues its backward's
-collective through the same functions.  A
+multi-pod mesh).  :class:`CopyToModel`, :class:`ReduceFromModel`,
+:class:`GatherFromModel` and :class:`GatherReplicated` are the
+tensor-parallel ``model`` axis's under autograd
+(``parallel.tensor_parallel``): each issues its backward's collective,
+if any, through the same functions.  A
 :class:`MetaMesh` stands in for a mesh and communicates nothing: the
 collectives over its axes return ``meta`` tensors of the right shapes,
 which is how a step is lowered without devices (``launch.lowering``).
@@ -217,7 +218,7 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 # ----------------------------------------------- the model axis under autograd
 # The tensor-parallel step's collectives (Megatron-LM's f, g and the
-# gather of k and v): each issues its backward's collective through the
+# gathers): each issues its backward's collective, if any, through the
 # functions above too, so a step's recorded trace holds both passes.
 
 class CopyToModel(torch.autograd.Function):
@@ -262,6 +263,24 @@ class GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: Array):
         return reduce_scatter(grad.contiguous(), ctx.axis, ctx.dim), None, None
+
+
+class GatherReplicated(torch.autograd.Function):
+    """The shards along ``dim`` gathered forward; backward, this rank's
+    slice of the gradient, with no collective.  For a tensor that every
+    rank of ``axis`` uses whole in the same computation (RWKV's channel
+    mix gate meeting the whole ``kv``): the gradient is then the same
+    on every rank, whole already."""
+
+    @staticmethod
+    def forward(ctx, x: Array, axis: MeshAxis, dim: int) -> Array:
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad: Array):
+        n = grad.shape[ctx.dim] // ctx.axis.size
+        return grad.narrow(ctx.dim, ctx.axis.index * n, n), None, None
 
 
 def quantize_int8(x: Array) -> Tuple[Array, Array]:

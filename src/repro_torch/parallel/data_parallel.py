@@ -4,7 +4,8 @@ in_shardings=...)`` on a mesh of ("pod",) "data" and "model" axes.
 Every rank runs the same step (SPMD) on its slice of the global batch.
 The step follows the resolved specs (``Model.specs`` under
 ``sharding.rules_for_mesh``, whose ``fsdp`` and ``batch`` are ``data``,
-or ("pod", "data") on a multi-pod mesh, and whose ``tp`` is ``model``):
+or ("pod", "data") on a multi-pod mesh, and whose ``tp`` and ``ep`` are
+``model``):
 
 * a parameter whose spec names the data-parallel axes on one dim is held
   as its shard along that dim (ZeRO-3): all-gathered for use, its
@@ -12,10 +13,10 @@ or ("pod", "data") on a multi-pod mesh, and whose ``tp`` is ``model``):
 * a replicated parameter is held whole, its gradient all-reduced;
 * on a ``model`` axis above 1 a parameter whose spec names ``model`` on a
   dim is held as its part along that dim too (``tp_blocks`` of them side
-  by side for a fused weight), never gathered over ``model``: the layers
-  run on their parts and issue the tensor-parallel collectives
-  (``parallel.tensor_parallel``), so every gradient comes out whole over
-  ``model`` for what the rank holds;
+  by side for a fused weight; an MoE layer's ``E / m`` experts), never
+  gathered over ``model``: the layers run on their parts and issue the
+  tensor-parallel collectives (``parallel.tensor_parallel``), so every
+  gradient comes out whole over ``model`` for what the rank holds;
 * the optimizer state shards as the parameters (``optimizer.state_specs``)
   and AdamW updates each rank's shard;
 * the batch is split on its rows as ``batch_partition_specs`` says; the

@@ -103,13 +103,23 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     return dict(mesh.shape)
 
 
+def whole_head_groups(cfg, m: int) -> bool:
+    """Whether ``cfg``'s attention heads split over a ``model`` axis of
+    ``m`` into whole groups of a kv head a rank, or parts of one group:
+    then each rank's q heads attend with kv heads of their own
+    (``models.layers``).  Otherwise, as with ``cfg.attn_dp``, every rank
+    gathers q whole and attends with all heads."""
+    h, g = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    return not (h % m or ((h // m) % g and g % (h // m)))
+
+
 def check_mesh(mesh, cfg=None) -> None:
-    """Raises for a mesh the port's steps cannot run on: an axis other
-    than pod, data and model (``ValueError``), and, given the model's
-    ``cfg``, a ``model`` axis above 1 that the tensor-parallel step does
-    not cover (``NotImplementedError``, naming the step of ``ROADMAP.md``
-    section 1 that ports it) or whose heads do not split over it
-    (``ValueError``)."""
+    """Raises ``ValueError`` for a mesh the port's steps cannot run on:
+    an axis other than pod, data and model, and, given the model's
+    ``cfg``, a ``model`` axis above 1 over which a part of the model
+    does not split whole -- the experts where they shard over ``ep``
+    (as ``tp``, the ``model`` axis), the RWKV heads, or the attention's
+    q or kv columns."""
     sizes = _mesh_sizes(mesh)
     other = set(sizes) - {"pod", "data", "model"}
     if other:
@@ -118,26 +128,21 @@ def check_mesh(mesh, cfg=None) -> None:
     m = sizes.get("model", 1)
     if cfg is None or m == 1:
         return
+    from ..models.moe import experts_on_ep
+    from ..models.transformer import ATTN_CHARS
     where = f"{cfg.name} on a model axis of {m} ({sizes})"
-    if "R" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{where}: RWKV blocks over tp are step 2 of ROADMAP.md "
-            "section 1")
-    from ..models.transformer import MOE_CHARS
-    if cfg.num_experts % 16 == 0 and any(ch in MOE_CHARS
-                                         for ch in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{where}: {cfg.num_experts} experts shard over ep; expert "
-            "parallelism is step 1 of ROADMAP.md section 1")
-    if cfg.attn_dp:
-        raise NotImplementedError(
-            f"{where}: attn_dp (batch-parallel attention) is queued with "
-            "step 1 of ROADMAP.md section 1")
-    h, g = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
-    if h % m or ((h // m) % g and g % (h // m)):
-        raise ValueError(
-            f"{where}: {h} heads in groups of {g} a kv head do not split "
-            "into whole groups, or parts of one, a rank")
+    if experts_on_ep(cfg) and cfg.num_experts % m:
+        raise ValueError(f"{where}: {cfg.num_experts} experts do not split "
+                         "whole over ep")
+    if "R" in cfg.layer_pattern and (cfg.d_model // cfg.rwkv_head_size) % m:
+        raise ValueError(f"{where}: {cfg.d_model // cfg.rwkv_head_size} "
+                         "RWKV heads do not split whole")
+    hd = cfg.head_dim
+    if any(ch in ATTN_CHARS for ch in cfg.layer_pattern) and (
+            (cfg.num_heads * hd) % m or (cfg.num_kv_heads * hd) % m):
+        raise ValueError(f"{where}: the q columns of {cfg.num_heads} heads "
+                         f"or the kv columns of {cfg.num_kv_heads} heads "
+                         f"(head_dim {hd}) do not split whole")
 
 
 @dataclass(frozen=True)

@@ -13,8 +13,12 @@ activation (``sharding.shard``):
   rank's q heads only): the identity, its gradient summed over ``model``;
 * :func:`reduce_from` (*g*) on the output of every row-parallel product:
   the sum over ``model``, its gradient passed through;
-* :func:`gather` for k and v, which every rank uses whole: an
+* :func:`gather` for k and v, which every rank uses whole to serve its
+  own part (and q, where every rank attends with all heads): an
   all-gather, its gradient reduce-scattered;
+* :func:`gather_replicated` for a tensor that every rank uses whole in
+  the same replicated computation (RWKV's channel-mix gate): an
+  all-gather, its gradient this rank's slice;
 * :func:`all_max` (no gradient) for the vocab-parallel logsumexp.
 
 The axis is ambient (:func:`use_model_axis`) and process-wide, not per
@@ -84,6 +88,11 @@ def reduce_from(x: Array) -> Array:
 def gather(x: Array, dim: int) -> Array:
     axis = current_axis()
     return x if axis is None else coll.GatherFromModel.apply(x, axis, dim)
+
+
+def gather_replicated(x: Array, dim: int) -> Array:
+    axis = current_axis()
+    return x if axis is None else coll.GatherReplicated.apply(x, axis, dim)
 
 
 def all_max(x: Array) -> Array:

@@ -841,3 +841,50 @@ def test_tensor_parallel_world_on_the_card_matches_cpu(cuda, arch):
         lowered = lowering.lower_train_cell(tpw.config(arch), tpw.CELL, mesh)
         assert all(rank["traces"][0] == lowered.collectives
                    for rank in ranks)
+
+
+def test_selective_scan_on_meta_launches_nothing(cuda):
+    """On ``meta`` tensors (a step lowered without devices) the scan gives
+    the outputs' shapes and launches nothing; on the card's tensors it
+    still launches K8."""
+    shape = (2, 49, 200, 4)
+    args = _scan_args(shape, cuda)
+    before = ops.launch_counts()["selective_scan"]
+    y, h = ops.selective_scan(*[x.to("meta") for x in args])
+    assert y.device.type == h.device.type == "meta"
+    assert y.shape == (2, 49, 200) and h.shape == (2, 200, 4)
+    assert ops.launch_counts()["selective_scan"] == before
+    ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["selective_scan"] == before + 1
+
+
+def test_moe_histogram_on_the_card_is_bincount(cuda):
+    from repro_torch.models import moe
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, 128, 4096),
+                          device=cuda)
+    assert torch.equal(moe._histogram(ids, 128),
+                       torch.bincount(ids, minlength=128))
+
+
+@pytest.mark.parametrize("name", ["jamba-2x2", "rwkv-2x2"])
+def test_expert_parallel_world_on_the_card_matches_cpu(cuda, name):
+    """Jamba SMOKE with 16 experts over ep and RWKV6 SMOKE on a (2, 2)
+    mesh of 4 gloo ranks on cuda:0: the first step's loss and gradients
+    within 1e-4 of one CPU device's (of each leaf's largest magnitude),
+    and K8 launched on every rank of the Jamba world."""
+    import _torch_ep_world as epw
+    from repro_torch.launch.world import run_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = {"jamba-2x2": ("jamba_v0_1_52b", dict(num_experts=16), (2, 2),
+                          False),
+            "rwkv-2x2": ("rwkv6_7b", {}, (2, 2), False)}[name]
+    ranks = run_world(epw.ep_rank, 4, device_type="cuda", backend="gloo",
+                      args=([case], "cuda"), timeout_s=600)
+    loss, grads = epw.one_device(*case[:2])
+    for (rank,) in ranks:
+        assert rank["loss"] == pytest.approx(loss, rel=1e-4)
+        for g, want in zip(rank["grads"], grads):
+            assert float(np.abs(g - want).max()) <= \
+                1e-4 * float(np.abs(want).max())
+        assert (rank["k8"] > 0) == (case[0] == "jamba_v0_1_52b")

@@ -339,13 +339,18 @@ def test_live_trace_is_the_lowered_trace(runs, lowered, name):
 
 
 def test_jamba_worlds_issue_one_trace_on_every_rank_and_step(runs):
-    """Jamba's MoE routing cannot run on ``meta`` (``bincount``), so its
-    live traces are held to each other: one list on every rank and step,
-    with model-group and data-group ops on the (2, 2) mesh."""
-    for name in SHAPES:
+    """Jamba's live traces: one list on every rank and step, with
+    model-group and data-group ops on the (2, 2) mesh, and that list
+    the lowered cell's (its MoE routing and Mamba scan run on
+    ``meta``)."""
+    cfg = tpw.config("jamba_v0_1_52b")
+    for name, shape in SHAPES.items():
         traces = [t for r in runs[1]["jamba_v0_1_52b", name]
                   for t in r["traces"]]
         assert all(t == traces[0] for t in traces)
+        lowered = lowering.lower_train_cell(cfg, tpw.CELL,
+                                            _logical_mesh(shape))
+        assert traces[0] == lowered.collectives
     groups = {tuple(map(tuple, op.groups))
               for op in runs[1]["jamba_v0_1_52b", "2x2"][0]["traces"][0]}
     assert groups == {((0, 1), (2, 3)), ((0, 2), (1, 3))}

@@ -52,7 +52,7 @@ from repro_torch.models.api import Model, input_specs, make_concrete_batch
 from repro_torch.models.transformer import FRONTEND_DIMS
 from repro_torch.models.config import ShapeCell
 from repro_torch.models.param import tree_flatten, tree_leaves, tree_unflatten
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import data
 from repro_torch.train import optimizer as opt
@@ -767,29 +767,39 @@ def test_launch_train_equals_reference(tmp_path):
     assert ckpt.CheckpointManager(str(tmp_path)).all_steps() == [0, 4, 8]
 
 
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_config_splits_over_the_production_mesh(arch):
+    """At published width every configuration passes ``check_mesh`` on
+    the production (16, 16) mesh: its experts, RWKV heads and attention
+    columns split whole over the model axis."""
+    sharding.check_mesh(collectives.MetaMesh((16, 16), ("data", "model")),
+                        configs.get_config(arch))
+
+
 def test_launch_train_runs_on_one_device_only():
     """One device, data parallelism (``tests/test_torch_placement_job.py``
-    trains a (4, 1) world) or a model axis above 1 for the families the
-    tensor-parallel step covers (``tests/test_torch_tensor_parallel.py``
-    trains (2, 2) and (1, 4) worlds).  What it leaves to later steps
-    raises before any world starts, naming the step of ``ROADMAP.md``:
-    RWKV blocks, experts sharded over ep and ``attn_dp``."""
+    trains a (4, 1) world) or a model axis above 1
+    (``tests/test_torch_tensor_parallel.py`` and
+    ``tests/test_torch_expert_parallel.py`` train (2, 2) and (1, 4)
+    worlds).  A model whose experts over ep, RWKV heads or attention
+    columns do not split whole over the model axis raises before any
+    world starts."""
     cfg = configs.smoke_config("qwen3_4b")
-    two = tmesh.make_mesh_with_devices(["cpu", "cpu"], (1, 2),
-                                       ("data", "model"))
-    kw = dict(steps=1, global_batch=2, seq_len=16, mesh=two)
-    with pytest.raises(NotImplementedError, match="step 2 of ROADMAP"):
+    three = tmesh.make_mesh_with_devices(["cpu"] * 3, (1, 3),
+                                         ("data", "model"))
+    kw = dict(steps=1, global_batch=2, seq_len=16, mesh=three)
+    with pytest.raises(ValueError, match="4 RWKV heads"):
         launch_train.train(configs.smoke_config("rwkv6_7b"), **kw)
     ep = configs.smoke_config("qwen3_moe_235b_a22b").with_overrides(
         num_experts=16)
-    with pytest.raises(NotImplementedError, match="step 1 of ROADMAP"):
+    with pytest.raises(ValueError, match="16 experts"):
         launch_train.train(ep, placement="psa", **kw)
-    with pytest.raises(NotImplementedError, match="attn_dp"):
+    with pytest.raises(ValueError, match="heads"):
         launch_train.train(cfg.with_overrides(attn_dp=True), **kw)
     with pytest.raises(ValueError, match="heads"):
         launch_train.train(cfg, steps=1, global_batch=2, seq_len=16,
                            mesh=tmesh.make_mesh_with_devices(
-                               ["cpu"] * 8, (1, 8), ("data", "model")))
+                               ["cpu"] * 6, (2, 3), ("data", "model")))
     one = tmesh.make_mesh_with_devices(["cpu"], (1, 1), ("data", "model"))
     out = launch_train.train(cfg, steps=2, global_batch=2, seq_len=16,
                              mesh=one, placement="psa", log_every=1)
