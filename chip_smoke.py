@@ -161,6 +161,32 @@ Phases, each of which must pass:
    in f32: each first step's loss and gradients within 1e-4 of one CPU
    device's (of each leaf's largest magnitude), every rank launching K8
    in Jamba's Mamba layers;
+   then a sixteenth route, ``serve-parallel``, serving over the (data,
+   model) mesh: Granite-34B's ``decode_32k`` and ``prefill_32k`` and
+   Qwen3-MoE-235B-A22B's ``decode_32k`` at full width and depth lowered
+   on the production (16, 16) mesh without devices
+   (``lowering.lower_cell``: seconds, ops by kind and by axis,
+   ``total_collective_bytes`` and ``cache_bytes_per_device``, a device's
+   bf16 KV caches required to the byte: 738,197,504 and 3,154,116,608
+   for the decode cells), each placed with ``place_job`` (psa, a fresh
+   default service) on the 16 x 16 torus -- K1, K6 and K7 launched --
+   and psa on C / max(C) card == CPU; then Granite-34B at full width cut
+   to 2 layers, bf16, served through ``data_parallel.make_serve_steps`` on
+   a (2, 2) world of 4 gloo ranks on cuda:0 (4 prompts of 2048 tokens, a
+   cache of 2048 + 8 positions sharded over ``seq``, 8 greedy steps with
+   the flash-decoding combine and a vocab-parallel argmax) against one
+   device fed the same tokens: every step's logits within 1e-2 of their
+   largest magnitude, each greedy token the one device's argmax where
+   its top two lie more than that bar apart and within the bar of its
+   top on the other rows (near ties: counted), two planted faults read
+   above the bar (a combine without its rescale; a model rank's argmax
+   over its own columns), every rank's live collectives the lowered
+   cells', prefill wall, decode ms a step and rank peaks printed; then
+   Qwen3, Granite, Gemma3, Jamba (16 experts, dropless and at a capped
+   capacity) and RWKV6 at ``SMOKE`` width in f32 served on a (2, 2)
+   world of gloo ranks on cuda:0 (``tests/_torch_serve_world.py``'s rank
+   body) against one CPU device: the same greedy tokens, logits within
+   1e-4, K8 launched on every Jamba rank;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -367,6 +393,36 @@ TP_SMOKE_TOL = 1e-4
 # CPU device (16 experts, so that they shard over ep).
 EP_ARCHS = ("jamba_v0_1_52b", "qwen3_moe_235b_a22b", "rwkv6_7b")
 EP_SMOKE = (("jamba_v0_1_52b", dict(num_experts=16)), ("rwkv6_7b", {}))
+# depth cut for the script's time: Qwen3-MoE's train cell 94 -> 24 layers
+# (the serve-parallel route lowers its decode cell at full depth)
+EP_CUT = {"qwen3_moe_235b_a22b": dict(num_layers=24, layer_pattern="E" * 24)}
+
+# The serve-parallel route: serving over the (data, model) mesh.  Granite-
+# 34B's decode_32k and prefill_32k and Qwen3-MoE-235B's decode_32k at full
+# width and depth lowered on the production (16, 16) mesh (a device's
+# bf16 KV caches required to the byte) and placed on its torus; Granite-
+# 34B at full width, depth 88 -> 2, bf16, served on a (2, 2) world of
+# gloo ranks on cuda:0 (4 x 2048 prompts, a cache of 2048 + 8 positions,
+# 8 greedy steps) against one device; the SMOKE configs of every block
+# kind in f32 on a (2, 2) world against one CPU device.
+SERVE_CELLS = (("granite_34b", "decode_32k"), ("granite_34b", "prefill_32k"),
+               ("qwen3_moe_235b_a22b", "decode_32k"))
+# (arch, cell) -> a device's cache bytes: layers x (k, v) x B / 16 x
+# S / 16 x kv heads x head_dim x 2 bytes
+SERVE_CACHE_BYTES = {("granite_34b", "decode_32k"): 738_197_504,
+                     ("granite_34b", "prefill_32k"): 184_549_376,
+                     ("qwen3_moe_235b_a22b", "decode_32k"): 3_154_116_608}
+SERVE_LAYERS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4, 2048, 8
+SERVE_TOL = 1e-2         # bf16: of the logits' largest magnitude
+# The SMOKE world: tests/_torch_serve_world.py's cases (4 x 44 prompts, a
+# cache of 52, 5 greedy steps; Gemma3's 32-token ring wraps across two
+# ranks' slices), Jamba also at a capped expert capacity, whose decode
+# routes the global batch over the data axis
+SERVE_SMOKE = (("qwen3_4b", {}), ("granite_34b", {}), ("gemma3_4b", {}),
+               ("jamba_v0_1_52b", dict(num_experts=16)),
+               ("jamba_v0_1_52b", dict(num_experts=16,
+                                       moe_capacity_factor=1.25)),
+               ("rwkv6_7b", {}))
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -3251,7 +3307,7 @@ def lower_ep_cells(device):
     on_card = torch.device(device).type == "cuda"
     out = {}
     for arch in EP_ARCHS:
-        cfg = configs.get_config(arch)
+        cfg = configs.get_config(arch).with_overrides(**EP_CUT.get(arch, {}))
         sync(device)
         before = torch.cuda.memory_allocated() if on_card else 0
         lowered = lowering.lower_train_cell(cfg, cell, mesh)
@@ -3305,6 +3361,359 @@ def drive_expert_parallel(device="cuda"):
             "launched no selective_scan")
     counts["selective_scan"] += k8
     print(f"[expert-parallel] route wall {time.perf_counter() - t_route:.1f} "
+          f"s", flush=True)
+    return counts
+
+
+def lower_serve_cells(device):
+    """SERVE_CELLS at full width and depth lowered on the production
+    (16, 16) mesh of logical devices: ``{name: (mesh, LoweredCell)}``,
+    each device's cache bytes required, the card's allocation
+    unchanged."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import shape_cell
+    from repro_torch.topology import traffic
+    mesh = make_production_mesh()
+    shape = tuple(mesh.shape.values())
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for arch, name in SERVE_CELLS:
+        cfg, cell = configs.get_config(arch), shape_cell(name)
+        sync(device)
+        before = torch.cuda.memory_allocated() if on_card else 0
+        lowered = lowering.lower_cell(cfg, cell, mesh)
+        sync(device)
+        after = torch.cuda.memory_allocated() if on_card else 0
+        require(after == before, f"[serve-parallel] lowering {cfg.name} "
+                f"{name} allocated {after - before} bytes of card memory")
+        want = SERVE_CACHE_BYTES[arch, name]
+        require(lowered.kind == cell.kind and
+                lowered.cache_bytes_per_device == want,
+                f"[serve-parallel] {cfg.name} {name}: cache "
+                f"{lowered.cache_bytes_per_device} bytes a device, not {want}")
+        ops_ = by_axis(lowered, shape, "serve-parallel")
+        require({k for a, k in ops_ if a == "data"} == {"all-gather"} and
+                {"all-gather", "all-reduce"} ==
+                {k for a, k in ops_ if a == "model"},
+                f"[serve-parallel] {cfg.name} {name} ops {sorted(ops_)}")
+        print(f"[serve-parallel] lowered {cfg.name} ({cfg.num_layers} "
+              f"layers, {name} {cell.global_batch} x {cell.seq_len}; a "
+              f"device {cell.global_batch // shape[0]} sequences, "
+              f"{cell.seq_len // shape[1]} cache positions) on {shape} "
+              f"{tuple(mesh.axis_names)} in {lowered.seconds:.2f} s: "
+              f"{len(lowered.collectives)} ops; by (axis, kind): (count, "
+              f"result bytes) "
+              f"{ {k: tuple(v) for k, v in sorted(ops_.items())} }, "
+              f"total_collective_bytes "
+              f"{traffic.total_collective_bytes(lowered.collectives)}, "
+              f"cache_bytes_per_device {lowered.cache_bytes_per_device}; "
+              f"card allocation {before} -> {after} bytes", flush=True)
+        out[f"{cfg.name} {name}"] = (mesh, lowered)
+    return out
+
+
+def serve_config():
+    """Granite-34B at full width cut to SERVE_LAYERS layers, bf16 weights
+    and compute."""
+    from repro_torch import configs
+    return configs.get_config("granite_34b").with_overrides(
+        num_layers=SERVE_LAYERS, layer_pattern="T" * SERVE_LAYERS,
+        param_dtype="bf16")
+
+
+def serve_cells(batch, prompt, cache_len):
+    from repro_torch.models.config import ShapeCell
+    return (ShapeCell("prefill", prompt, batch, "prefill"),
+            ShapeCell("decode", cache_len, batch, "decode"))
+
+
+def combine_without_rescale(m, l, o):
+    """A planted fault for the full-width world: the flash-decoding
+    combine summing the ranks' (o, l) without rescaling each by
+    ``exp(m_r - M)``."""
+    import torch
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import tensor_parallel as tp
+    sums = coll.all_reduce(torch.cat([o, l[..., None]], dim=-1),
+                           tp.current_axis())
+    return sums[..., :-1] / sums[..., -1:]
+
+
+def serve_world(model, params, prompts, cache_len, steps):
+    """A rank's serving on a (2, 2) mesh of the world's ranks, ``params``
+    whole: the prefill of ``prompts`` (B, S) into a ``cache_len`` cache,
+    then ``steps`` greedy decode steps.  Returns the whole logits of
+    each step, the greedy tokens (B, steps + 1) (numpy), the collectives
+    of each step, their walls, this rank's peak, the parameters'
+    all-gather over data timed alone and, as a planted fault's reading,
+    the first decode step's logits with :func:`combine_without_rescale`
+    in place of the combine."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from unittest import mock
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import data_parallel as dp
+    from repro_torch.parallel import tensor_parallel as tp
+    cfg, dev = model.cfg, model.device
+    mesh = DeviceMesh(dev.type, torch.arange(
+        dist.get_world_size()).reshape(TP_WORLD_SHAPE),
+        mesh_dim_names=("data", "model"))
+    axis, model_axis = dp.data_axis(mesh), dp.model_axis(mesh)
+    shards = dp.param_layout(model, axis, model_axis).shard(params)
+    del params
+    pcell = serve_cells(prompts.shape[0], prompts.shape[1], cache_len)[0]
+    batch = dp.shard_batch(cfg, pcell, {"tokens": torch.as_tensor(
+        prompts, device=dev)}, axis)
+    prefill, decode = dp.make_serve_steps(model, axis, model_axis)
+
+    def whole(x):
+        x = coll.all_gather(coll.all_gather(x, model_axis, x.dim() - 1),
+                            axis, 0)
+        return x.float().cpu().numpy()
+
+    out = {"logits": [], "tokens": [], "traces": [], "walls": []}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tok = cache = first = None
+    for t in range(steps + 1):
+        sync(dev)
+        start = time.perf_counter()
+        with coll.record_collectives() as ops_:
+            if t == 0:
+                logits, cache = prefill(shards, batch, cache_len)
+            else:
+                logits, cache = decode(shards, cache, {"tokens": tok[:, None]},
+                                       prompts.shape[1] + t - 1)
+        sync(dev)
+        out["walls"].append(time.perf_counter() - start)
+        out["traces"].append(list(ops_))
+        out["logits"].append(whole(logits))
+        tok = dp.greedy_tokens(logits, model_axis)
+        first = tok if t == 0 else first
+        out["tokens"].append(coll.all_gather(tok, axis, 0).cpu().numpy())
+    out["tokens"] = np.stack(out["tokens"], axis=1)
+    out["peak"] = torch.cuda.max_memory_allocated() \
+        if dev.type == "cuda" else 0
+    del cache
+    # the parameters' all-gather over data that opens every step, alone
+    sync(dev)
+    start = time.perf_counter()
+    dp.gather_params(shards, dp.shard_dims(model, axis), axis)
+    sync(dev)
+    out["gather"] = time.perf_counter() - start
+    # the planted fault: prefill (it runs no combine), then the first
+    # decode step on the same token
+    with mock.patch.object(tp, "combine_softmax", combine_without_rescale):
+        _, cache = prefill(shards, batch, cache_len)
+        logits, _ = decode(shards, cache, {"tokens": first[:, None]},
+                           prompts.shape[1])
+    out["fault"] = whole(logits)
+    return out
+
+
+def serve_full_rank(world_mesh, cfg, prompts, cache_len, steps):
+    """One rank of the full-width world: ``cfg``'s weights drawn on the
+    rank's device from a seeded generator (the same on every rank), then
+    :func:`serve_world`."""
+    import torch
+    from repro_torch.models.api import Model
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if world_mesh.device_type == "cuda" else torch.device("cpu")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    return serve_world(model, params, prompts, cache_len, steps)
+
+
+def serve_one_device(model, params, prompts, cache_len, steps,
+                     tokens=None):
+    """One device's logits (numpy f32) of the prefill of ``prompts`` and
+    of ``steps`` decode steps, and the tokens fed: its own greedy tokens,
+    or ``tokens`` (B, steps + 1) a world chose (teacher forcing)."""
+    import numpy as np
+    import torch
+    out, fed = [], []
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": torch.as_tensor(
+            prompts, device=model.device)}, cache_len=cache_len)
+        for t in range(steps + 1):
+            if t:
+                logits, cache = model.decode_step(
+                    params, cache, {"tokens": tok[:, None]},
+                    prompts.shape[1] + t - 1)
+            out.append(logits.float().cpu().numpy())
+            tok = torch.argmax(logits, dim=-1) if tokens is None else \
+                torch.as_tensor(tokens[:, t], device=model.device)
+            fed.append(tok.cpu().numpy())
+    return out, np.stack(fed, axis=1)
+
+
+def serve_full_width(card, device="cuda"):
+    """serve_config on a (2, 2) world of gloo ranks on ``device`` against
+    one device on the same weights, fed the world's tokens: every step's
+    logits within SERVE_TOL of their largest magnitude; each greedy token
+    the one device's argmax where the one device's top two lie more than
+    that bar apart, and within the bar of its top on the other rows (near
+    ties, counted); every rank's live collectives the lowered cells'.
+    Two planted faults' readings are required above the bar: the first
+    decode step with the combine's rescale left out, and the greedy
+    tokens a model rank's argmax over its own columns would give."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.world import run_world
+    from repro_torch.models.api import Model
+    cfg = serve_config()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    t = time.perf_counter()
+    ranks = run_world(serve_full_rank, math.prod(TP_WORLD_SHAPE),
+                      device_type=torch.device(device).type, backend="gloo",
+                      args=(cfg, prompts, cache_len, SERVE_NEW),
+                      timeout_s=600)
+    world_wall = time.perf_counter() - t
+    tokens = ranks[0]["tokens"]
+    for r, rank in enumerate(ranks):
+        require((rank["tokens"] == tokens).all(),
+                f"[serve-parallel] rank {r}'s tokens differ from rank 0's")
+    mesh = Mesh(np.arange(4, dtype=object).reshape(TP_WORLD_SHAPE),
+                ("data", "model"))
+    pcell, dcell = serve_cells(SERVE_BATCH, SERVE_PROMPT, cache_len)
+    lowered = [lowering.lower_cell(cfg, c, mesh) for c in (pcell, dcell)]
+    for r, rank in enumerate(ranks):
+        require(rank["traces"][0] == lowered[0].collectives and all(
+            tr == lowered[1].collectives for tr in rank["traces"][1:]),
+            f"[serve-parallel] rank {r}'s live trace != the lowered trace")
+
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    want, _ = serve_one_device(model, params, prompts, cache_len,
+                               SERVE_NEW, tokens)
+    del params
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    rel = lambda got, w: float(np.abs(got - w).max()) / float(
+        np.abs(w).max())
+    rows = np.arange(SERVE_BATCH)
+    cols = cfg.vocab_size // TP_WORLD_SHAPE[1]
+    worst, near, local_caught = 0.0, 0, 0
+    for t, w in enumerate(want):
+        bar = SERVE_TOL * float(np.abs(w).max())
+        err = rel(ranks[0]["logits"][t], w)
+        worst = max(worst, err)
+        require(err <= SERVE_TOL, f"[serve-parallel] step {t} logits "
+                f"{err:.3e} of their largest magnitude from one device")
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > bar
+        require((tokens[clear, t] == np.argmax(w, axis=-1)[clear]).all(),
+                f"[serve-parallel] step {t}: a greedy token differs from "
+                f"one device's argmax on a row whose top two lie more than "
+                f"{SERVE_TOL} of the logits' largest magnitude apart")
+        require((top2[:, 1] - w[rows, tokens[:, t]] <= bar).all(),
+                f"[serve-parallel] step {t}: a near tie's token lies more "
+                f"than {SERVE_TOL} of the logits' largest magnitude below "
+                f"one device's top")
+        near += int((~clear).sum())
+        local = np.argmax(w[:, :cols], axis=-1)
+        local_caught += int((top2[:, 1] - w[rows, local] > bar).sum())
+    fault = rel(ranks[0]["fault"], want[1])
+    require(fault > SERVE_TOL, f"[serve-parallel] a combine without its "
+            f"rescale reads {fault:.3e}, within the bar {SERVE_TOL}")
+    require(local_caught > 0, "[serve-parallel] a rank-local argmax passes "
+            "the token check on every row")
+    walls = [rank["walls"] for rank in ranks]
+    print(f"[serve-parallel] {cfg.name} at full width, {cfg.num_layers} "
+          f"layers, bf16, on a {TP_WORLD_SHAPE} world of gloo ranks on "
+          f"{device}: {SERVE_BATCH} x {SERVE_PROMPT} prompts, a cache of "
+          f"{cache_len} positions ({cache_len // TP_WORLD_SHAPE[1]} a "
+          f"rank), {SERVE_NEW} greedy steps; tokens {tokens.tolist()}; "
+          f"one device's argmax on all {tokens.size - near} rows whose top "
+          f"two lie more than {SERVE_TOL} of the largest magnitude apart, "
+          f"within that bar of its top on the other {near} (near ties); "
+          f"logits within {worst:.3e} of their largest magnitude; planted "
+          f"faults: a combine without its exp(m_r - M) rescale reads "
+          f"{fault:.3e}, model rank 0's argmax over its own columns "
+          f"fails the token check on {local_caught} of {tokens.size} rows; "
+          f"{len(lowered[0].collectives)} / {len(lowered[1].collectives)} "
+          f"collectives a prefill / decode step on every rank == lowered; "
+          f"prefill walls {[round(w[0], 3) for w in walls]} s, decode "
+          f"{[round(1e3 * sum(w[1:]) / SERVE_NEW, 1) for w in walls]} ms a "
+          f"step; the parameters' all-gather over data that opens each "
+          f"step, timed alone: "
+          f"{[round(1e3 * rank['gather'], 1) for rank in ranks]} ms; peaks "
+          f"{[round(rank['peak'] / 2 ** 30, 2) for rank in ranks]} GiB; "
+          f"world wall {world_wall:.1f} s; card {card}", flush=True)
+
+
+def serve_smoke_worlds(device="cuda"):
+    """SERVE_SMOKE in f32 on one (2, 2) world of gloo ranks on ``device``
+    (``tests/_torch_serve_world.serve_rank``, the CPU tests' rank body)
+    against one CPU device: the same greedy tokens, every step's logits
+    within TP_SMOKE_TOL of their largest magnitude, K8 launched on every
+    rank of Jamba.  Returns the world's K8 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.world import run_world
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_serve_world as sw
+    cases = [(arch, overrides, TP_WORLD_SHAPE)
+             for arch, overrides in SERVE_SMOKE]
+    t = time.perf_counter()
+    ranks = run_world(sw.serve_rank, math.prod(TP_WORLD_SHAPE),
+                      device_type=torch.device(device).type, backend="gloo",
+                      args=(cases, torch.device(device).type),
+                      timeout_s=600)
+    wall = time.perf_counter() - t
+    for i, (arch, overrides) in enumerate(SERVE_SMOKE):
+        want = sw.one_device(arch, overrides, groups=TP_WORLD_SHAPE[0])
+        name = f"{arch} {overrides}"
+        worst = 0.0
+        for r, rank in enumerate(ranks):
+            got = rank[i]
+            require((got["tokens"] == want["tokens"]).all(),
+                    f"[serve-parallel] {name} rank {r} tokens "
+                    f"{got['tokens']} != one CPU device's {want['tokens']}")
+            for t, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                err = float(np.abs(g - w).max()) / float(np.abs(w).max())
+                worst = max(worst, err)
+                require(err <= TP_SMOKE_TOL, f"[serve-parallel] {name} "
+                        f"rank {r} step {t}: {err:.3e}")
+            if torch.device(device).type == "cuda" and \
+                    arch == "jamba_v0_1_52b":
+                require(got["k8"] > 0, f"[serve-parallel] {name} rank {r} "
+                        "launched no selective_scan")
+        print(f"[serve-parallel] {name} f32 served on a {TP_WORLD_SHAPE} "
+              f"world of gloo ranks on {device} == one CPU device: tokens "
+              f"{want['tokens'].tolist()}, logits within {worst:.3e} of "
+              f"their largest magnitude; K8 launches by rank "
+              f"{[rank[i]['k8'] for rank in ranks]}", flush=True)
+    print(f"[serve-parallel] SMOKE world wall {wall:.1f} s "
+          f"({len(SERVE_SMOKE)} models)", flush=True)
+    return sum(rank[i]["k8"] for rank in ranks
+               for i in range(len(SERVE_SMOKE)))
+
+
+def drive_serve_parallel(card, device="cuda"):
+    """The sixteenth route: serving over the (data, model) mesh.  Returns
+    the route's launch counts (the placements'; each SMOKE rank's K8
+    launches, counted in its own process, are added)."""
+    t_route = time.perf_counter()
+    cells = lower_serve_cells(device)
+    counts = place_cells(cells, device, "serve-parallel")
+    serve_full_width(card, device)
+    k8 = serve_smoke_worlds(device)
+    require(k8 > 0 or device == "cpu", "[serve-parallel] the Jamba world "
+            "launched no selective_scan")
+    counts["selective_scan"] += k8
+    print(f"[serve-parallel] route wall {time.perf_counter() - t_route:.1f} "
           f"s", flush=True)
     return counts
 
@@ -3388,6 +3797,8 @@ def main():
     phase_done("tensor-parallel")
     runs["expert-parallel"] = drive_expert_parallel()
     phase_done("expert-parallel")
+    runs["serve-parallel"] = drive_serve_parallel(card)
+    phase_done("serve-parallel")
     print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
           f"build included", flush=True)
 

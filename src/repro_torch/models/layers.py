@@ -24,6 +24,15 @@ rank (``sharding.whole_head_groups``), q is gathered whole too: every
 rank attends with all heads and keeps its own columns of the output for
 the row-parallel ``wo``, which is what the reference's ``_dp_reshard``
 computes.  Off such an axis every one of them is the identity.
+
+Serving on a model axis shards each KV cache over ``seq``
+(``cache_specs``): a rank holds ``Sc / m`` of its positions, all kv
+heads.  Prefill keeps the rank's slice of the whole (padded or
+ring-rolled) k and v; decode gathers q whole, writes the new k and v on
+the rank that owns slot ``pos % Sc``, scores its own positions and joins
+the ranks' partial softmaxes in the flash-decoding combine
+(``tensor_parallel.combine_softmax``) before its columns of the output
+meet the row-parallel ``wo``.
 :func:`lm_loss` is the training loss: the cross-entropy chunked over the
 sequence, each chunk recomputed in the backward.
 """
@@ -142,6 +151,8 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Sq, H, hd); k, v (B, Skv, KV, hd); positions (Sq,) / (Skv,) give
     the causal/window masks.  Returns (B, Sq, H, hd) in the compute dtype.
     """
+    if q.device.type == "meta":
+        return _MEAShapes.apply(q, k, v, cfg.compute_dtype)
     b, sq0, h, hd = q.shape
     skv0, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -195,6 +206,23 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(cfg.compute_dtype)
 
 
+class _MEAShapes(torch.autograd.Function):
+    """:func:`_mea` on ``meta`` tensors (a step lowered without devices,
+    ``launch.lowering``): the output's shape forward and the inputs'
+    gradients' shapes backward, with nothing computed -- the chunk loops
+    issue no collective, and at ``prefill_32k`` they would run thousands
+    of ops a layer for nothing but the lowering's time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dtype):
+        ctx.shapes = (q, k, v)
+        return q.new_empty(q.shape, dtype=dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(torch.empty_like(x) for x in ctx.shapes) + (None,)
+
+
 def _gathers_q(cfg: ModelConfig) -> bool:
     """On a model axis: whether every rank gathers q whole and attends
     with all heads (``attn_dp``, or heads that do not split into whole
@@ -238,8 +266,12 @@ def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int,
                window: Optional[int], device=None) -> Dict[str, Any]:
+    """A zero KV cache of ``seq_len`` positions (the ring of a windowed
+    layer: ``min(window, seq_len)``); on a model axis, this rank's
+    ``1 / m`` of them."""
     size = min(window, seq_len) if window else seq_len
-    kvshape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    lo, hi = tp.part(size)
+    kvshape = (batch, hi - lo, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(kvshape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(kvshape, dtype=cfg.compute_dtype, device=device)}
 
@@ -257,7 +289,8 @@ def attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     """Like train, but also returns the KV cache (ring-rolled if windowed).
 
     ``cache_len`` >= S adds decode headroom; windowed layers cap the cache at
-    the window size (ring buffer with slot = position % window).
+    the window size (ring buffer with slot = position % window).  On a
+    model axis the cache is this rank's slice of those positions.
     """
     b, s, _ = x.shape
     cache_len = cache_len or s
@@ -280,6 +313,9 @@ def attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
         pad = cache_len - s
         cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                  "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+    if tp.size() > 1:
+        lo, hi = tp.part(cache["k"].shape[1])
+        cache = {n: c[:, lo:hi].clone() for n, c in cache.items()}
     return y, cache
 
 
@@ -292,7 +328,8 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     The new key and value are written into the cache in place
     (``index_copy_`` at slot ``pos % Sc``, where the reference's
     ``dynamic_update_slice`` makes a new array); the returned cache is
-    the same tensors.
+    the same tensors.  On a model axis the cache is this rank's slice of
+    the ``Sc`` positions (:func:`_decode_sharded`).
     """
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -300,6 +337,8 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    if tp.size() > 1:
+        return _decode_sharded(params, q, k_new, v_new, cfg, cache, pos)
 
     k, v = cache["k"], cache["v"]
     sc = k.shape[1]
@@ -315,6 +354,43 @@ def attention_decode(params, x: torch.Tensor, cfg: ModelConfig,
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     o = o.reshape(b, 1, h * hd).to(cfg.compute_dtype)
     return o @ params["wo"].to(cfg.compute_dtype), {"k": k, "v": v}
+
+
+def _decode_sharded(params, q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, cfg: ModelConfig,
+                    cache: Dict[str, torch.Tensor], pos: int
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`attention_decode` on a model axis, the cache (B, Sc / m,
+    KV, hd) this rank's positions ``[lo, hi)`` of ``Sc``: q gathered
+    whole (the slice holds every kv head), the new k and v written on
+    the rank that owns slot ``pos % Sc``, the rank's positions scored
+    and masked by their global index, the flash-decoding combine, and
+    this rank's columns of the output through the row-parallel ``wo``."""
+    b = q.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if not _gathers_q(cfg):
+        q = tp.gather(q, 2)
+    k, v = cache["k"], cache["v"]
+    sc = k.shape[1] * tp.size()
+    lo, hi = tp.part(sc)
+    slot = pos % sc
+    if lo <= slot < hi:
+        here = torch.tensor([slot - lo], device=q.device)
+        k.index_copy_(1, here, k_new.to(k.dtype))
+        v.index_copy_(1, here, v_new.to(v.dtype))
+
+    qv = q.reshape(b, kvh, h // kvh, hd)
+    s_ = torch.einsum("bkgd,bskd->bkgs", qv.float(), k.float()) * (hd ** -0.5)
+    valid = torch.arange(lo, hi, device=q.device) < min(pos + 1, sc)
+    s_ = torch.where(valid[None, None, None, :], s_, NEG_INF)
+    m = s_.amax(dim=-1)
+    p = torch.exp(s_ - m[..., None])
+    o = tp.combine_softmax(m, p.sum(dim=-1),
+                           torch.einsum("bkgs,bskd->bkgd", p, v.float()))
+    o = o.reshape(b, 1, h * hd).to(cfg.compute_dtype)
+    cols = slice(*tp.part(h * hd))
+    y = tp.reduce_from(o[..., cols] @ params["wo"].to(cfg.compute_dtype))
+    return y, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------

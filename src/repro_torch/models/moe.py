@@ -9,7 +9,11 @@ side).  Top-k ties go to the lower expert id, as ``jax.lax.top_k``.
 
 Capacity: ``cap = tokens_per_group * top_k / E * moe_capacity_factor``
 (+1, at most the group size); overflow tokens are dropped.  A factor
-``<= 0`` is dropless (``cap`` = group size), which serving runs.
+``<= 0`` is dropless (``cap`` = group size).  A capped capacity makes a
+token's drops depend on every token of its group, so decode routes the
+global batch as one group, as the reference does: on a data axis above 1
+(:func:`route_over`) the MoE input is gathered over data, routed whole,
+and the rank keeps its own rows.
 
 On a tensor-parallel ``model`` axis (``parallel.tensor_parallel``) the
 experts shard as the reference declares them.  Where a 16-way axis
@@ -24,14 +28,32 @@ before the combine.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Optional
 
 import torch
 
+from ..parallel import collectives as coll
 from ..parallel import tensor_parallel as tp
 from .config import ModelConfig
 from .param import PDecl
 from ..parallel.sharding import PartitionSpec as P
+
+
+_route_axis: Optional[coll.MeshAxis] = None
+
+
+@contextlib.contextmanager
+def route_over(axis: Optional[coll.MeshAxis]):
+    """In the body of a ``with``, every MoE layer routes its tokens as one
+    group with those of the other ranks of ``axis`` (a data axis whose
+    ranks hold different rows; ``None``: this rank's tokens alone)."""
+    global _route_axis
+    prev, _route_axis = _route_axis, axis
+    try:
+        yield axis
+    finally:
+        _route_axis = prev
 
 
 def experts_on_ep(cfg: ModelConfig) -> bool:
@@ -144,6 +166,13 @@ def _combine_group(yg, wg_, meta, cfg: ModelConfig):
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
               num_groups: int = 1) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D)."""
+    route = _route_axis
+    # dropless, a token's output does not depend on the rest of its group
+    if route is not None and route.size > 1 and cfg.moe_capacity_factor > 0:
+        rows = x.shape[0]
+        with route_over(None):
+            whole = moe_apply(params, coll.all_gather(x, route, 0), cfg, 1)
+        return whole.narrow(0, route.index * rows, rows)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     dt = cfg.compute_dtype

@@ -11,7 +11,8 @@ reference's two branches (``_fused_scan``, and ``_scan_chunked`` plus the
 C-projection), so both take this one path.  On a tensor-parallel
 ``model`` axis each rank runs its ``d_inner / m`` channels (``in_proj``
 and ``dt_proj`` column-parallel, the conv and K8 on local channels,
-``x_proj`` and ``out_proj`` row-parallel).  Under autograd the scan's
+``x_proj`` and ``out_proj`` row-parallel), and its decode cache holds
+those channels of ``h`` and of the conv window.  Under autograd the scan's
 gradient comes from the plain scan recomputed in the backward
 (``kernels.selective_scan.SelectiveScan``), so training on the card
 differentiates what the reference differentiates.  Decode is the O(1)
@@ -125,7 +126,10 @@ def mamba_train(params, x: torch.Tensor, cfg: ModelConfig,
 
 def mamba_make_cache(cfg: ModelConfig, batch: int, device=None
                      ) -> Dict[str, torch.Tensor]:
+    """A zero decode state: ``h`` (B, di, n) and the conv window (B,
+    k - 1, di); on a model axis, this rank's ``di / m`` channels."""
     di, n, k, _ = _dims(cfg)
+    di //= tp.size()
     return {"h": torch.zeros((batch, di, n), dtype=torch.float32,
                              device=device),
             "conv": torch.zeros((batch, k - 1, di), dtype=cfg.compute_dtype,
@@ -139,9 +143,10 @@ def mamba_cache_specs() -> Dict[str, P]:
 def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token step: x (B, 1, D); O(1) state update."""
+    """One-token step: x (B, 1, D); O(1) state update (on a model axis,
+    of this rank's channels, ``out_proj``'s parts summed)."""
     dt_ = cfg.compute_dtype
-    u, z = _ssm_params(params, x, cfg)                 # (B, 1, di)
+    u, z = _ssm_params(params, tp.copy_to(x), cfg)     # (B, 1, di)
 
     window = torch.cat([cache["conv"], u], dim=1)      # (B, k, di)
     conv = _conv(params, [window[:, i] for i in range(window.shape[1])], cfg)
@@ -158,5 +163,5 @@ def mamba_decode(params, x: torch.Tensor, cfg: ModelConfig,
         y = y + h[..., i] * c[:, 0, i, None]
     y = y + u_act[:, 0].float() * params["d_skip"].float()
     y = (y * F.silu(z[:, 0].float())).to(dt_)
-    out = (y @ params["out_proj"].to(dt_))[:, None]
+    out = tp.reduce_from(y @ params["out_proj"].to(dt_))[:, None]
     return out, {"h": h, "conv": window[:, 1:]}

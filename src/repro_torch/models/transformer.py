@@ -287,7 +287,10 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             num_groups: int = 1, cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Any]:
-    """Returns (last-token logits (B, V) f32, cache tree)."""
+    """Returns (last-token logits (B, V) f32, cache tree).  Under a
+    model axis (``parallel.data_parallel.make_serve_steps``) the logits
+    are this rank's ``V / m`` columns of the vocabulary (the reference's
+    ``P("batch", "tp")``) and the cache its part (``cache_spec_tree``)."""
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
     x = _embed_inputs(params, batch, cfg)
     positions = _positions(x.shape[0], x.shape[1], x.device)
@@ -320,7 +323,8 @@ def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
     """One decode step: batch has 'tokens' (B, 1) or, with a frontend,
     'embeds' (B, 1, fd); ``pos`` the position of that token.  Attention
     caches are updated in place (``layers.attention_decode``); RWKV
-    states are carried, and ignore ``pos``."""
+    states are carried, and ignore ``pos``.  Under a model axis, as
+    :func:`prefill`: the rank's vocabulary columns and cache part."""
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
     x = _embed_inputs(params, batch, cfg)
 
@@ -352,6 +356,7 @@ def decode_step(params, cache: Any, batch: Dict[str, torch.Tensor], pos,
 # ---------------------------------------------------------------------------
 
 def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    """A zero decode cache; under a model axis, this rank's part."""
     unit, reps, rest = layer_plan(cfg.layer_pattern, cfg.scan_layers)
 
     def one(ch):
@@ -362,6 +367,17 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
             lambda a: a.expand((reps,) + tuple(a.shape)).clone(), c)
             for c in unit_caches]
     return {"unit": unit_caches, "rest": [one(ch) for ch in rest]}
+
+
+def cache_lengths(cfg: ModelConfig, seq_len: int):
+    """The positions of each attention layer's KV cache for ``seq_len``
+    (a windowed layer's ring: ``min(window, seq_len)``), as a sorted
+    tuple of the distinct lengths."""
+    out = set()
+    for ch in set(cfg.layer_pattern) & set(ATTN_CHARS):
+        w = _window_for(cfg, ch)
+        out.add(min(w, seq_len) if w else seq_len)
+    return tuple(sorted(out))
 
 
 def block_cache_specs(cfg: ModelConfig, ch: str):

@@ -29,6 +29,16 @@ clips as ``optimizer.apply`` clips.  Each rank's batch is one MoE
 routing group (the reference passes ``num_groups`` = data-parallel
 width for the global batch).
 
+:func:`make_serve_steps` gives a rank's serving steps on the same
+layout: ``Model.prefill`` and ``Model.decode_step`` on the parameters
+gathered over data, with no gradient, on the rank's rows of the batch
+(all of them where the global batch does not split over data, as the
+reference's ``rules["batch"] = None``); on a ``model`` axis the caches
+are the rank's parts (:func:`cache_layout`: KV positions over ``seq``,
+Mamba channels and RWKV heads over ``tp``) and the logits its columns
+of the vocabulary (:func:`greedy_tokens` takes the whole vocabulary's
+argmax).
+
 Nothing in the step reads a value, so it runs on ``meta`` tensors over a
 ``collectives.MetaMesh``: that is how ``launch.lowering`` records its
 collectives without devices.  The one-device ``train.step.make_train_step``
@@ -42,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..models import moe
 from ..models.api import Model, batch_partition_specs
 from ..models.config import ModelConfig, ShapeCell
 from ..models.param import (param_tp_blocks, tree_flatten, tree_map,
@@ -95,11 +106,12 @@ def shard_dim(spec: sh.PartitionSpec, axes: Tuple[str, ...]) -> Optional[int]:
     return found
 
 
-def spec_dims(specs: Any, axis: coll.MeshAxis) -> Any:
+def spec_dims(specs: Any, axis: coll.MeshAxis,
+              rules: Optional[sh.Rules] = None) -> Any:
     """A tree of logical specs as shard dims over ``axis`` (ints or
-    ``None``)."""
+    ``None``), resolved by ``rules`` (default: the mesh's)."""
     return tree_map(lambda s: shard_dim(
-        sh.named_sharding(axis.mesh, s).spec, axis.dims), specs)
+        sh.named_sharding(axis.mesh, s, rules).spec, axis.dims), specs)
 
 
 def shard_dims(model: Model, axis: coll.MeshAxis) -> Any:
@@ -136,12 +148,30 @@ def shard_params(params: Any, dims: Any, axis: coll.MeshAxis,
                     params, dims, blocks)
 
 
+def splits_batch(axis: coll.MeshAxis, cell: ShapeCell) -> bool:
+    """Whether the ranks of the data ``axis`` hold different rows of
+    ``cell``'s global batch: a train cell's always, a prefill or decode
+    cell's where the batch splits whole (not ``long_500k``'s one
+    sequence)."""
+    return cell.kind == "train" or cell.global_batch % axis.size == 0
+
+
+def serve_rules(axis: coll.MeshAxis, cell: ShapeCell) -> sh.Rules:
+    """The mesh's rules for ``cell``: a cell whose batch does not split
+    over data (:func:`splits_batch`) replicates its batch and caches over
+    data, as the reference's dry run sets ``rules["batch"] = None``."""
+    rules = dict(sh.rules_for_mesh(axis.mesh))
+    if not splits_batch(axis, cell):
+        rules["batch"] = None
+    return rules
+
+
 def shard_batch(cfg: ModelConfig, cell: ShapeCell, batch: Dict[str, Array],
                 axis: coll.MeshAxis) -> Dict[str, Array]:
     """This rank's rows of a global batch, as ``batch_partition_specs``
-    splits it."""
+    splits it (:func:`serve_rules`)."""
     specs = sh.resolve_tree(batch_partition_specs(cfg, cell),
-                            sh.rules_for_mesh(axis.mesh))
+                            serve_rules(axis, cell))
     return {k: _take(v, shard_dim(specs[k], axis.dims), axis.size,
                      axis.index) for k, v in batch.items()}
 
@@ -175,10 +205,12 @@ class Layout:
     ``model_dims``)."""
 
     def __init__(self, specs: Any, blocks: Any, data: coll.MeshAxis,
-                 model: Optional[coll.MeshAxis] = None):
+                 model: Optional[coll.MeshAxis] = None,
+                 rules: Optional[sh.Rules] = None):
         self.data, self.model, self.blocks = data, model, blocks
-        self.dims = spec_dims(specs, data)
-        self.model_dims = None if model is None else spec_dims(specs, model)
+        self.dims = spec_dims(specs, data, rules)
+        self.model_dims = None if model is None else \
+            spec_dims(specs, model, rules)
 
     def shard(self, tree: Any) -> Any:
         """This rank's part of a whole tree."""
@@ -211,6 +243,62 @@ def state_layout(model: Model, opt_cfg: opt_lib.OptConfig,
     return Layout(opt_lib.state_specs(opt_cfg, model.specs()),
                   opt_lib.OptState(step=1, mu=blocks, nu=blocks), axis,
                   model_axis)
+
+
+def cache_layout(model: Model, cell: ShapeCell, axis: coll.MeshAxis,
+                 model_axis: Optional[coll.MeshAxis] = None) -> Layout:
+    """The decode cache's :class:`Layout` (``Model.cache_specs``) for
+    ``cell``: its rows over data (:func:`serve_rules`), KV positions over
+    ``seq`` and Mamba channels and RWKV heads over ``tp``, on the model
+    axis."""
+    return Layout(model.cache_specs(), None, axis, model_axis,
+                  serve_rules(axis, cell))
+
+
+def make_serve_steps(model: Model, axis: coll.MeshAxis,
+                     model_axis: Optional[coll.MeshAxis] = None,
+                     batch_split: bool = True) -> Tuple[Callable, Callable]:
+    """``(prefill, decode)`` for this rank of the data-parallel ``axis``
+    and of ``model_axis``: ``prefill(param shards, local batch,
+    cache_len=None) -> (logits, cache)`` and ``decode(param shards,
+    cache, local batch, pos) -> (logits, cache)``, ``Model.prefill`` and
+    ``Model.decode_step`` on the parameters gathered over data, with no
+    gradient.  ``batch_split``: the ranks of ``axis`` hold different rows
+    of the global batch (:func:`splits_batch`; else each the whole
+    batch).  MoE routing groups are the reference's: prefill's are the
+    global batch split in data-parallel-width parts (a split batch's
+    rank routes its rows as one group), decode's the global batch whole
+    (under a capped capacity a split batch's MoE input is gathered over
+    data, ``moe.route_over``).  On a model axis the logits (B', V / m)
+    are this rank's columns of the vocabulary and the cache its part
+    (:func:`cache_layout`)."""
+    if model_axis is not None:
+        sh.check_mesh(model_axis.mesh, model.cfg)
+    dims = shard_dims(model, axis)
+    groups, route = (1, axis) if batch_split else (axis.size, None)
+
+    @torch.no_grad()
+    def prefill(params, batch, cache_len=None):
+        whole = gather_params(params, dims, axis)
+        with tp.use_model_axis(model_axis):
+            return model.prefill(whole, batch, groups, cache_len)
+
+    @torch.no_grad()
+    def decode(params, cache, batch, pos):
+        whole = gather_params(params, dims, axis)
+        with tp.use_model_axis(model_axis), moe.route_over(route):
+            return model.decode_step(whole, cache, batch, pos)
+
+    return prefill, decode
+
+
+def greedy_tokens(logits: Array,
+                  model_axis: Optional[coll.MeshAxis] = None) -> Array:
+    """The greedy tokens (B',) of a serving step's logits: the whole
+    vocabulary's argmax, the lowest index on ties
+    (``tensor_parallel.vocab_argmax`` over ``model_axis``)."""
+    with tp.use_model_axis(model_axis):
+        return tp.vocab_argmax(logits)
 
 
 def make_loss_and_grads(model: Model, axis: coll.MeshAxis,

@@ -113,13 +113,16 @@ def whole_head_groups(cfg, m: int) -> bool:
     return not (h % m or ((h // m) % g and g % (h // m)))
 
 
-def check_mesh(mesh, cfg=None) -> None:
+def check_mesh(mesh, cfg=None, cell=None) -> None:
     """Raises ``ValueError`` for a mesh the port's steps cannot run on:
     an axis other than pod, data and model, and, given the model's
     ``cfg``, a ``model`` axis above 1 over which a part of the model
     does not split whole -- the experts where they shard over ``ep``
     (as ``tp``, the ``model`` axis), the RWKV heads, or the attention's
-    q or kv columns."""
+    q or kv columns -- and, given a prefill or decode ``cell``, a KV
+    cache (``cell.seq_len`` positions, a windowed layer's ring
+    ``min(window, seq_len)``) whose positions do not split whole over
+    ``seq``."""
     sizes = _mesh_sizes(mesh)
     other = set(sizes) - {"pod", "data", "model"}
     if other:
@@ -143,6 +146,13 @@ def check_mesh(mesh, cfg=None) -> None:
         raise ValueError(f"{where}: the q columns of {cfg.num_heads} heads "
                          f"or the kv columns of {cfg.num_kv_heads} heads "
                          f"(head_dim {hd}) do not split whole")
+    if cell is not None and cell.kind != "train":
+        from ..models.transformer import cache_lengths
+        for n in cache_lengths(cfg, cell.seq_len):
+            if n % m:
+                raise ValueError(f"{where}: a KV cache of {n} positions "
+                                 f"({cell.name}) does not split whole over "
+                                 "seq")
 
 
 @dataclass(frozen=True)

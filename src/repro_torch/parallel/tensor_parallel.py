@@ -19,7 +19,13 @@ activation (``sharding.shard``):
 * :func:`gather_replicated` for a tensor that every rank uses whole in
   the same replicated computation (RWKV's channel-mix gate): an
   all-gather, its gradient this rank's slice;
-* :func:`all_max` (no gradient) for the vocab-parallel logsumexp.
+* :func:`all_max` (no gradient) for the vocab-parallel logsumexp;
+* :func:`combine_softmax` (no gradient), decode's flash-decoding combine
+  over a KV cache sharded over ``seq`` (each rank holds ``Sc / m``
+  positions): the ranks' running maxima, one all-reduce of the rescaled
+  sums and outputs, then their quotient;
+* :func:`vocab_argmax` (no gradient), the greedy token of vocab-parallel
+  logits: the whole vocabulary's first largest entry.
 
 The axis is ambient (:func:`use_model_axis`) and process-wide, not per
 thread: the autograd engine runs a backward on the card, and the forward
@@ -98,3 +104,37 @@ def gather_replicated(x: Array, dim: int) -> Array:
 def all_max(x: Array) -> Array:
     axis = current_axis()
     return x if axis is None else coll.all_reduce(x.detach(), axis, op="max")
+
+
+def combine_softmax(m: Array, l: Array, o: Array) -> Array:
+    """The attention output ``o / l`` over every rank's positions, from
+    this rank's running max ``m`` (..), softmax sum ``l`` (..) and
+    unnormalised output ``o`` (.., hd) over its own: ``M`` the ranks'
+    largest ``m``, then ``sum_r l_r exp(m_r - M)`` and
+    ``sum_r o_r exp(m_r - M)`` summed in one all-reduce.  Off a model
+    axis, ``o / l``."""
+    axis = current_axis()
+    if axis is None:
+        return o / l[..., None]
+    scale = torch.exp(m - all_max(m))
+    sums = coll.all_reduce(torch.cat([o * scale[..., None],
+                                      (l * scale)[..., None]], dim=-1), axis)
+    return sums[..., :-1] / sums[..., -1:]
+
+
+def vocab_argmax(logits: Array) -> Array:
+    """The greedy token of ``logits`` (..., V'), this rank's ``V / m``
+    columns of the vocabulary (all of it off a model axis): the index of
+    the whole vocabulary's largest entry, the lowest index on ties (the
+    reference's ``argmax``), by two max all-reduces of (.., ) values."""
+    axis = current_axis()
+    local = torch.argmax(logits, dim=-1)
+    if axis is None:
+        return local
+    top = torch.gather(logits, -1, local[..., None])[..., 0]
+    lo = axis.index * logits.shape[-1]
+    best = all_max(top)
+    # the lowest index among the ranks holding the largest value
+    mine = torch.where(top == best, -(local + lo), -(axis.size
+                                                      * logits.shape[-1]))
+    return -all_max(mine)

@@ -888,3 +888,37 @@ def test_expert_parallel_world_on_the_card_matches_cpu(cuda, name):
             assert float(np.abs(g - want).max()) <= \
                 1e-4 * float(np.abs(want).max())
         assert (rank["k8"] > 0) == (case[0] == "jamba_v0_1_52b")
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_serving_world_on_the_card_matches_cpu(cuda, shape):
+    """Qwen3, Granite, Gemma3, Jamba (16 experts over ep, dropless and at
+    a capped capacity) and RWKV6 SMOKE in f32 served on a ``shape`` mesh
+    of 4 gloo ranks on cuda:0 (``data_parallel.make_serve_steps``: KV
+    caches over ``seq``, the flash-decoding combine, decode's MoE routed
+    over the global batch): every step's logits within 1e-4 of one CPU
+    device's largest magnitude, the same greedy tokens, and K8 launched
+    on every rank of Jamba's prefill."""
+    import _torch_serve_world as sw
+    from repro_torch.launch.world import run_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [("qwen3_4b", {}, shape), ("granite_34b", {}, shape),
+             ("gemma3_4b", {}, shape),
+             ("jamba_v0_1_52b", dict(num_experts=16), shape),
+             ("jamba_v0_1_52b", dict(num_experts=16,
+                                     moe_capacity_factor=1.25), shape),
+             ("rwkv6_7b", {}, shape)]
+    ranks = run_world(sw.serve_rank, 4, device_type="cuda", backend="gloo",
+                      args=(cases, "cuda"), timeout_s=600)
+    for i, (arch, overrides, _) in enumerate(cases):
+        want = sw.one_device(arch, overrides, groups=shape[0])
+        for rank in ranks:
+            got = rank[i]
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+            for g, w in zip(got["logits"], want["logits"]):
+                assert float(np.abs(g - w).max()) <= \
+                    1e-4 * float(np.abs(w).max())
+            assert (got["k8"] > 0) == (arch == "jamba_v0_1_52b")
+    for rank in ranks:
+        tokens, whole = rank[len(cases)]
+        np.testing.assert_array_equal(tokens, np.argmax(whole, axis=-1))
