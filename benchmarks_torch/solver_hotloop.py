@@ -207,12 +207,15 @@ def bench_fused_sa(n, batch, cfg, repeats, dev):
            for name, t in ts.items()}
     out["speedup_fused_vs_event"] = (out["fused"]["maps_per_s"]
                                      / out["event"]["maps_per_s"])
-    # Launches per temperature step: the event loop scores every
-    # remaining candidate per round, one K1 launch a round, for at most
-    # max_success accepting rounds plus one; the fused step is one K4.
+    # Launches per temperature step: the event loop scores a window of
+    # event_width candidates per round (all of them on the card), one K1
+    # launch a round, for at most max_success accepting rounds plus
+    # ceil(max_neighbors / event_width) sweeping ones; the fused step is
+    # one K4.
+    width = annealing.resolved_event_width(variants["event"], n, dev)
     k, s = cfg.max_neighbors, cfg.max_success
     out["dispatches_per_temperature_step"] = {"fused": 1,
-                                              "event": min(s, k) + 1}
+                                              "event": min(s, k) + -(-k // width)}
     return out
 
 
@@ -291,13 +294,16 @@ def run_fused(args, dev):
 def run_sa(args, dev):
     cfg = _sa_cfg(args.dry_run)
     ns, steps, batch = ([16], 8, 2) if args.dry_run else ([32, 64], 64, 8)
+    # worst-case wide rounds per temperature level on this device (full
+    # width on the card: max_success + 1; windowed on the CPU)
+    width = annealing.resolved_event_width(cfg, device=dev)
     k, s = cfg.max_neighbors, cfg.max_success
     payload = {
-        # the port scores every remaining candidate in each event round
         "config": _config(args, dev, max_neighbors=k, max_success=s,
                           solvers=cfg.solvers, chains=args.chains,
-                          batch=batch, event_width=k),
-        "sequential_depth": {"scan": k, "event": min(s, k) + 1},
+                          batch=batch, event_width=width),
+        "sequential_depth": {"scan": k, "event": min(s, k) + -(-k // width),
+                             "event_full_width": min(s, k) + 1},
         "per_step": {}, "solve": {},
     }
     for n in ns:

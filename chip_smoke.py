@@ -187,6 +187,24 @@ Phases, each of which must pass:
    world of gloo ranks on cuda:0 (``tests/_torch_serve_world.py``'s rank
    body) against one CPU device: the same greedy tokens, logits within
    1e-4, K8 launched on every Jamba rank;
+   then a seventeenth route, ``launchers``, the launchers that lower
+   production cells: ``launch.dryrun`` of Qwen3-4B ``train_4k``,
+   Granite-34B ``decode_32k`` and Qwen3-MoE-235B-A22B ``prefill_32k`` at
+   full width and depth on the (16, 16) mesh (the step's work counted on
+   ``meta`` by ``topology.opcost``; the card's allocation unchanged) and
+   Qwen3-4B ``long_500k`` (skipped: full attention), read by
+   ``launch.roofline`` at the H100 datasheet's rates (every term above
+   0, model / counted FLOPs in (0.2, 1]), ``launch.inspect_cell``'s top
+   12 of Granite's decode; ``launch.placement_bench.bench`` of Gemma3-4B
+   ``train_4k`` on the (2, 16, 16) mesh, its six solves on the card (no
+   F above F(identity); the fragmented allocation's F(identity) above
+   the pristine slice's; the multilevel route's own answer on it
+   printed; K1, K6 and K7 launched), psa on C / max(C) card == CPU (the
+   CPU's in a pool process beside the route), ``placement_gain.run()``'s
+   six rows; psa-event engines with ``SAConfig.event_width`` None,
+   ``"auto"`` (its warmup fills the width cache at both buckets), 1 and
+   6 on the 64 and 32 buckets' 3-request waves, the same responses bit
+   for bit, K1 launches and the chosen widths printed;
 5. check every response (a feasible permutation, an objective equal to
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
@@ -423,6 +441,21 @@ SERVE_SMOKE = (("qwen3_4b", {}), ("granite_34b", {}), ("gemma3_4b", {}),
                ("jamba_v0_1_52b", dict(num_experts=16,
                                        moe_capacity_factor=1.25)),
                ("rwkv6_7b", {}))
+
+# The launchers route: the dry run of production cells at full width and
+# depth on the (16, 16) mesh (their work counted on meta, roofline terms
+# at the H100's datasheet rates), inspect_cell's top contributors, the
+# placement benchmark's six solves on 512 ranks, and SAConfig.event_width
+# on the card (psa-event engines at the default width, "auto", 1 and 6 on
+# the 64 and 32 buckets' 3-request waves).
+LAUNCH_DRYRUN = (("qwen3_4b", "train_4k"), ("granite_34b", "decode_32k"),
+                 ("qwen3_moe_235b_a22b", "prefill_32k"),
+                 ("qwen3_4b", "long_500k"))
+LAUNCH_INSPECT = ("granite_34b", "decode_32k")
+LAUNCH_PLACE = ("gemma3_4b", "train_4k")
+LAUNCH_WIDTHS = (None, "auto", 1, 6)
+LAUNCH_ORDERS = (45, 27)                 # the 64 and 32 buckets
+LAUNCH_USEFUL = (0.2, 1.0)               # model FLOPs / counted FLOPs
 
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
@@ -3718,6 +3751,265 @@ def drive_serve_parallel(card, device="cuda"):
     return counts
 
 
+def launch_dryrun(card, device="cuda"):
+    """LAUNCH_DRYRUN through ``dryrun.lower_cell`` on the single-pod
+    (16, 16) mesh (the card's allocation unchanged), written to a
+    temporary directory that ``roofline.load_all`` reads: every term
+    above 0 and the useful ratio within LAUNCH_USEFUL on each ``ok``
+    cell, ``long_500k`` skipped on full attention; then
+    ``inspect_cell``'s top 12 of LAUNCH_INSPECT."""
+    import tempfile
+    import torch
+    from repro_torch.launch import (dryrun, inspect_cell, placement_bench,
+                                    roofline)
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as art:
+        for arch, shape in LAUNCH_DRYRUN:
+            sync(device)
+            before = torch.cuda.memory_allocated() if on_card else 0
+            t = time.perf_counter()
+            rec = dryrun.lower_cell(arch, shape, False)
+            wall = time.perf_counter() - t
+            after = torch.cuda.memory_allocated() if on_card else 0
+            require(after == before, f"[launchers] dryrun {arch} {shape} "
+                    f"allocated {after - before} bytes of card memory")
+            rec["tag"] = ""
+            with open(os.path.join(art, dryrun.cell_tag(rec) + ".json"),
+                      "w") as f:
+                json.dump(rec, f)
+            if rec["status"] != "ok":
+                print(f"[launchers] dryrun {arch} {shape}: {rec['status']} "
+                      f"({rec.get('reason')})", flush=True)
+                continue
+            held = {k: rec[k] for k in ("weight_bytes_per_device",
+                                        "opt_bytes_per_device",
+                                        "cache_bytes_per_device") if k in rec}
+            print(f"[launchers] dryrun {arch} {shape} on (16, 16): "
+                  f"{wall:.2f} s of host time ({rec['lower_s']} s "
+                  f"lowering); a device's counted FLOPs "
+                  f"{rec['flops_by_dtype']}, HBM bytes {rec['hbm_bytes']!r}, "
+                  f"collective bytes {rec['collective_bytes']}, "
+                  f"collectives {rec['collectives']}, {held}; card "
+                  f"{card}", flush=True)
+        skipped = json.load(open(os.path.join(
+            art, "qwen3_4b.long_500k.single.json")))
+        require(skipped["status"] == "skipped", "[launchers] long_500k on "
+                f"full attention: {skipped['status']}, not skipped")
+        saved, roofline.ART = roofline.ART, art
+        try:
+            rows = roofline.load_all("single")
+        finally:
+            roofline.ART = saved
+    require(len(rows) == len(LAUNCH_DRYRUN) - 1, f"[launchers] roofline "
+            f"rows {len(rows)}")
+    lo, hi = LAUNCH_USEFUL
+    for r in rows:
+        terms = (r["compute_s"], r["memory_s"], r["collective_s"])
+        require(min(terms) > 0, f"[launchers] {r['arch']} {r['shape']}: "
+                f"a roofline term is 0: {terms}")
+        require(lo < r["useful_ratio"] <= hi, f"[launchers] {r['arch']} "
+                f"{r['shape']}: model / counted FLOPs {r['useful_ratio']:.4f}"
+                f" outside ({lo}, {hi}]")
+    print("[launchers] roofline of the dry run (terms are a device's counted "
+          "FLOPs, HBM bytes and collective bytes divided by the H100 SXM "
+          "datasheet's rates, topology/h100.py: not times measured on the "
+          "card):", flush=True)
+    print(roofline.markdown_table(rows), flush=True)
+    for r in rows:
+        print(f"[launchers] {r['arch']} {r['shape']}: compute "
+              f"{r['compute_s']!r} s, memory {r['memory_s']!r} s, collective "
+              f"{r['collective_s']!r} s, model / counted FLOPs "
+              f"{r['useful_ratio']!r}, roofline fraction "
+              f"{r['roofline_fraction']!r}", flush=True)
+    t = time.perf_counter()
+    lowered, _ = placement_bench.compile_cell(*LAUNCH_INSPECT, False)
+    print(f"[launchers] inspect_cell {' '.join(LAUNCH_INSPECT)} (lowered "
+          f"with costs in {time.perf_counter() - t:.2f} s):", flush=True)
+    inspect_cell.top_contributors(lowered.cost, lowered.collectives, 12)
+    return rows
+
+
+def launch_event_width(card, device="cuda"):
+    """psa-event engines at each of LAUNCH_WIDTHS: the default width and
+    ``"auto"`` on LAUNCH_ORDERS' waves (the ``"auto"`` engine's warmup
+    fills the width cache at each bucket it warms; warmup changes no
+    result, so the others skip it), widths 1 and 6 on the last of them;
+    every response equal to the default width's bit for bit.  Returns
+    the widths the autotune chose."""
+    import torch
+    from repro_torch.core import annealing
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.genetic import GAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MappingEngine
+    reqs, optima = route_requests("psa-event")
+    waves = [[r for r in reqs if r.C.shape[0] == order]
+             for order in LAUNCH_ORDERS]
+    annealing._EVENT_WIDTH_CACHE.clear()
+    got, chosen = {}, {}
+    for width in LAUNCH_WIDTHS:
+        engine = MappingEngine(
+            sa_cfg=SAConfig(**SA_KW, loop="event", event_width=width),
+            ga_cfg=GAConfig(**GA_KW), num_processes=NUM_PROCESSES,
+            device=device)
+        lines = []
+        if width == "auto":
+            buckets = tuple(sorted({engine.bucket_for(w[0].C.shape[0])
+                                    for w in waves}))
+            t = time.perf_counter()
+            engine.warmup(buckets=buckets, algorithms=("psa",))
+            sync(device)
+            lines.append(f"warmup {time.perf_counter() - t:.3f} s")
+            chosen = dict(annealing._EVENT_WIDTH_CACHE)
+            require(set(chosen) == {(torch.device(device).type, b)
+                                    for b in buckets},
+                    f"[launchers] event_width auto: warmup cached {chosen} "
+                    f"for buckets {buckets}")
+        for wave in (waves if width in (None, "auto") else waves[-1:]):
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            futs = [engine.submit(r) for r in wave]
+            engine.flush()
+            sync(device)
+            wall = time.perf_counter() - t
+            k1 = launches_since(before)["qap_delta"]
+            for r, fut in zip(wave, futs):
+                resp = got[width, r.job_id] = fut.result()
+                check_response(r, resp, optima[r.job_id])
+            used = annealing.resolved_event_width(engine.sa_cfg,
+                                                  resp.bucket, device)
+            lines.append(f"order {wave[0].C.shape[0]} (bucket {resp.bucket},"
+                         f" width {used}): {wall:.4f} s, {k1} K1")
+        engine.stop()
+        print(f"[launchers] event_width {width!r}: {'; '.join(lines)}; "
+              f"card {card}", flush=True)
+    for (width, job), resp in got.items():
+        want = got[None, job]
+        require((want.perm == resp.perm).all()
+                and want.objective == resp.objective,
+                f"[launchers] event_width {width!r} {job}: F "
+                f"{resp.objective} != the default width's {want.objective}")
+    print(f"[launchers] event_width: the autotune chose {chosen}; every "
+          f"width's responses == the default width's ({len(got)} "
+          f"responses)", flush=True)
+    return chosen
+
+
+def launch_placement(card, device):
+    """``placement_bench.bench`` of LAUNCH_PLACE on 512 ranks with its six
+    solves on ``device``: no F above F(identity), the fragmented
+    allocation's F(identity) above the pristine slice's, the multilevel
+    route's own answer on it printed; ``placement_gain.run()`` on the
+    written artifact; psa on C / max(C) on a fresh default service
+    against the CPU's, bit for bit, the CPU's in a pool process started
+    with the bench (beside the event-width engines' host work a CPU
+    solve of 512 ranks took minutes)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from benchmarks_torch import placement_gain
+    from repro_torch.core import keys, multilevel
+    from repro_torch.kernels import ops
+    from repro_torch.launch import placement as pl, placement_bench
+    lowered, mesh = placement_bench.compile_cell(*LAUNCH_PLACE, True)
+    c = pl.traffic_from_compiled(lowered, lowered.num_devices)
+    m = pl.system_graph_for_mesh(mesh)
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    t_cpu = time.perf_counter()
+    cpu = pool.submit(place_cpu_solve, os.path.join(ROOT, "src"),
+                      c / c.max(), m, "psa")
+    try:
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        rec = placement_bench.bench(*LAUNCH_PLACE, multi_pod=True,
+                                    device=None if device == "cuda" else device)
+        wall = time.perf_counter() - t
+        launched = {k: v for k, v in launches_since(before).items() if v}
+        for scen in ("algorithms", "fragmented"):
+            for algo, a in rec[scen].items():
+                require(a["cost_after"] <= a["cost_before"], f"[launchers] "
+                        f"{scen} {algo}: F {a['cost_after']} above F(identity) "
+                        f"{a['cost_before']}")
+        pristine, frag = (rec[k]["psa"]["cost_before"]
+                          for k in ("algorithms", "fragmented"))
+        require(frag > pristine, f"[launchers] the fragmented allocation's "
+                f"F(identity) {frag!r} is not above the pristine slice's "
+                f"{pristine!r}")
+        print(f"[launchers] placement_bench {' '.join(LAUNCH_PLACE)} on "
+              f"{rec['num_devices']} ranks: lowering {rec['lower_s']} s, C "
+              f"{rec['traffic_nonzero']} nonzeros, "
+              f"{rec['traffic_total_bytes']!r} bytes; "
+              + "; ".join(f"{scen} {algo}: F(identity) {a['cost_before']!r}, F "
+                          f"{a['cost_after']!r}, gain {a['gain']:.6f}, "
+                          f"{a['seconds']} s"
+                          for scen in ("algorithms", "fragmented")
+                          for algo, a in rec[scen].items())
+              + f"; bench wall {wall:.1f} s, launches {launched}; card {card}",
+              flush=True)
+        with tempfile.TemporaryDirectory() as art:
+            with open(os.path.join(art, "{}.{}.multi.json".format(
+                    *LAUNCH_PLACE)), "w") as f:
+                json.dump(rec, f)
+            saved, placement_gain.ART = placement_gain.ART, art
+            try:
+                rows = placement_gain.run()
+            finally:
+                placement_gain.ART = saved
+        want = [f"placement.{LAUNCH_PLACE[0]}.{LAUNCH_PLACE[1]}.{label}.{algo}"
+                for label in ("pristine", "frag") for algo in ("psa", "pga", "pca")]
+        require([r.split(",")[0] for r in rows] == want,
+                f"[launchers] placement_gain rows {rows}")
+        print(f"[launchers] placement_gain.run(): {rows}", flush=True)
+
+        # the engine's own multilevel solve of the fragmented instance (order
+        # 512 takes the multilevel route, seed 0), before its rule that an
+        # answer worse than the as-allocated order returns that order
+        t = time.perf_counter()
+        ml = multilevel.solve_multilevel(
+            c, placement_bench._fragmented_system_graph(lowered.num_devices),
+            keys.prng_key(0, device), multilevel.MultilevelConfig(),
+            device=device)
+        print(f"[launchers] the multilevel route on the fragmented allocation "
+              f"alone: F {ml.objective!r} against F(identity) {frag!r} "
+              f"({time.perf_counter() - t:.2f} s)", flush=True)
+        pl.reset_default_service()
+        service = pl.default_service() if device == "cuda" else \
+            pl.PlacementService(device=device)
+        unit = solve_job_placement(service, c / c.max(), m, "psa", device,
+                                   "512 ranks, torus, psa, C / max(C)",
+                                   tag="launchers")
+        pl.reset_default_service()
+        got = cpu.result()
+        cpu_wall = time.perf_counter() - t_cpu
+    finally:
+        pool.shutdown()
+    require(unit == got, f"[launchers] 512 ranks C / max(C): card "
+            f"{unit[1:]} != cpu {got[1:]}")
+    print(f"[launchers] 512 ranks C / max(C): card == cpu (the CPU's solve "
+          f"{cpu_wall:.1f} s in a pool process, beside the card's)",
+          flush=True)
+
+
+def drive_launchers(card, device="cuda"):
+    """The seventeenth route: the launchers that lower production cells,
+    and ``event_width``.  Returns the route's launch counts."""
+    from repro_torch.kernels import ops
+    t_route = time.perf_counter()
+    before = ops.launch_counts()
+    launch_dryrun(card, device)
+    launch_event_width(card, device)
+    launch_placement(card, device)
+    counts = launches_since(before)
+    for kernel in ("qap_delta", "qap_objective_sparse", "qap_delta_sparse"):
+        require(counts[kernel] > 0 or device == "cpu", f"[launchers] the "
+                f"route launched no {kernel}")
+    print(f"[launchers] route launches "
+          f"{({k: v for k, v in counts.items() if v})}; route wall "
+          f"{time.perf_counter() - t_route:.1f} s; card {card}", flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3799,6 +4091,8 @@ def main():
     phase_done("expert-parallel")
     runs["serve-parallel"] = drive_serve_parallel(card)
     phase_done("serve-parallel")
+    runs["launchers"] = drive_launchers(card)
+    phase_done("launchers")
     print(f"[time] script wall {time.perf_counter() - t_script:.1f} s, the "
           f"build included", flush=True)
 

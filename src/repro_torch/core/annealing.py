@@ -8,9 +8,10 @@ instance contiguous (the kernels' ``r // (B // B0)`` contract).
 A temperature level examines up to ``max_neighbors`` candidate swaps and
 accepts at most ``max_success`` of them.  ``SAConfig.loop`` picks how:
 
-* ``"event"`` (default): acceptance-event rounds, every remaining
-  candidate of every chain scored in one ``kernels.ops.qap_delta`` call
-  (kernel K1 on the card), the first accepted one applied;
+* ``"event"`` (default): acceptance-event rounds, a window of
+  ``resolved_event_width`` candidates of every chain (all of them on the
+  card) scored in one ``kernels.ops.qap_delta`` call (kernel K1 on the
+  card), the first accepted one applied;
 * ``"fused"``: one ``kernels.ops.qap_sa_step`` launch (kernel K4) runs
   the whole level, candidates drawn on the card from the counter stream;
 * ``"scan"``: the sequential candidate scan, the golden reference.
@@ -38,6 +39,7 @@ test -- agree bit for bit:
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -70,9 +72,11 @@ class SAConfig:
     loop: str = "event"              # "event" | "scan" | "fused" (same results)
     rng: str = "host"                # "host" (jax.random replay) | "counter"
     event_width: Union[int, str, None] = None
-                                     # candidates scored per event round in
-                                     # the reference; the port always scores
-                                     # all of them (results never depend on it)
+                                     # candidates scored per event round:
+                                     # None (the device's default), an int
+                                     # or "auto" (measured; see
+                                     # resolved_event_width); results never
+                                     # depend on it
     flows: str = "dense"             # "dense" | "sparse": C as a
                                      # core.sparse.SparseFlows (convert once,
                                      # host-side, via sparse.prepare_flows)
@@ -141,6 +145,95 @@ def resolved_loop(cfg: SAConfig, n: Optional[int] = None) -> str:
     return cfg.loop
 
 
+_CPU_EVENT_WIDTH = 6   # balances wasted re-evaluation in the acceptance-
+                       # dense (hot) phase against extra rounds in the
+                       # sparse (cold) phase on the CPU (the reference's)
+
+# event_width="auto": measured widths, cached per (device type, n).  Filled
+# eagerly by autotune_event_width (the engine's warmup, benchmarks); a
+# miss falls back to the device's default, so results never depend on
+# whether the autotune ran.
+_EVENT_WIDTH_CACHE: dict = {}
+_AUTO_WIDTHS = (1, 2, 4, 6, 8, 12, 16, 24, 32)
+_AUTO_SUCCESSES = 5    # cost-model round counts: a temperature level runs
+_AUTO_CANDIDATES = 50  # ~(successes + candidates / width) wide rounds
+
+
+def _default_event_width(max_neighbors: int, device=None) -> int:
+    """The device's width without a measurement: every candidate on the
+    card (one K1 launch covers all of them), a narrow window on the
+    CPU, where scoring them all every round costs more than it saves."""
+    if resolve_device(device).type == "cuda":
+        return max_neighbors
+    return min(_CPU_EVENT_WIDTH, max_neighbors)
+
+
+def autotune_event_width(n: int, max_neighbors: int = 50,
+                         repeats: int = 3, device=None) -> int:
+    """One-shot measured pick for ``SAConfig.event_width="auto"`` on
+    ``device`` (the card by default).
+
+    Times ``ops.qap_delta`` (K1 on the card) at each candidate width on
+    a synthetic order-``n`` instance, synchronising, and picks the width
+    minimising the event loop's cost model ``(successes + candidates /
+    width) * t(width)`` -- a temperature level pays one round per
+    acceptance plus enough rounds to sweep the candidate list.  The
+    result is cached per (device type, n); the width never changes
+    results, so tuning is a pure throughput knob.
+    """
+    dev = resolve_device(device)
+    cached = _EVENT_WIDTH_CACHE.get((dev.type, n))
+    if cached is not None:
+        return cached
+    gen = torch.Generator().manual_seed(0)
+    C = torch.round(torch.rand((n, n), generator=gen) * 9.0).to(dev)
+    M = torch.round(torch.rand((n, n), generator=gen) * 9.0).to(dev)
+    p = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    key = keys.prng_key(0, dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    best_w, best_cost = None, float("inf")
+    for w in _AUTO_WIDTHS:
+        pairs = qap.random_swap_pairs(key, w, n)[None]
+        ops.qap_delta(C, M, p, pairs)                     # first use
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            ops.qap_delta(C, M, p, pairs)
+        sync()
+        t = (time.perf_counter() - t0) / repeats
+        cost = (_AUTO_SUCCESSES + _AUTO_CANDIDATES / w) * t
+        if cost < best_cost:
+            best_w, best_cost = w, cost
+    _EVENT_WIDTH_CACHE[(dev.type, n)] = best_w
+    return best_w
+
+
+def resolved_event_width(cfg: SAConfig, n: Optional[int] = None,
+                         device=None) -> int:
+    """Candidates scored per acceptance-event round on ``device`` (the
+    card by default).
+
+    ``cfg.event_width`` when set to an int; ``"auto"`` reads the
+    per-(device type, n) measured cache (:func:`autotune_event_width`)
+    and falls back to the device's default on a miss; otherwise the
+    default (:func:`_default_event_width`).  The width changes only how
+    much is scored per round, never which candidates are accepted, so
+    results are the same bits for every width.
+    """
+    if cfg.event_width == "auto":
+        w = _EVENT_WIDTH_CACHE.get((resolve_device(device).type, n))
+        if w is None:
+            w = _default_event_width(cfg.max_neighbors, device)
+        return max(1, min(w, cfg.max_neighbors))
+    if cfg.event_width is not None:
+        if not isinstance(cfg.event_width, int) or cfg.event_width < 1:
+            raise ValueError(
+                f"event_width must be >= 1 or 'auto', got {cfg.event_width!r}")
+        return min(cfg.event_width, cfg.max_neighbors)
+    return _default_event_width(cfg.max_neighbors, device)
+
+
 def _check(cfg: SAConfig) -> None:
     if cfg.rng not in ("host", "counter"):
         raise ValueError(f"unknown rng regime {cfg.rng!r}")
@@ -187,17 +280,21 @@ def _advance(inst, state: SAState, key, pairs, us, cfg: SAConfig,
     for the fused loop, which draws on the card).  ``inst`` is
     ``(C, M, C^T, M^T)``."""
     C, M, CT, MT = inst
-    loop = resolved_loop(cfg, state.p.shape[-1])
+    n = state.p.shape[-1]
+    loop = resolved_loop(cfg, n)
     if loop == "fused":
         p, f, best_p, best_f = ops.qap_sa_step(
             C, M, state.p, state.f, state.best_p, state.best_f, state.temp,
             key, nv32, max_neighbors=cfg.max_neighbors,
-            max_success=cfg.max_success, CT=CT, MT=MT)
+            max_success=cfg.max_success,
+            event_width=resolved_event_width(cfg, n, state.p.device),
+            CT=CT, MT=MT)
     elif loop == "event":
         p, f, best_p, best_f = event_loop(
             lambda pp, pr: ops.qap_delta(C, M, pp, pr, CT, MT),
             state.p, state.f, state.best_p, state.best_f, state.temp,
-            pairs, us, cfg.max_success)
+            pairs, us, cfg.max_success,
+            resolved_event_width(cfg, n, state.p.device))
     else:
         p, f, best_p, best_f = _candidate_scan(C, M, state, pairs, us, cfg)
     temp = cool(state.temp, cfg, beta).clamp_min(_f32(cfg.t_final))

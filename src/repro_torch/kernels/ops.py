@@ -140,19 +140,22 @@ def fused_step_fits(n: int) -> bool:
 
 
 def qap_sa_step(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
-                max_neighbors: int, max_success: int,
+                max_neighbors: int, max_success: int, event_width=None,
                 CT: Optional[torch.Tensor] = None,
                 MT: Optional[torch.Tensor] = None):
     """One whole SA temperature step for ``B`` chains: ``(p, f, best_p,
     best_f)``; candidates and uniforms come from each chain's key words.
-    Callers guard orders with :func:`fused_step_fits`."""
+    Callers guard orders with :func:`fused_step_fits`.  ``event_width``
+    shapes the plain version's event windows; K4, like the reference's
+    Pallas kernel, scans the candidates one by one and ignores it (every
+    width gives the same states)."""
     if _route(p):
         return qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys,
                                 n_valid, max_neighbors=max_neighbors,
                                 max_success=max_success, CT=CT, MT=MT)
     return qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid,
                              max_neighbors=max_neighbors,
-                             max_success=max_success)
+                             max_success=max_success, event_width=event_width)
 
 
 def qap_ga_step(C, M, pop, fit, keys, n_valid, *, n_off: int, tournament: int,

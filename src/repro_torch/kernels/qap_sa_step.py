@@ -10,9 +10,9 @@ stays with the caller.
 
 The plain version consumes the candidates with the acceptance-event loop
 (:func:`event_loop`, also the ``loop="event"`` hot loop of
-``core.annealing``): each round scores every remaining candidate against
-the current state in one wide delta call and applies the first accepted
-one.  The kernel (``csrc/qap_sa_step.cu``) scans them one by one: up to
+``core.annealing``): each round scores a window of candidates (all of
+them unless ``event_width`` narrows it) against the current state in one
+wide delta call and applies the first accepted one.  The kernel (``csrc/qap_sa_step.cu``) scans them one by one: up to
 ``build.dense_smem_max_n()`` (every dense bucket) one warp per chain,
 the chains of an instance sharing a block that stages ``C`` and ``M`` in
 shared memory; above it one block per chain, reading ``C``, ``M`` and
@@ -35,50 +35,71 @@ from .qap_delta import qap_delta_plain
 def event_loop(delta: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                p: torch.Tensor, f: torch.Tensor, best_p: torch.Tensor,
                best_f: torch.Tensor, temp: torch.Tensor, pairs: torch.Tensor,
-               us: torch.Tensor, max_success: int):
-    """Acceptance-event loop over ``B`` chains at full window width.
+               us: torch.Tensor, max_success: int,
+               width: Optional[int] = None):
+    """Acceptance-event loop over ``B`` chains, ``width`` candidates a
+    round (default: all ``K``).
 
-    ``delta(p, pairs)`` scores ``(B, K, 2)`` candidates -> ``(B, K)``.
-    A chain stops once its ``K`` candidates are consumed or
-    ``max_success`` swaps landed; stopped chains are masked while the
-    others run on (what the reference's ``while_loop`` under ``vmap``
-    does).  At most ``min(max_success, K) + 1`` rounds.
+    ``delta(p, pairs)`` scores ``(B, w, 2)`` candidates -> ``(B, w)``.
+    Each round scores, for every chain, the window ``[off, off + w)``
+    with ``off = min(start, K - w)`` (one ``delta`` call for all chains)
+    and applies the first accepted candidate at or after ``start``, the
+    rows before it masked (the reference's
+    ``annealing._acceptance_event_loop``); a round with none advances
+    past its window.  A chain stops once its ``K`` candidates are
+    consumed or ``max_success`` swaps landed; stopped chains are masked
+    while the others run on (what the reference's ``while_loop`` under
+    ``vmap`` does).  Rejected candidates never change the state, so
+    every width gives the same states.
     """
     B, K = us.shape
+    w = K if width is None else min(max(int(width), 1), K)
     tsafe = temp.clamp_min(1e-9)[:, None]
     rows = torch.arange(B, device=p.device)
-    cand = torch.arange(K, device=p.device)
+    cand = torch.arange(w, device=p.device)
     start = torch.zeros(B, dtype=torch.long, device=p.device)
     succ = torch.zeros(B, dtype=torch.long, device=p.device)
     for _ in range(K + 1):
         active = (start < K) & (succ < max_success)
         if not bool(active.any()):
             break
-        ds = delta(p, pairs)
-        accept = (ds < 0) | (us < torch.exp(-ds / tsafe))
-        live = accept & (cand >= start[:, None]) & active[:, None]
+        off = (start.clamp_max(K - w))[:, None]
+        idx = off + cand                                         # (B, w)
+        if w == K:
+            wpairs, wus = pairs, us
+        else:
+            wpairs = pairs.gather(1, idx[..., None].expand(B, w, 2))
+            wus = us.gather(1, idx)
+        ds = delta(p, wpairs)
+        accept = (ds < 0) | (wus < torch.exp(-ds / tsafe))
+        live = accept & (idx >= start[:, None]) & active[:, None]
         fire = live.any(dim=1)
-        j = torch.where(live, cand, K).amin(dim=1).clamp_max(K - 1)
-        ab = pairs[rows, j].long()
+        j = torch.where(live, cand, w).amin(dim=1).clamp_max(w - 1)
+        ab = wpairs[rows, j].long()
         p = torch.where(fire[:, None], qap.swap_positions(p, ab[:, 0], ab[:, 1]), p)
         f = torch.where(fire, f + ds[rows, j], f)
         better = active & (f < best_f)
         best_p = torch.where(better[:, None], p, best_p)
         best_f = torch.where(better, f, best_f)
-        start = torch.where(active, torch.where(fire, j + 1, K), start)
+        start = torch.where(active, torch.where(fire, off[:, 0] + j + 1,
+                                                off[:, 0] + w), start)
         succ = succ + fire.long()
     return p, f, best_p, best_f
 
 
 def qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
-                      max_neighbors: int, max_success: int):
+                      max_neighbors: int, max_success: int,
+                      event_width: Optional[int] = None):
     """Plain PyTorch version of K4 (counterpart of
     ``repro.kernels.ref.qap_sa_step_ref``): ``p``/``best_p (B, N)`` int32,
     ``f``/``best_f``/``temp (B,)`` f32, ``keys (B, 2)`` uint32 words,
-    ``n_valid (B,)``; C/M shared or ``(B0, N, N)``."""
+    ``n_valid (B,)``; C/M shared or ``(B0, N, N)``.  ``event_width``
+    shapes the event loop's windows (default: every candidate), never
+    its results."""
     pairs, us = prng.sa_step_draws(keys, max_neighbors, n_valid)
     return event_loop(lambda pp, pr: qap_delta_plain(C, M, pp, pr),
-                      p, f, best_p, best_f, temp, pairs, us, max_success)
+                      p, f, best_p, best_f, temp, pairs, us, max_success,
+                      event_width)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ..topology import opcost
 from . import build
 
 # d_state values the kernel is instantiated for.
@@ -55,6 +56,45 @@ def selective_scan_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             yt = yt + h[..., k] * cf[:, t, k, None]
         y[:, t] = yt
     return y, h
+
+
+def scan_cost(bsz: int, s: int, d: int, n: int, backward: bool,
+              h_grad: bool = True) -> int:
+    """The bytes ``topology.opcost`` counts for :func:`selective_scan_plain`
+    on contiguous f32 inputs (it does no matrix product): its forward,
+    or (``backward``) :class:`SelectiveScan`'s backward -- the plain
+    scan recomputed and differentiated for every input, ``h_grad``
+    whether ``h_last`` has a gradient.  The op by op sum of the loops,
+    as ``(calls, bytes a call)``: ``e`` a step's ``(B, D)``, ``en`` its
+    ``(B, D, N)``, ``bn`` the step's ``b`` or ``c`` row."""
+    f = 4
+    e, en, bn, dn = bsz * d, bsz * d * n, bsz * n, d * n
+    es, esn = bsz * s * d, bsz * s * n
+    forward = [
+        (1, f * en), (s, f * e),                           # h, each y_t
+        (s, f * (e + dn + en)), (s, 2 * f * en),           # dt * a, exp
+        (s, 3 * f * e), (s, f * (e + bn + en)),            # bx
+        (s, 3 * f * en), (s, 3 * f * en),                  # h
+        (n * s, f * (2 * e + bsz)), (n * s, 3 * f * e),    # y_t's terms
+        (s, 2 * f * e),                                    # y[:, t] = y_t
+    ]
+    if not backward:
+        return sum(k * x for k, x in forward)
+    grads = [
+        (s, 3 * f * e), (n * s - (not h_grad), 3 * f * en),
+        (2 * (s - 1), 3 * f * es), ((n + 1) * s - 2, 3 * f * esn),
+        (s - 1, 3 * f * dn),                               # sums
+        (s, 2 * f * e), (s - 1, 2 * f * e), (s, 2 * f * es),   # clone, copies
+        (n * s, f * (2 * e + bsz)), ((n + 2) * s, 3 * f * e),
+        (s, f * (2 * en + bn)), (2 * s, f * (2 * en + e)),
+        (3 * s - 1, 3 * f * en), (s, f * (2 * en + dn)),   # muls
+        (n * s, f * (bsz + bn)), (n * s, f * (e + en)),
+        (2 * s, f * (e + es)), ((n + 1) * s, f * (bn + esn)),  # selects
+        (n * s, f * (e + bsz)), (s, f * (en + dn)), (s, f * (en + bn)),
+        (2 * s, f * (en + e)),                             # sums to size
+        (s - 1, f * e),                                    # zeros_like
+    ]
+    return sum(k * x for k, x in forward + grads)
 
 
 def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -92,7 +132,9 @@ class SelectiveScan(torch.autograd.Function):
     """The scan with a gradient: ``SelectiveScan.apply(u, dt, a, b, c)
     -> (y, h_last)``.  Forward: K8 for CUDA tensors, the plain version
     for CPU ones, and for ``meta`` ones (a step lowered without devices,
-    ``launch.lowering``) the outputs' shapes, with nothing computed;
+    ``launch.lowering``) the outputs' shapes, with nothing computed but
+    the plain version's work reported to ``topology.opcost``
+    (:func:`scan_cost`, forward and backward);
     any other device raises.  Backward: the plain version recomputed
     from the saved inputs and differentiated, so every input gets its
     gradient through both outputs (on ``meta``, the gradients'
@@ -106,6 +148,9 @@ class SelectiveScan(torch.autograd.Function):
             return selective_scan_cuda(u, dt, a, b, c)
         if u.device.type == "meta":
             (bsz, s, d), n = u.shape, a.shape[1]
+            if opcost.active():
+                opcost.add("selective_scan", 0, scan_cost(bsz, s, d, n, False),
+                           shapes=str((bsz, s, d, n)))
             return (u.new_empty((bsz, s, d), dtype=torch.float32),
                     u.new_empty((bsz, d, n), dtype=torch.float32))
         if u.device.type != "cpu":
@@ -117,6 +162,11 @@ class SelectiveScan(torch.autograd.Function):
         saved = ctx.saved_tensors
         want = ctx.needs_input_grad
         if saved[0].device.type == "meta":
+            (bsz, s, d), n = saved[0].shape, saved[2].shape[1]
+            if opcost.active():
+                opcost.add("selective_scan_backward", 0,
+                           scan_cost(bsz, s, d, n, True, gh is not None),
+                           shapes=str((bsz, s, d, n)))
             return tuple(torch.empty_like(x) if w else None
                          for x, w in zip(saved, want))
         with torch.enable_grad():

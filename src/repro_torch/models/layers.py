@@ -49,6 +49,7 @@ from .param import PDecl
 from ..parallel import tensor_parallel as tp
 from ..parallel.sharding import PartitionSpec as P
 from ..parallel.sharding import whole_head_groups
+from ..topology import opcost
 
 NEG_INF = -2.0 ** 30   # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -152,7 +153,7 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the causal/window masks.  Returns (B, Sq, H, hd) in the compute dtype.
     """
     if q.device.type == "meta":
-        return _MEAShapes.apply(q, k, v, cfg.compute_dtype)
+        return _MEAShapes.apply(q, k, v, cfg, window)
     b, sq0, h, hd = q.shape
     skv0, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -206,21 +207,128 @@ def _mea(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(cfg.compute_dtype)
 
 
+def mea_cost(b: int, sq0: int, skv0: int, h: int, kvh: int, hd: int,
+             qc: int, kc: int, window: Optional[int], in_bytes: int,
+             out_bytes: int, backward: bool) -> Tuple[int, int]:
+    """``(flops, bytes)`` that ``topology.opcost`` counts for
+    :func:`_mea` on q ``(b, sq0, h, hd)`` and k, v ``(b, skv0, kvh, hd)``
+    of ``in_bytes`` an element, its output cast to ``out_bytes``, at
+    chunks ``qc``, ``kc`` (already capped at the lengths): its forward,
+    or (``backward``) autograd's backward of it with every input
+    needing a gradient.  Every chunk pair is counted, masked ones too.
+
+    The op by op sum of the loops, as ``(calls, bytes a call)``: ``e5``
+    the scores of a chunk pair, ``e4`` their row statistics, ``eq`` a q
+    chunk, ``ek`` a k or v chunk, ``mk`` the pair's mask (bool), f32
+    unless noted; ``pairs`` the chunk pairs, some ops skipping the
+    first kv chunk of each q chunk (``pairs - nq``).  The einsums copy
+    a q chunk (and the gradient of ``p v``) into the batched products'
+    layout for ``kvh > 1``, a k or v chunk for ``kvh > 1`` and
+    ``b > 1``."""
+    f, c, o = 4, in_bytes, out_bytes
+    sq, skv = sq0 + (-sq0) % qc, skv0 + (-skv0) % kc
+    nq, nk = sq // qc, skv // kc
+    pairs = nq * nk
+    e5, e4 = b * qc * h * kc, b * qc * h
+    eq, ek, mk = b * qc * h * hd, b * kc * kvh * hd, qc * kc
+    prod = f * (e5 + eq + ek)                   # a bmm's operands and result
+    qcopy, kcopy = int(kvh > 1), int(kvh > 1 and b > 1)
+    flops = 2 * 2 * b * h * qc * kc * hd * pairs
+    if not backward:
+        terms = [
+            (nq, f * eq), (nq, f * e4), (nq, f * e4),      # acc, m, l
+            (pairs, 2 * f * (qcopy * eq + kcopy * 2 * ek)),  # q, k, v copies
+            (2 * pairs, prod), (pairs, 2 * f * e5),        # bmms, scale
+            (pairs, 8 * (kc + qc) + mk), (pairs, f),       # mask, NEG_INF
+            (pairs, mk + 2 * f * e5 + f),                  # where
+            (pairs, f * (e5 + e4)), (pairs, 3 * f * e4),   # amax, maximum
+            (pairs, f * (2 * e5 + e4)), (pairs, 2 * f * e5),   # sub, exp
+            (pairs, 3 * f * e4), (pairs, 2 * f * e4),      # corr
+            (pairs, 3 * f * e4), (pairs, f * (e5 + e4)),   # l * corr, sum
+            (pairs, 3 * f * e4),                           # l
+            (pairs, f * (2 * eq + e4)), (pairs, 3 * f * eq),   # acc
+            (nq, 2 * f * e4), (nq, f * (2 * eq + e4)),     # l clamped, /
+            (1, 2 * f * nq * eq),                          # stack
+        ]
+        if window is not None:
+            terms.append((pairs, 16 * qc + 8 * (kc + qc) + 4 * mk))
+        if sq > sq0:
+            terms.append((1, c * b * (sq0 + sq) * h * hd + 8 * (sq0 + sq)))
+        if skv > skv0:
+            terms.append((1, 2 * c * b * (skv0 + skv) * kvh * hd
+                          + 8 * (skv0 + skv)))
+    else:
+        flops *= 2
+        terms = [
+            (4 * pairs - 2 * nq, 3 * f * e4), (pairs - nq, 3 * f * eq),
+            (2 * pairs, 3 * f * e5), (4 * pairs, prod),
+            (pairs * qcopy, 2 * f * eq),                   # dpv's copy
+            (2 * pairs - nq, 2 * f * e4),                  # div by a scalar
+            (pairs, 2 * f * e4 + 8 * e4),                  # amax's / count
+            (3 * nq, f * (2 * eq + e4)),                   # div by l
+            (2 * pairs - nq, 2 * f * e4 + e4),             # eq
+            (pairs, f * (e4 + e5) + e5),                   # eq with the max
+            (nq, f * e4 + e4),                             # ge
+            (pairs, 2 * f * e4 + e4), (pairs - nq, 2 * f * e4 + e4),  # gt, lt
+            (2 * pairs - nq, 2 * f * e4 + e4),             # masked_fill_
+            (3 * pairs - nq, 3 * f * e4),                  # mul
+            (pairs, f * (e4 + e5) + e5),                   # mul by the mask
+            (pairs - nq, f * (2 * eq + e4)),               # acc's corr
+            (nq + pairs, 3 * f * eq), (pairs, 3 * f * e5),
+            (pairs, 2 * f * e5),                           # scale
+            (pairs, 2 * f * e4), (nq, 2 * f * eq), (pairs, 2 * f * e5),  # neg
+            (nq + pairs, f),                               # scalar_tensor
+            (2 * pairs, c * ek * (1 + nk)),                # k, v selects
+            (nq, c * eq * (1 + nq)),                       # q's select
+            (2 * (pairs - 1), 3 * c * nk * ek),            # k, v sums
+            (nq - 1, 3 * c * nq * eq),                     # q's sum
+            (nq + pairs, f * (eq + e4)), (pairs, e5 + 8 * e4),
+            (pairs, f * (e5 + e4)),                        # sums
+            (pairs, mk + 2 * f * e5 + f),                  # where on the mask
+            (nq, e4 + 2 * f * e4 + f),                     # clamp's where
+            (2 * pairs - nq, e4 + 3 * f * e4),             # where
+        ]
+        if sq > sq0:                 # the output's slice, the pads' grads
+            terms.append((1, (f + c) * b * (sq0 + sq) * h * hd))
+        if skv > skv0:
+            terms.append((1, 2 * c * b * (skv0 + skv) * kvh * hd))
+    if c != f:                                     # .float() and its grad
+        terms += [(2 * pairs, (c + f) * ek), (nq, (c + f) * eq)]
+    if o != f:                                     # the output's cast
+        terms.append((1, (f + o) * b * sq0 * h * hd))
+    return flops, sum(n * x for n, x in terms)
+
+
 class _MEAShapes(torch.autograd.Function):
     """:func:`_mea` on ``meta`` tensors (a step lowered without devices,
     ``launch.lowering``): the output's shape forward and the inputs'
     gradients' shapes backward, with nothing computed -- the chunk loops
     issue no collective, and at ``prefill_32k`` they would run thousands
-    of ops a layer for nothing but the lowering's time."""
+    of ops a layer for nothing but the lowering's time.  Each pass
+    reports to ``topology.opcost`` the work its real computation counts
+    (:func:`mea_cost`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dtype):
+    def forward(ctx, q, k, v, cfg, window):
         ctx.shapes = (q, k, v)
-        return q.new_empty(q.shape, dtype=dtype)
+        ctx.cost = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                    k.shape[2], q.shape[3], min(cfg.attn_q_chunk, q.shape[1]),
+                    min(cfg.attn_kv_chunk, k.shape[1]), window,
+                    q.element_size(),
+                    torch.empty((), dtype=cfg.compute_dtype).element_size())
+        _report("mea", ctx.cost, False)
+        return q.new_empty(q.shape, dtype=cfg.compute_dtype)
 
     @staticmethod
     def backward(ctx, grad):
-        return tuple(torch.empty_like(x) for x in ctx.shapes) + (None,)
+        _report("mea_backward", ctx.cost, True)
+        return tuple(torch.empty_like(x) for x in ctx.shapes) + (None, None)
+
+
+def _report(name: str, args, backward: bool) -> None:
+    if opcost.active():
+        flops, nbytes = mea_cost(*args, backward)
+        opcost.add(name, flops, nbytes, shapes=str(args[:6]))
 
 
 def _gathers_q(cfg: ModelConfig) -> bool:

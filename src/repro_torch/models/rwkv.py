@@ -52,6 +52,7 @@ from .config import ModelConfig
 from .param import PDecl
 from ..parallel import tensor_parallel as tp
 from ..parallel.sharding import PartitionSpec as P
+from ..topology import opcost
 
 CHUNK = 64
 DECAY_RANK = 64
@@ -132,21 +133,72 @@ def _time_mix_inputs(params, x: torch.Tensor, xs: torch.Tensor,
             tp.copy_to(params["bonus_u"].float())[lo:hi].reshape(-1, hd))
 
 
+def wkv_cost(b: int, s: int, h: int, hd: int, c: int, backward: bool,
+             s0_grad: bool = False, s_grad: bool = False) -> Tuple[int, int]:
+    """``(flops, bytes)`` that ``topology.opcost`` counts for
+    :func:`_wkv_scan` on f32 ``(b, s, h, hd)`` inputs in chunks of ``c``:
+    its forward, or (``backward``) autograd's backward of it, ``r``,
+    ``k``, ``v``, ``w`` and ``u`` needing gradients, ``s0`` if
+    ``s0_grad``, and the last state having one if ``s_grad``.  The op by
+    op sum of the loops as ``(calls, bytes a call)`` (one chunk's slices
+    of ``k`` and ``v`` are the whole and need no gradient of their own): ``e`` the state,
+    ``ev`` a token's row, ``ec`` a chunk's ``k v^T``, ``er`` a chunk's
+    rows, ``es`` a whole input, ``hh`` ``u``."""
+    f, n = 4, s // c
+    e, ev, hh = b * h * hd * hd, b * h * hd, h * hd
+    ec, er, es = c * e, c * ev, s * ev
+    flops = 2 * b * h * hd * hd * s
+    if not backward:
+        return flops, sum(k * x for k, x in [
+            (n, f * (2 * er + ec)), (n, f * (hh + 2 * ec)),     # kv, u kv
+            (s * (b > 1), 2 * f * ev), (s, 3 * f * e),          # r_t, + u kv
+            (s, f * (2 * ev + e)),                              # r_t @ ...
+            (s, f * (ev + 2 * e)), (s, 3 * f * e),              # the state
+            (1, 2 * f * es)])                                   # stack
+    # the state's gradient reaches s0 only if it wants one, and the last
+    # token's k, v and w only through a gradient of the last state
+    sg, s0g = int(s_grad), int(s0_grad)
+    back = s - 2 + s0g + sg
+    return 2 * flops, sum(k * x for k, x in [
+        (back, 3 * f * e), (2 * s + 2 * n - 5 + sg, 3 * f * es),    # sums
+        (n * (2 * c - 1) - 1 + sg, 3 * f * ec), (n - 1, 3 * f * hh),
+        (2 * s, f * (2 * ev + e)),                          # the bmms
+        (back, f * (2 * e + ev)), (s - 1 + sg, 3 * f * e),  # w * state
+        (n, f * (2 * ec + hh)), (2 * n, f * (2 * ec + er)),
+        (n, 3 * f * ec),                                    # kv, u kv
+        (s, 2 * f * ev), (2 * s - 1 + sg, f * (ev + es)),   # selects
+        (2 * s - 1 + sg, f * (e + ec)), (2 * n * (n > 1), f * (er + es)),
+        (s - 1 + sg, f * (e + ev)), (n, f * (ec + hh)),     # sums to size
+        (2 * n, f * (ec + er)),
+    ])
+
+
 class _WKVShapes(torch.autograd.Function):
     """:func:`_wkv_scan` on ``meta`` tensors (a step lowered without
     devices, ``launch.lowering``): the outputs' shapes forward and the
     inputs' gradients' shapes backward, with nothing computed -- the
     recurrence issues no collective, and its thousands of per-token ops
-    would only cost the lowering time."""
+    would only cost the lowering time.  Each pass reports to
+    ``topology.opcost`` the work its real computation counts
+    (:func:`wkv_cost`)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
         ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
         b, s, h, hd = r.shape
+        ctx.cost = (b, s, h, hd, min(CHUNK, s))
+        if opcost.active():
+            flops, nbytes = wkv_cost(*ctx.cost, False)
+            opcost.add("wkv", flops, nbytes, shapes=str(ctx.cost))
         return r.new_empty((b, s, h * hd)), s0.new_empty(s0.shape)
 
     @staticmethod
     def backward(ctx, gy, gs):
+        if opcost.active():
+            flops, nbytes = wkv_cost(*ctx.cost, True,
+                                     ctx.needs_input_grad[5], gs is not None)
+            opcost.add("wkv_backward", flops, nbytes, shapes=str(ctx.cost))
         return tuple(torch.empty_like(x) if want else None for x, want
                      in zip(ctx.saved_tensors, ctx.needs_input_grad))
 

@@ -21,7 +21,8 @@ for, named as HLO names it, with
 HLO's bytes (the result a participant holds: the whole tensor of an
 all-gather or all-reduce, the shard of a reduce-scatter) and the replica
 groups in the mesh's logical device ids (positions in the mesh, not the
-ranks that back them).  A reduce-scatter calls the backend's own
+ranks that back them); a running ``topology.opcost`` counter gets each
+one too.  A reduce-scatter calls the backend's own
 ``reduce_scatter_tensor`` on the backends of :data:`NATIVE_REDUCE_SCATTER`
 (NCCL); gloo has none on CUDA tensors, so there it runs as an all-reduce
 and the rank's slice, and is still recorded as the ``reduce-scatter`` of
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..topology import opcost
 from ..topology.traffic import CollectiveOp
 
 Array = torch.Tensor
@@ -154,6 +156,7 @@ def _record(kind: str, result: Array, axis: MeshAxis) -> None:
     with _recorders_lock:
         for ops in _recorders:
             ops.append(op)
+    opcost.add_collective(op)
 
 
 def all_gather(x: Array, axis: MeshAxis, dim: int = 0) -> Array:

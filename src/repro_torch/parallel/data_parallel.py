@@ -160,7 +160,7 @@ def serve_rules(axis: coll.MeshAxis, cell: ShapeCell) -> sh.Rules:
     """The mesh's rules for ``cell``: a cell whose batch does not split
     over data (:func:`splits_batch`) replicates its batch and caches over
     data, as the reference's dry run sets ``rules["batch"] = None``."""
-    rules = dict(sh.rules_for_mesh(axis.mesh))
+    rules = sh.mesh_rules(axis.mesh)
     if not splits_batch(axis, cell):
         rules["batch"] = None
     return rules

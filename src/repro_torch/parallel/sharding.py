@@ -166,9 +166,38 @@ class NamedSharding:
 def named_sharding(mesh, spec: PartitionSpec,
                    rules: Optional[Rules] = None) -> NamedSharding:
     """``spec`` resolved against ``mesh`` by ``rules`` (default: the
-    mesh's, :func:`rules_for_mesh`)."""
-    return NamedSharding(mesh, resolve_spec(spec,
-                                            rules or rules_for_mesh(mesh)))
+    mesh's, :func:`mesh_rules`)."""
+    return NamedSharding(mesh, resolve_spec(spec, rules or mesh_rules(mesh)))
+
+
+def mesh_rules(mesh) -> Rules:
+    """The rules a step on ``mesh`` resolves its specs by: those set by
+    :func:`use_rules`, else :func:`rules_for_mesh`'s."""
+    rules = getattr(_state, "rules", None)
+    return dict(rules) if rules is not None else rules_for_mesh(mesh)
+
+
+def check_rules(mesh, rules: Rules) -> None:
+    """Raises ``ValueError`` naming the first of ``rules`` that the port's
+    layouts cannot take on ``mesh``.  They take the mesh's own rules
+    (:func:`rules_for_mesh`) and ``fsdp`` set to ``None`` (weights and
+    optimizer state replicated over the data axes, their gradients
+    all-reduced); the layers split heads, experts and KV positions over
+    ``model`` alone, and a rank's batch rows and weight shards over all
+    the data axes together."""
+    default = rules_for_mesh(mesh)
+    for name, value in rules.items():
+        if name not in default:
+            raise ValueError(f"rule {name}={value!r}: no such logical axis "
+                             f"(the port's are {sorted(default)})")
+        canon = _canonical(value)
+        if canon == _canonical(default[name]) or (name == "fsdp"
+                                                  and canon is None):
+            continue
+        raise ValueError(
+            f"rule {name}={value!r}: the port's layouts take {name}="
+            f"{default[name]!r}" + (" or None" if name == "fsdp" else "")
+            + f" on a mesh of axes {tuple(_mesh_sizes(mesh))}")
 
 
 def rules_for_mesh(mesh, overrides: Optional[Rules] = None) -> Rules:

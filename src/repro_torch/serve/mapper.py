@@ -448,6 +448,12 @@ class MappingEngine:
             build.build_all()
         rng = np.random.RandomState(0)
         for bucket in buckets:
+            # event_width="auto": fill the measured width cache for this
+            # bucket, so every later wave at it reads the tuned width (the
+            # width never changes results)
+            if any(self._tier_cfgs[t][0].event_width == "auto"
+                   for t in tiers):
+                annealing.autotune_event_width(bucket, device=self.device)
             A = rng.randint(1, 5, (bucket, bucket)).astype(np.float32)
             A = A + A.T
             np.fill_diagonal(A, 0)

@@ -1,14 +1,18 @@
 """The control plane's, the meshes', the training path's, the RWKV
-block's, the topology's and the sharding rules' public surface against
-the reference's: every public class, method and function of the ported
+block's, the topology's, the sharding rules', the launchers' and PSA's
+event-width public surface against the reference's (the reference's
+dryrun, inspect_cell and placement_bench by ``ast``: they set XLA_FLAGS
+when imported): every public class, method and function of the ported
 modules has the reference's parameter names, order, kinds and defaults
 (a dtype default by its name).  The only differences are listed in
 ``EXCEPTIONS`` (the port's entry points take a ``device``, its random
 draws a ``torch.Generator``, its collectives a process group, its job
 placement the service that solves it) and ``NOT_PORTED`` (with the
 ROADMAP step that ports them)."""
+import ast
 import dataclasses
 import inspect
+import pathlib
 
 import numpy as np
 import pytest
@@ -20,7 +24,9 @@ from repro.core import batch_sharded as ref_batch_sharded
 from repro.core import distributed as ref_distributed
 from repro.launch import mesh as ref_mesh
 from repro.launch import elastic as ref_elastic
+from repro.core import annealing as ref_annealing
 from repro.launch import placement as ref_placement
+from repro.launch import roofline as ref_roofline
 from repro.launch import train as ref_launch_train
 from repro.models import api as ref_api
 from repro.models import rwkv as ref_rwkv
@@ -38,8 +44,9 @@ from repro.train import checkpoint as ref_checkpoint
 from repro.train import data as ref_data
 from repro.train import optimizer as ref_optimizer
 from repro.train import step as ref_step
-from repro_torch.core import batch_sharded, distributed
-from repro_torch.launch import elastic, mesh, placement
+from repro_torch.core import annealing, batch_sharded, distributed
+from repro_torch.launch import (dryrun, elastic, inspect_cell, mesh,
+                                placement, placement_bench, roofline)
 from repro_torch.launch import train as launch_train
 from repro_torch.models import api, rwkv
 from repro_torch.parallel import collectives, sharding
@@ -57,6 +64,7 @@ MODULES = {
     "serve.rm": (ref_rm, rm),
     "serve.trace": (ref_trace, trace),
     "launch.placement": (ref_placement, placement),
+    "launch.roofline": (ref_roofline, roofline),
     "models.api": (ref_api, api),
     "models.rwkv": (ref_rwkv, rwkv),
     "train.data": (ref_data, data),
@@ -222,3 +230,110 @@ def test_module_constants_match_reference():
     assert rm.RMJournal.VERSION == ref_rm.RMJournal.VERSION
     assert trace.SWF_FIELDS == ref_trace.SWF_FIELDS
     assert rm.JobHandle.__slots__ == ref_rm.JobHandle.__slots__
+
+
+# The reference modules that set XLA_FLAGS to 512 devices when imported,
+# read by ast: every function of theirs that the port keeps (public, and
+# the private helpers it ports) -> (parameters the port drops, adds).
+UNIMPORTED = {
+    "dryrun": (dryrun, {"_parse_overrides": None,
+                        "_sharded_bytes_per_device": None}),
+    "inspect_cell": (inspect_cell, {"top_contributors": (
+        {"txt", "ndev"}, {"cost", "collectives"})}),
+    "placement_bench": (placement_bench, {
+        "_fragmented_system_graph": None, "bench": (set(), {"device"})}),
+}
+REF_LAUNCH = pathlib.Path(ref_placement.__file__).parent
+
+
+def _ast_functions(name):
+    tree = ast.parse((REF_LAUNCH / f"{name}.py").read_text())
+    return {node.name: node for node in tree.body
+            if isinstance(node, ast.FunctionDef)}
+
+
+def _ast_params(node):
+    """``(name, kind, default)`` of a function's parameters, a default as
+    its literal value or ("name", identifier)."""
+    args = node.args
+    positional = args.posonlyargs + args.args
+    defaults = [inspect.Parameter.empty] * (
+        len(positional) - len(args.defaults)) + list(args.defaults)
+    out = []
+    for a, d in zip(positional, defaults):
+        out.append((a.arg, inspect.Parameter.POSITIONAL_OR_KEYWORD, d))
+    for a, d in zip(args.kwonlyargs, args.kw_defaults):
+        out.append((a.arg, inspect.Parameter.KEYWORD_ONLY,
+                    inspect.Parameter.empty if d is None else d))
+    lit = lambda d: d if d is inspect.Parameter.empty else (
+        ("name", d.id) if isinstance(d, ast.Name) else ast.literal_eval(d))
+    return [(n, k, lit(d)) for n, k, d in out]
+
+
+def _unimported_cases():
+    cases = []
+    for mod_name, (port_mod, private) in sorted(UNIMPORTED.items()):
+        for name, node in sorted(_ast_functions(mod_name).items()):
+            if name.startswith("_") and name not in private:
+                continue
+            cases.append((f"launch.{mod_name}.{name}", node, port_mod,
+                          private.get(name)))
+    return cases
+
+
+UNIMPORTED_CASES = _unimported_cases()
+
+
+@pytest.mark.parametrize("qual,node,port_mod,changes", UNIMPORTED_CASES,
+                         ids=[c[0] for c in UNIMPORTED_CASES])
+def test_xla_flag_modules_match_by_ast(qual, node, port_mod, changes):
+    """dryrun's, inspect_cell's and placement_bench's functions, read off
+    the reference's source without importing it: the port's have the
+    same parameters and defaults (a module constant by its name)."""
+    port_fn = getattr(port_mod, node.name, None)
+    assert port_fn is not None, f"{qual} is missing from the port"
+    dropped, added = changes or (set(), set())
+    want = [p for p in _ast_params(node) if p[0] not in dropped]
+    got = []
+    for p in inspect.signature(port_fn).parameters.values():
+        if p.name in added:
+            continue
+        d = p.default
+        for n, _, wd in want:
+            if n == p.name and isinstance(wd, tuple) and wd[:1] == ("name",):
+                assert d == getattr(port_mod, wd[1]), (qual, p.name)
+                d = wd
+        got.append((p.name, p.kind, d))
+    assert got == want
+
+
+def test_xla_flag_modules_public_names():
+    """Every public function of the three reference modules is in the
+    port, and the reference's artifact directory constant keeps its
+    name."""
+    for mod_name, (port_mod, _) in UNIMPORTED.items():
+        public = {n for n in _ast_functions(mod_name) if not n.startswith("_")}
+        assert public <= set(vars(port_mod)), mod_name
+    assert dryrun.ARTIFACT_DIR.endswith("artifacts_torch/dryrun")
+    assert placement_bench.ART.endswith("artifacts_torch/placement")
+
+
+# the event-width names of core.annealing -> the parameter the port adds
+EVENT_WIDTH = {"_default_event_width": {"device"},
+               "autotune_event_width": {"device"},
+               "resolved_event_width": {"device"}}
+
+
+@pytest.mark.parametrize("name", sorted(EVENT_WIDTH))
+def test_event_width_functions_match_reference(name):
+    want = _params(getattr(ref_annealing, name))
+    got = [p for p in _params(getattr(annealing, name))
+           if p[0] not in EVENT_WIDTH[name]]
+    assert got == want
+
+
+def test_event_width_constants_match_reference():
+    for name in ("_CPU_EVENT_WIDTH", "_AUTO_WIDTHS", "_AUTO_SUCCESSES",
+                 "_AUTO_CANDIDATES"):
+        assert getattr(annealing, name) == getattr(ref_annealing, name)
+    assert isinstance(annealing._EVENT_WIDTH_CACHE, dict)

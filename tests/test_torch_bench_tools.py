@@ -131,8 +131,9 @@ def test_solver_hotloop_dry_runs(tmp_path):
     assert sa["solve"]["n=16"]["event"]["maps_per_s"] > 0
     assert set(ga) == {"config", "solve", "solve_batch"}
     assert ga["solve"]["n=16"]["wide"]["offspring_evals_per_s"] > 0
+    # max_success 3 + ceil(10 candidates / the CPU's width 6)
     assert fused["sa"]["n=16"]["dispatches_per_temperature_step"] == \
-        {"fused": 1, "event": 4}
+        {"fused": 1, "event": 5}
     assert fused["ga"]["n=16"]["fused"]["rounds_per_s"] > 0
     assert sa["config"]["device_name"] == "cpu"
 

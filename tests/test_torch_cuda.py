@@ -922,3 +922,44 @@ def test_serving_world_on_the_card_matches_cpu(cuda, shape):
     for rank in ranks:
         tokens, whole = rank[len(cases)]
         np.testing.assert_array_equal(tokens, np.argmax(whole, axis=-1))
+
+
+def test_autotune_event_width_on_the_card(cuda):
+    """The measured width on the card is one of the candidates, cached
+    per (device type, n), and resolved within ``max_neighbors``."""
+    saved = dict(annealing._EVENT_WIDTH_CACHE)
+    annealing._EVENT_WIDTH_CACHE.clear()
+    try:
+        build.build_all()
+        w = annealing.autotune_event_width(64, repeats=2, device=cuda)
+        assert w in annealing._AUTO_WIDTHS
+        assert annealing._EVENT_WIDTH_CACHE == {("cuda", 64): w}
+        for k in (4, 25, 50):
+            cfg = annealing.SAConfig(max_neighbors=k, event_width="auto")
+            assert annealing.resolved_event_width(cfg, 64, cuda) == min(w, k)
+        assert annealing.resolved_event_width(
+            annealing.SAConfig(max_neighbors=25), 64, cuda) == 25
+    finally:
+        annealing._EVENT_WIDTH_CACHE.clear()
+        annealing._EVENT_WIDTH_CACHE.update(saved)
+
+
+@pytest.mark.parametrize("n,nv,shared", [(64, 60, True), (256, 250, False)])
+def test_event_loop_widths_through_k1_match(cuda, n, nv, shared):
+    """The event loop at widths 1, 6 and K through K1 on the card: the
+    same states, one K1 launch a round."""
+    from repro_torch.kernels.qap_sa_step import event_loop
+    C, M, p, pairs, f, temp, _, _ = _inputs(n, nv, shared, 31, cuda)
+    B = p.shape[0]
+    us = torch.as_tensor(np.random.default_rng(5).random((B, K)),
+                         dtype=torch.float32, device=cuda)
+    outs = {}
+    for w in (1, 6, K):
+        before = ops.launch_counts()["qap_delta"]
+        outs[w] = event_loop(lambda pp, pr: ops.qap_delta(C, M, pp, pr),
+                             p, f, p, f, temp, pairs, us, 4, w)
+        launched = ops.launch_counts()["qap_delta"] - before
+        assert 1 <= launched <= min(4, K) + -(-K // w)
+    for w in (1, 6):
+        for a, b in zip(outs[K], outs[w]):
+            assert torch.equal(a, b), w
