@@ -18,7 +18,10 @@ candidates per instance) and K4 ``qap_sa_step`` (16 chains per instance,
 32 instances and the 64 and 32 buckets' waves of 3, and for K2
 ``qap_objective`` (16 children an island) and K5 ``qap_ga_step`` (islands
 of 32), 2 islands a request at the same waves (64 islands at the 128
-bucket, 6 at the others), then for K7 ``qap_delta_sparse`` at the
+bucket, 6 at the others), then for K1 and K2 on their L2 branches
+(Table 1's 32 x 50 and 4 x 64 on tai343 and tai729, the exact-size
+polish's 1 x 256 at order 200, K2 at 8 x 4096), then for K7
+``qap_delta_sparse`` at the
 multilevel route's shapes (the 4096 torus's finest level, n=4096 and ELL
 width 6, and its coarsest, n=128 and width 46, at 4 chains x 16
 candidates; the polish's 1 x 256 on the finest) and K8
@@ -139,11 +142,61 @@ def timings(k6=False):
                         C, M, pops, fits, gkeys, gnv, n_off=cs.N_OFF,
                         tournament=2, p_crossover=1.0, p_mutation=0.001,
                         crossover="ox"), 100))
-    out += sparse_delta_rows(dev) + scan_rows(dev)
+    out += l2_rows(dev) + sparse_delta_rows(dev) + scan_rows(dev)
     if k6:
         out += sparse_objective_rows(dev)
     return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
             for label, fn, reps in out]
+
+
+def l2_rows(dev):
+    """K1 and K2 past the shared-memory threshold, at the shapes their L2
+    branches serve: Table 1's PSA round (32 chains x 50 candidates) and
+    PGA generation (4 islands x 64 children) on tai343 and tai729, the
+    exact-size polish (1 x 256 on an order-193 instance padded into 200)
+    and sparse_scale's dense baseline (8 permutations of one order-4096
+    instance).  Through the wrappers alone, so any package compares."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import instances, keys, qap
+    from repro_torch.kernels.qap_delta import qap_delta_cuda
+    from repro_torch.kernels.qap_objective import qap_objective_cuda
+    out = []
+    for n in cs.PAPER_KERNEL_ORDERS:
+        inst = instances.get_instance(n)
+        C = torch.as_tensor(inst.C, device=dev)
+        M = torch.as_tensor(inst.M, device=dev)
+        CT, MT = C.t().contiguous(), M.t().contiguous()
+        base = keys.prng_key(n, dev)
+        p = qap.random_permutations(base, 32, n)
+        pairs = qap.random_swap_pairs(keys.split(keys.fold_in(base, 1), 32),
+                                      50, n)
+        pops = qap.random_permutations(keys.split(keys.fold_in(base, 2), 4),
+                                       64, n)
+        out.append((f"K1 L2 tai{n} 32x50",
+                    lambda C=C, M=M, p=p, pairs=pairs, CT=CT, MT=MT:
+                    qap_delta_cuda(C, M, p, pairs, CT, MT), 200))
+        out.append((f"K2 L2 tai{n} 4x64",
+                    lambda C=C, M=M, pops=pops: qap_objective_cuda(C, M, pops),
+                    50))
+    n, nv = cs.EXACT_ORDER, cs.EXACT_NV
+    C, M = cs.padded_integer_instances(n, nv, 1, 200, dev)
+    CT, MT = C.transpose(1, 2).contiguous(), M.transpose(1, 2).contiguous()
+    ck = keys.split(keys.prng_key(n, dev), 1)
+    p = qap.masked_random_permutation(ck, n, nv)
+    pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), cs.POLISH_K, n,
+                                  torch.full((1,), nv, device=dev))
+    out.append((f"K1 L2 polish N={n} 1x{cs.POLISH_K}",
+                lambda: qap_delta_cuda(C, M, p, pairs, CT, MT), 200))
+    n, count = cs.K2_WIDE_ORDER, cs.K2_WIDE_PERMS
+    g = torch.Generator(device=dev).manual_seed(n)
+    Cw = torch.randint(0, 2, (n, n), generator=g, device=dev).float()
+    Mw = torch.randint(0, 2, (n, n), generator=g, device=dev).float()
+    perms = qap.random_permutations(keys.prng_key(n, dev), count,
+                                    n)[None].contiguous()
+    out.append((f"K2 L2 N={n} 1x{count}",
+                lambda: qap_objective_cuda(Cw, Mw, perms), 10))
+    return out
 
 
 def k6_cases(dev):

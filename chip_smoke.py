@@ -15,7 +15,14 @@ Phases, each of which must pass:
    card, at the shapes the engine gives it (bitwise: the instances are
    integer-valued), and time both, by CUDA events and (the kernel) in a
    CUDA graph; K1, K4, K2 and K5 on both branches, the shared-memory
-   one at the 128 bucket and the L2 one at order 256; K6 at every level
+   one at the 128 bucket and the L2 one at order 256; K1 and K2's L2
+   branches also at the service's exact-size shapes of an order-193
+   instance padded into 200 (K1 16 x 25 and the polish's 1 x 256, K2 2
+   islands), K1's unstaged L2 kernel at order 11618 (the first its rows do
+   not fit shared memory), K2 at sparse_scale's dense baseline (8
+   permutations of one order-4096 instance of 0/1 entries) and, on
+   real-valued flows at order 200, the same bits twice and for each
+   permutation alone; K6 at every level
    of the 4096 torus (orders 4096 ... 128, ELL widths 6 ... 46) at the
    route's 1 x 1 and 1 x 4 and at 64 x 4 on the finest, shared and
    batched, then on real-valued flows: the same bits on two calls and for
@@ -33,8 +40,12 @@ Phases, each of which must pass:
    on the refinement levels and in the final polish); the launch counts
    are set to 0 just before each wave or request and read just after,
    and every K1, K2, K4 and K5 launch there must have taken the
-   shared-memory branch;
-   then a seventh route, ``rm-replay``, the control plane: a 16-job
+   shared-memory branch; then the exact-size route: a 200-process job on
+   a 10 x 20 torus allocation (``exact.make_torus``, known optimum),
+   which no dense bucket holds and which lies below the multilevel
+   route, through the psa-event and pga-wide engines (every K1 and K2
+   launch on the L2 branch; psa card == CPU at the default tier);
+   then a seventh route, ``rm-replay``, the control plane: a 12-job
    ``synthetic_trace`` on the 512-node 8 x 8 x 8 torus through
    ``ResourceManager``'s defaults (3 candidates, EASY backfilling, psa)
    over ``MappingEngine(warm_start=False)`` (K1, every launch on the
@@ -59,8 +70,9 @@ Phases, each of which must pass:
    (both also with ``--mesh-shape 1``), ``sparse_scale`` and
    ``solver_hotloop`` (both loops), and ``kernel_micro``; before it, K1
    and K2 on Table 1's tai343 and tai729 against their plain versions;
-   then a tenth route, ``mesh``: each dense route's 128-bucket wave and
-   one of its three-request waves (64 and 32 buckets in turn) through a
+   then a tenth route, ``mesh``: each dense route's 128-bucket wave
+   (but pga-wide's and pca's) and one of its three-request waves (64 and
+   32 buckets in turn) through a
    ``MappingEngine`` whose instance mesh names cuda:0 twice (each wave
    split over two shards that share the card; the three-request waves
    pad to four and trim back), every response equal to phase 4's
@@ -209,7 +221,9 @@ Phases, each of which must pass:
    F(perm), no worse than the identity and no better than the instance's
    known optimum) and check one request per bucket (the 1024 and 4096
    requests on the multilevel route) against the same engine on the
-   CPU, bit for bit; on ``lm-serve``, every token in the vocabulary,
+   CPU, bit for bit (the CPU's solves, and rm-replay's, in a pool of
+   processes started with the script, beside the card's routes); on
+   ``lm-serve``, every token in the vocabulary,
    finite logits, decode against teacher forcing at full width on the
    same bf16 weights in f32 compute (argmax agreement >= 0.95, logits
    within 1e-3 of their largest magnitude; the served bf16 arithmetic's
@@ -253,6 +267,18 @@ H100_F32_PER_S = 67e12           # f32 outside the tensor cores
 
 ORDER, BUCKET, WAVE = 125, 128, 32
 L2_ORDER = 256       # K1, K2, K4, K5 past their shared-memory thresholds
+# The service's exact-size range (orders 129-255: no dense bucket, below
+# the multilevel route): the kernel checks' order-193 instance padded
+# into 200, and the exact-size route's 200-process job on a 10 x 20
+# torus allocation (exact.make_torus, known optimum).
+EXACT_ORDER, EXACT_NV, EXACT_TORUS = 200, 193, (10, 20)
+EXACT_ALGOS = ("psa", "pga")
+# The smallest order K1's L2 branch cannot stage (qap_delta.l2_plan):
+# its unstaged kernel, counted as "qap_delta/l2_unstaged".
+L2_UNSTAGED_ORDER = 11618
+# K2's dense baseline of sparse_scale: 8 permutations of one order-4096
+# instance, 0/1 entries (F <= 2^24, exact in f32).
+K2_WIDE_ORDER, K2_WIDE_PERMS = 4096, 8
 SA_KW = dict(max_neighbors=25, iters_per_exchange=30, num_exchanges=20,
              solvers=8)
 GA_KW = dict(generations=80, pop_size=32)     # the engine's default GA
@@ -276,7 +302,7 @@ ML_CHAINS, ML_K = 4, 16
 RM_TORUS = (8, 8, 8)
 RM_TRACE = dict(sizes=(16, 32, 64, 128), weights=(4, 3, 2, 1),
                 arrival_rate=0.5, mean_run_s=60.0, seed=0)
-RM_JOBS, RM_CPU_JOBS = 16, 6
+RM_JOBS, RM_CPU_JOBS = 12, 6
 RM_TIMEOUT_S = 120.0     # children dying in a loop fail the route
 RM_MAX_RESPAWNS = 2
 
@@ -302,7 +328,7 @@ FAMILY_PROFILE_PREFILL = 64   # positions of the profiled prefills (one RWKV chu
 # kernel microbenchmarks.  Table 1's orders 175/343/729 run K1 and K2 on
 # their L2 branches.  Card == CPU on Table 1's orders 27 and 45 at
 # PAPER_CPU_SCALE and on scheduler_sim's dry-run replay.
-PAPER_SCALE = 0.1
+PAPER_SCALE = 0.05
 PAPER_FIG_SCALE = 0.02
 PAPER_CPU_SCALE, PAPER_CPU_ORDERS = 0.02, (27, 45)
 F32_EXACT = 2 ** 24      # integers above it are not all f32 numbers
@@ -319,10 +345,12 @@ PAPER_KERNEL_ORDERS = (343, 729)
 # (gloo) on the MESH_CPU_CASES.
 MESH_SHARDS = 2
 # route -> the orders of its sharded waves: the 128-bucket wave and one
-# three-request wave (padded to 4), the 64 and 32 buckets in turn
+# three-request wave (padded to 4), the 64 and 32 buckets in turn; the
+# host-bound pga-wide and pca the three-request wave alone (their 128
+# waves took 17.6 and 25.7 s sharded, PR 30's chip run)
 MESH_ENGINE_ORDERS = {"psa-event": (ORDER, 45), "psa-fused": (ORDER, 27),
-                      "pga-wide": (ORDER, 45), "pga-fused": (ORDER, 27),
-                      "pca": (ORDER, 45)}
+                      "pga-wide": (45,), "pga-fused": (ORDER, 27),
+                      "pca": (45,)}
 MESH_SEED = 7
 MESH_TIMEOUT_S = 600.0
 MESH_RANK_THREADS = 1    # up to 5 ranks share the host's 8 cores
@@ -457,6 +485,12 @@ LAUNCH_WIDTHS = (None, "auto", 1, 6)
 LAUNCH_ORDERS = (45, 27)                 # the 64 and 32 buckets
 LAUNCH_USEFUL = (0.2, 1.0)               # model FLOPs / counted FLOPs
 
+# The CPU sides of the card == CPU checks of the dense routes, multilevel,
+# exact-size and rm-replay (cpu_check), run from the script's start in a
+# pool of spawned processes beside the card's routes: a route's check
+# then costs the card's host no wall of its own.
+CPU_CHECK_WORKERS, CPU_CHECK_THREADS = 3, 2
+
 # route -> (algorithm, SAConfig changes, GAConfig changes)
 ROUTES = {
     "psa-event": ("psa", dict(loop="event"), {}),
@@ -562,12 +596,46 @@ def branch_launched(kernel, branch, fn):
     return out
 
 
+def padded_integer_instances(n, nv, count, seed, device):
+    """``integer_instances`` of order ``nv`` zero-padded into order ``n``
+    (the ragged edge and padded tail of an engine wave)."""
+    import torch
+    C, M = integer_instances(nv, count, seed, device)
+    Cp = torch.zeros((count, n, n), device=device)
+    Mp = torch.zeros((count, n, n), device=device)
+    Cp[:, :nv, :nv], Mp[:, :nv, :nv] = C, M
+    return Cp, Mp
+
+
+def delta_bound_words(C, p, pairs):
+    """Words K1 must move for these candidates: of each instance's C and
+    M, the entries of the rows and columns its candidates read (C's a
+    and b, M's u = p[a] and v = p[b]), each once; and p and the pairs
+    in, the deltas out.  Returns ``(matrix words, other words)``."""
+    import torch
+    B, n = p.shape
+    k = pairs.shape[1]
+    b0 = C.shape[0] if C.dim() == 3 else 1
+    inst = torch.arange(B, device=p.device) // (B // b0)
+    ab = pairs.long()
+    uv = torch.gather(p.long(), 1, ab.reshape(B, -1)).reshape(ab.shape)
+    words = 0
+    for i in range(b0):
+        for idx in (ab[inst == i], uv[inst == i]):
+            s = torch.unique(idx).numel()
+            words += min(n * n, 2 * s * n - s * s)
+    return words, B * n + B * k * 3
+
+
 def check_qap_delta(device):
     """K1 against its plain version, each launch on the branch its order
     selects: the shared-memory branch at the 128 bucket's event-loop shape
     (512 chains x 25 candidates) and polish shape (32 x 256), shared and
     per instance; the L2 branch at order 256 (8 integer instances, 128
-    chains x 25), one order class above the threshold."""
+    chains x 25), one order class above the threshold, and at the
+    service's exact-size shapes of an order-193 request padded into 200
+    (16 chains x 25 candidates, the polish's 1 x 256); the L2 branch's
+    unstaged kernel at ``L2_UNSTAGED_ORDER`` (2 chains x 16)."""
     import torch
     from repro_torch.core import keys, qap
     from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
@@ -575,25 +643,37 @@ def check_qap_delta(device):
     nv = torch.full((WAVE,), ORDER, dtype=torch.int64, device=device)
     Cs = qap.mask_flows(Cs, nv)
     C2, M2 = integer_instances(L2_ORDER, 8, 256, device)
+    Ce, Me = padded_integer_instances(EXACT_ORDER, EXACT_NV, 1, 200, device)
+    g = torch.Generator(device=device).manual_seed(L2_UNSTAGED_ORDER)
+    shape = (1, L2_UNSTAGED_ORDER, L2_UNSTAGED_ORDER)
+    Cu = torch.randint(0, 10, shape, generator=g, device=device).float()
+    Mu = torch.randint(1, 10, shape, generator=g, device=device).float()
     base = keys.prng_key(2024, device)
+    chains_e = NUM_PROCESSES * SA_KW["solvers"]
     out = {}
-    for label, (Cb, Mb, order, n), chains, k in (
-            ("event", (Cs, Ms, ORDER, BUCKET),
+    for label, branch, (Cb, Mb, order, n), chains, k in (
+            ("event", "smem", (Cs, Ms, ORDER, BUCKET),
              WAVE * NUM_PROCESSES * SA_KW["solvers"], SA_KW["max_neighbors"]),
-            ("polish", (Cs, Ms, ORDER, BUCKET), WAVE, POLISH_K),
-            ("l2", (C2, M2, L2_ORDER, L2_ORDER), 8 * 16,
-             SA_KW["max_neighbors"])):
-        branch = "l2" if label == "l2" else "smem"
+            ("polish", "smem", (Cs, Ms, ORDER, BUCKET), WAVE, POLISH_K),
+            ("l2", "l2", (C2, M2, L2_ORDER, L2_ORDER), 8 * 16,
+             SA_KW["max_neighbors"]),
+            ("exact", "l2", (Ce, Me, EXACT_NV, EXACT_ORDER), chains_e,
+             SA_KW["max_neighbors"]),
+            ("exact-polish", "l2", (Ce, Me, EXACT_NV, EXACT_ORDER), 1,
+             POLISH_K),
+            ("unstaged", "l2_unstaged",
+             (Cu, Mu, L2_UNSTAGED_ORDER, L2_UNSTAGED_ORDER), 2, 16)):
         CT = Cb.transpose(1, 2).contiguous()
         MT = Mb.transpose(1, 2).contiguous()
         ck = keys.split(keys.fold_in(base, k), chains)
         p = qap.masked_random_permutation(ck, n, order)
         nv = torch.full((chains,), order, device=device)
         pairs = qap.random_swap_pairs(keys.fold_in(ck, 1), k, n, nv)
-        for mats, (C, M, Ct, Mt) in (
-                ("batched", (Cb, Mb, CT, MT)),
-                ("shared", (Cb[0].contiguous(), Mb[0].contiguous(),
-                            CT[0].contiguous(), MT[0].contiguous()))):
+        cases = [("batched", (Cb, Mb, CT, MT))]
+        if Cb.shape[0] > 1:
+            cases.append(("shared", (Cb[0].contiguous(), Mb[0].contiguous(),
+                                     CT[0].contiguous(), MT[0].contiguous())))
+        for mats, (C, M, Ct, Mt) in cases:
             launch = lambda: qap_delta_cuda(C, M, p, pairs, Ct, Mt)
             got = branch_launched("qap_delta", branch, launch)
             want = qap_delta_plain(C, M, p, pairs)
@@ -603,15 +683,13 @@ def check_qap_delta(device):
                     f"kernel != plain, max err {err}")
             ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
             plain = cuda_ms(lambda: qap_delta_plain(C, M, p, pairs), 20)
-            b0 = C.shape[0] if C.dim() == 3 else 1
-            io = chains * n + chains * k * 3          # p; pairs in, deltas out
-            bound, by = bound_ms(4 * (2 * b0 * n * n + io),
-                                 8 * n * chains * k)
-            bound4, _ = bound_ms(4 * (4 * b0 * n * n + io), 8 * n * chains * k)
+            words, io = delta_bound_words(C, p, pairs)
+            bound, by = bound_ms(4 * (words + io), 8 * n * chains * k)
+            bound4, _ = bound_ms(4 * (2 * words + io), 8 * n * chains * k)
             out[(label, mats)] = dict(err=err, ms=ms, graph_ms=dev_ms,
                                       plain_ms=plain, bound_ms=bound,
                                       bound_by=by)
-            print(f"qap_delta {label:6s} {mats:7s} N={n} B={chains} K={k} "
+            print(f"qap_delta {label:12s} {mats:7s} N={n} B={chains} K={k} "
                   f"({branch} branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms in "
                   f"a graph), plain {plain:.4f} ms, bound {bound:.4f} ms "
                   f"({by}; {bound4:.4f} counting C^T and M^T as well), max "
@@ -731,36 +809,59 @@ def ga_shapes(device, pop):
     return (("smem", Cs, Ms, pops, ORDER), ("l2", C2, M2, pops2, L2_ORDER))
 
 
+def exact_populations(device, pop):
+    """``NUM_PROCESSES`` islands of ``pop`` random order-193 permutations
+    in order 200 (identity tail) over the padded integer instance: the GA
+    of one exact-size request."""
+    from repro_torch.core import keys, qap
+    Ce, Me = padded_integer_instances(EXACT_ORDER, EXACT_NV, 1, 200, device)
+    ck = keys.split(keys.prng_key(pop + 2, device), NUM_PROCESSES)
+    pops = qap.masked_random_permutations(ck, pop, EXACT_ORDER,
+                                          EXACT_NV).contiguous()
+    return Ce, Me, pops
+
+
 def check_qap_objective(device):
     """K2 against its plain version at the GA's shapes, each launch on the
     branch its order selects: one generation's children (16 an island)
     and the initial populations (32 an island), per instance and shared,
     on the shared-memory branch at the 128 bucket (64 islands) and on the
-    L2 branch at order 256 (16 islands)."""
+    L2 branch at order 256 (16 islands) and at one exact-size request of
+    order 193 padded into 200 (2 islands); then the L2 branch at
+    sparse_scale's dense baseline, 8 permutations of one order-4096
+    instance of 0/1 entries, bitwise; then on real-valued flows at order
+    200: the same bits on a second call and for each permutation alone
+    (the L2 branch's tiling depends on the order alone)."""
     import torch
+    from repro_torch.core import keys, qap
     from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                    qap_objective_plain)
     out = {}
     for label, pop in (("generation", N_OFF), ("init", GA_KW["pop_size"])):
-        for branch, Cs, Ms, pops, _ in ga_shapes(device, pop):
+        shapes = ga_shapes(device, pop) + (
+            ("l2", *exact_populations(device, pop), EXACT_NV),)
+        for branch, Cs, Ms, pops, order in shapes:
             n = pops.shape[-1]
-            for mats, (C, M) in (("batched", (Cs, Ms)),
-                                 ("shared", (Cs[0].contiguous(),
-                                             Ms[0].contiguous()))):
+            cases = [("batched", (Cs, Ms))]
+            if Cs.shape[0] > 1:
+                cases.append(("shared", (Cs[0].contiguous(),
+                                         Ms[0].contiguous())))
+            for mats, (C, M) in cases:
                 launch = lambda: qap_objective_cuda(C, M, pops)
                 got = branch_launched("qap_objective", branch, launch)
                 want = qap_objective_plain(C, M, pops)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 require(torch.equal(got, want), f"qap_objective {label}/"
-                        f"{branch}/{mats}: kernel != plain, max err {err}")
+                        f"{branch}/{mats} N={n}: kernel != plain, max err "
+                        f"{err}")
                 ms, dev_ms = cuda_ms(launch, 200), graph_ms(launch, 200)
                 plain = cuda_ms(lambda: qap_objective_plain(C, M, pops), 20)
                 b0 = C.shape[0] if C.dim() == 3 else 1
                 count = pops.shape[0] * pop
                 nbytes = 4 * (2 * b0 * n * n + count * n + count)
                 bound, by = bound_ms(nbytes, 2 * n * n * count)
-                out[(label, branch, mats)] = dict(
+                out[(label, branch, mats, n)] = dict(
                     err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain,
                     bound_ms=bound, bound_by=by)
                 print(f"qap_objective {label:10s} {mats:7s} N={n} "
@@ -768,6 +869,55 @@ def check_qap_objective(device):
                       f"{ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain "
                       f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), max err "
                       f"{err}", flush=True)
+
+    n, count = K2_WIDE_ORDER, K2_WIDE_PERMS
+    g = torch.Generator(device=device).manual_seed(4096)
+    C = torch.randint(0, 2, (n, n), generator=g, device=device).float()
+    M = torch.randint(0, 2, (n, n), generator=g, device=device).float()
+    perms = qap.random_permutations(keys.prng_key(n, device), count,
+                                    n)[None].contiguous()
+    launch = lambda: qap_objective_cuda(C, M, perms)
+    got = branch_launched("qap_objective", "l2", launch)
+    want = qap_objective_plain(C, M, perms)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(float(want.max()) <= F32_EXACT and torch.equal(got, want),
+            f"qap_objective N={n} 1x{count}: kernel != plain, max err {err} "
+            f"(max F {float(want.max())})")
+    ms, dev_ms = cuda_ms(launch, 20), graph_ms(launch, 20)
+    plain = cuda_ms(lambda: qap_objective_plain(C, M, perms), 3)
+    bound, by = bound_ms(4 * (2 * n * n + count * n + count),
+                         2 * n * n * count)
+    out[("wide", "l2", "shared", n)] = dict(
+        err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+        bound_by=by)
+    print(f"qap_objective wide       shared  N={n} 1x{count} (l2 branch): "
+          f"kernel {ms:.4f} ms ({dev_ms:.4f} ms in a graph), plain "
+          f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), max err {err}, max "
+          f"F {float(want.max()):.0f}", flush=True)
+    del C, M
+
+    Ce, Me, pops = exact_populations(device, GA_KW["pop_size"])
+    g = torch.Generator(device=device).manual_seed(200)
+    C = Ce * torch.rand(Ce.shape, generator=g, device=device)
+    M = Me * torch.rand(Me.shape, generator=g, device=device)
+    got = qap_objective_cuda(C, M, pops)
+    again = qap_objective_cuda(C, M, pops)
+    alone = torch.stack([qap_objective_cuda(C, M, q[None, None].contiguous())
+                         .reshape(()) for q in pops.reshape(-1, EXACT_ORDER)])
+    want = qap_objective_plain(C, M, pops)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    require(torch.equal(got, again) and torch.equal(got.reshape(-1), alone),
+            f"qap_objective N={EXACT_ORDER}: real-valued flows gave other "
+            f"bits on another call or alone")
+    require(err <= 1e-5 * scale, f"qap_objective N={EXACT_ORDER}: real-"
+            f"valued max err {err} > 1e-5 * {scale}")
+    print(f"qap_objective N={EXACT_ORDER} {tuple(pops.shape[:2])} real-valued "
+          f"(l2 branch): the same bits on two calls and alone, max err "
+          f"{err:.3e} against the plain version (max |F| {scale:.4e})",
+          flush=True)
     return out
 
 
@@ -1110,8 +1260,9 @@ def require_smem_branch(route, counts, branches):
 
 
 def drive_engine(route):
-    """Submit and flush each bucket's wave on the card, the launch counts
-    set to 0 just before each wave and read just after; returns the
+    """After one warmup wave at the smallest bucket, submit and flush each
+    bucket's wave on the card, the launch counts set to 0 just before
+    each wave and read just after; returns the
     requests, the responses, the launch counts summed over the waves and
     each wave's wall by order."""
     import torch
@@ -1119,7 +1270,8 @@ def drive_engine(route):
     reqs, optima = route_requests(route)
     engine = engine_for(route, "cuda")
     t = time.perf_counter()
-    engine.warmup(algorithms=(ROUTES[route][0],))
+    engine.warmup(buckets=(min(engine.buckets),),
+                  algorithms=(ROUTES[route][0],))
     torch.cuda.synchronize()
     print(f"[{route}] warmup {time.perf_counter() - t:.3f} s", flush=True)
     resps, total, walls = {}, {}, {}
@@ -1147,20 +1299,74 @@ def drive_engine(route):
     return reqs, resps, total, walls
 
 
-def check_against_cpu(route, reqs, resps):
-    """The same engine on the CPU, one request per bucket."""
-    picks = [reqs[0], reqs[WAVE], reqs[WAVE + 3]]
-    engine = engine_for(route, "cpu")
-    t = time.perf_counter()
-    futs = [engine.submit(r) for r in picks]
+def check_against_cpu(tag, resps, cpu):
+    """The card's responses against the same engine's on the CPU
+    (``cpu_check``'s result for the route: ``({job_id: (perm,
+    objective)}, wall)``), bit for bit."""
+    import numpy as np
+    got, wall = cpu
+    for job, (perm, objective) in got.items():
+        gpu = resps[job]
+        require((np.asarray(perm) == gpu.perm).all()
+                and objective == gpu.objective,
+                f"[{tag}] {job}: card F={gpu.objective} != cpu F={objective}")
+    print(f"[{tag}] card == cpu on {sorted(got)} ({wall:.1f} s on the cpu, "
+          f"in a pool process beside the card's routes)", flush=True)
+
+
+def solve_all(engine, reqs):
+    """Submit ``reqs``, flush, and return ``{job_id: (perm, objective)}``."""
+    futs = [engine.submit(r) for r in reqs]
     engine.flush()
-    for r, fut in zip(picks, futs):
-        cpu, gpu = fut.result(), resps[r.job_id]
-        require((cpu.perm == gpu.perm).all() and cpu.objective == gpu.objective,
-                f"[{route}] {r.job_id}: card F={gpu.objective} != cpu "
-                f"F={cpu.objective}")
-    print(f"[{route}] card == cpu on {[r.job_id for r in picks]} "
-          f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
+    return {r.job_id: (f.result().perm.tolist(), f.result().objective)
+            for r, f in zip(reqs, futs)}
+
+
+CPU_CHECKS = tuple(ROUTES) + ("multilevel", "exact-size", "rm-replay",
+                              "rm-placement")
+
+
+def cpu_check(src, name):
+    """The CPU side of one route's card == CPU check, run in a pool
+    process beside the card's routes (``CPU_CHECKS``): a dense route's
+    engine on one request per bucket, the multilevel engine on the 1024
+    and 4096 tori, the exact-size route's psa request, the rm-replay
+    route's first RM_CPU_JOBS jobs and its placement of the first job's
+    candidates.  Returns ``(result, wall)``; never touches the card."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    from repro_torch.serve import MappingEngine
+    t = time.perf_counter()
+    if name in ROUTES:
+        reqs, _ = route_requests(name)
+        out = solve_all(engine_for(name, "cpu"),
+                        [reqs[0], reqs[WAVE], reqs[WAVE + 3]])
+    elif name == "multilevel":
+        out = solve_all(ml_engine("cpu"), [r for r, _ in ml_requests()][1:])
+    elif name == "exact-size":
+        out = solve_all(engine_for("psa-event", "cpu"),
+                        [exact_request("psa")[0]])
+    elif name == "rm-replay":
+        rm, *_ = rm_replay(MappingEngine(warm_start=False, device="cpu"),
+                           RM_CPU_JOBS)
+        out = rm_decisions(rm)
+    else:
+        out = rm_placements("cpu")
+    return out, time.perf_counter() - t
+
+
+def start_cpu_checks():
+    """A spawned pool running every ``cpu_check`` from the script's start;
+    returns the pool and the futures by check."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(CPU_CHECK_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    src = os.path.join(ROOT, "src")
+    return pool, {name: pool.submit(cpu_check, src, name)
+                  for name in CPU_CHECKS}
 
 
 def ml_requests():
@@ -1230,20 +1436,64 @@ def drive_multilevel():
     return resps, total
 
 
-def check_multilevel_against_cpu(resps):
-    """The same engine on the CPU on the 1024 and 4096 requests."""
-    engine = ml_engine("cpu")
-    picks = [r for r, _ in ml_requests()][1:]
-    t = time.perf_counter()
-    futs = [engine.submit(r) for r in picks]
-    engine.flush()
-    for r, fut in zip(picks, futs):
-        cpu, gpu = fut.result(), resps[r.job_id]
-        require((cpu.perm == gpu.perm).all() and cpu.objective == gpu.objective,
-                f"[multilevel] {r.job_id}: card F={gpu.objective} != cpu "
-                f"F={cpu.objective}")
-    print(f"[multilevel] card == cpu on {[r.job_id for r in picks]} "
-          f"({time.perf_counter() - t:.1f} s on the cpu)", flush=True)
+def exact_request(algorithm):
+    """The exact-size route's request: a 200-process job whose flows are a
+    2-D stencil on a 10 x 20 torus allocation (``exact.make_torus``: F0 =
+    sum(C) known), and its optimum."""
+    from repro_torch.serve import MapRequest
+    inst = torus(EXACT_TORUS)
+    return MapRequest(job_id=f"torus{EXACT_ORDER}-{algorithm}", C=inst.C,
+                      M=inst.M, seed=60, algorithm=algorithm), inst.optimum
+
+
+def drive_exact_size(cpu):
+    """The service's exact-size route (orders 129-255 have no dense bucket
+    and lie below the multilevel route, so ``MappingEngine`` solves them
+    one at a time at their own size): the order-200 request through the
+    engine on the card for psa (the psa-event route's engine: K1) and pga
+    (pga-wide's: K2, K1 in the polish), the launch counts set to 0 just
+    before each and read just after; every K1 and K2 launch on the L2
+    branch; each response checked; psa card == CPU at the engine's
+    default tier (``cpu``: ``cpu_check``'s result for "exact-size").
+    Returns the launch counts summed over both."""
+    import torch
+    from repro_torch.kernels import ops
+    t_route = time.perf_counter()
+    total, resps = {}, {}
+    for algorithm in EXACT_ALGOS:
+        route = {"psa": "psa-event", "pga": "pga-wide"}[algorithm]
+        req, optimum = exact_request(algorithm)
+        engine = engine_for(route, "cuda")
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        fut = engine.submit(req)
+        engine.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts, branches = ops.launch_counts(), ops.branch_counts()
+        resp = resps[algorithm] = fut.result()
+        check_response(req, resp, optimum)
+        require(resp.bucket is None, f"[exact-size] {req.job_id}: bucket "
+                f"{resp.bucket}, not solved at its own size")
+        for kernel in ("qap_delta", "qap_objective"):
+            require(branches[f"{kernel}/l2"] == counts[kernel],
+                    f"[exact-size] {req.job_id}: {kernel} launches "
+                    f"{counts[kernel]}, by branch {branches}: not all on "
+                    f"the L2 branch")
+        for kernel in ("qap_delta",) + (("qap_objective",)
+                                        if algorithm == "pga" else ()):
+            require(counts[kernel] > 0,
+                    f"[exact-size] {req.job_id} launched no {kernel}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        print(f"[exact-size] {algorithm} ({route}): order {EXACT_ORDER}, "
+              f"wall {wall:.4f} s, launches {counts}, branches {branches}, "
+              f"F {resp.objective:.0f}, F/F0 {resp.objective / optimum:.4f}, "
+              f"F(identity) {resp.baseline:.0f}", flush=True)
+    check_against_cpu("exact-size", {r.job_id: r for r in resps.values()},
+                      cpu)
+    print(f"[exact-size] route wall {time.perf_counter() - t_route:.1f} s",
+          flush=True)
+    return total
 
 
 def device_memory_used_mib():
@@ -1287,7 +1537,8 @@ def rm_replay(engine, num_jobs):
     ops.reset_launch_counts()
     t = time.perf_counter()
     rep = rm.run()
-    torch.cuda.synchronize()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     return rm, rep, wall, (ops.launch_counts(), ops.branch_counts())
 
@@ -1375,20 +1626,42 @@ def fleet_line(label, stats):
           f"{stats.solver_batches}", flush=True)
 
 
-def drive_rm_replay(ctx_bytes):
+def rm_placements(device):
+    """``PlacementService.solve_batch`` on ``device`` of the trace's first
+    job's candidates: ``[(perm, F(identity), F)]``."""
+    import torch
+    from repro_torch.launch.placement import PlacementService
+    from repro_torch.serve import ClusterState, default_flows
+    spec = rm_trace(1)[0]
+    cands = ClusterState(torus(RM_TORUS).M).candidate_subsets(spec.size)
+    insts = [(default_flows(spec.size, spec.seed), c.M_sub) for c in cands]
+    svc = PlacementService(device=device)
+    t = time.perf_counter()
+    placed = [(r.perm.tolist(), r.cost_before, r.cost_after)
+              for r in svc.solve_batch(insts)]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"[rm-replay] placement of {spec.job_id}'s {len(insts)} "
+          f"candidates (order {spec.size}) on {device}: "
+          f"{time.perf_counter() - t:.3f} s, F {[p[2] for p in placed]} of "
+          f"identity {[p[1] for p in placed]}", flush=True)
+    svc.close()
+    return placed
+
+
+def drive_rm_replay(ctx_bytes, cpu_decisions, cpu_placed):
     """The resource manager on the card: (1) the RM_JOBS trace through one
     engine; (2) through a subprocess fleet of two workers on the card,
     worker 0 SIGKILLing itself after 4 requests: per job equal to (1),
     one death, no failure, free device memory down by at least one CUDA
     context per child while both live; (3) its first RM_CPU_JOBS through one
     engine on the card, a thread fleet under a kill on the card and one
-    engine on the CPU: all three equal; (4) ``PlacementService`` on the
-    first job's three candidates, card == CPU.  Returns replay 1's
-    launch counts."""
+    engine on the CPU (``cpu_decisions``: ``cpu_check``'s "rm-replay"):
+    all three equal; (4) ``PlacementService`` on the first job's three
+    candidates, card == CPU (``cpu_placed``: its "rm-placement").
+    Returns replay 1's launch counts."""
     import torch
-    from repro_torch.launch.placement import PlacementService
-    from repro_torch.serve import (ClusterState, EngineFleet, FaultPlan,
-                                   MappingEngine, default_flows)
+    from repro_torch.serve import EngineFleet, FaultPlan, MappingEngine
     t_route = time.perf_counter()
     print(f"[rm-replay] {RM_JOBS}-job synthetic_trace({RM_TRACE}) on the "
           f"{'x'.join(map(str, RM_TORUS))} torus, ResourceManager defaults, "
@@ -1468,33 +1741,18 @@ def drive_rm_replay(ctx_bytes):
     require(counts4[0]["qap_delta"] > 0,
             "[rm-replay] thread fleet launched no qap_delta")
     short["thread fleet"] = rm_decisions(rm4)
-    rm5, rep5, wall, _ = rm_replay(MappingEngine(warm_start=False,
-                                                 device="cpu"), RM_CPU_JOBS)
-    print(f"[rm-replay] {RM_CPU_JOBS} jobs on the cpu: {wall:.1f} s",
-          flush=True)
-    short["cpu"] = rm_decisions(rm5)
+    short["cpu"], wall = cpu_decisions
+    print(f"[rm-replay] {RM_CPU_JOBS} jobs on the cpu: {wall:.1f} s (in a "
+          f"pool process beside the card's routes)", flush=True)
     require(short["card"] == short["thread fleet"] == short["cpu"],
             f"[rm-replay] {RM_CPU_JOBS}-job trace: card, thread fleet and "
             "cpu disagree")
     print(f"[rm-replay] {RM_CPU_JOBS}-job trace: card == thread fleet == cpu",
           flush=True)
-
-    spec = rm_trace(1)[0]
-    cands = ClusterState(torus(RM_TORUS).M).candidate_subsets(spec.size)
-    insts = [(default_flows(spec.size, spec.seed), c.M_sub) for c in cands]
-    placed = {}
-    for device in ("cuda", "cpu"):
-        svc = PlacementService(device=device)
-        t = time.perf_counter()
-        placed[device] = [(r.perm.tolist(), r.cost_before, r.cost_after)
-                          for r in svc.solve_batch(insts)]
-        if device == "cuda":
-            torch.cuda.synchronize()
-        print(f"[rm-replay] placement of {spec.job_id}'s {len(insts)} "
-              f"candidates (order {spec.size}) on {device}: "
-              f"{time.perf_counter() - t:.3f} s, F {[p[2] for p in placed[device]]}"
-              f" of identity {[p[1] for p in placed[device]]}", flush=True)
-        svc.close()
+    placed = {"cuda": rm_placements("cuda")}
+    placed["cpu"], wall = cpu_placed
+    print(f"[rm-replay] placement on the cpu: {wall:.3f} s (in a pool "
+          f"process)", flush=True)
     require(placed["cuda"] == placed["cpu"],
             "[rm-replay] placement: card != cpu")
     print(f"[rm-replay] route wall {time.perf_counter() - t_route:.1f} s",
@@ -4043,6 +4301,7 @@ def main():
               flush=True)
 
     ctx_bytes = context_bytes()
+    pool, cpu = start_cpu_checks()
     device = torch.device("cuda")
     delta = check_qap_delta(device)
     sa = check_qap_sa_step(device)
@@ -4060,7 +4319,7 @@ def main():
     for route in ROUTES:
         reqs, resps, counts, walls = drive_engine(route)
         runs[route], dense[route] = counts, (resps, walls)
-        check_against_cpu(route, reqs, resps)
+        check_against_cpu(route, resps, cpu[route].result())
     for route, kernel in (("psa-event", "qap_delta"), ("psa-fused", "qap_sa_step"),
                           ("psa-fused", "qap_delta"), ("pga-wide", "qap_objective"),
                           ("pga-wide", "qap_delta"), ("pga-fused", "qap_ga_step"),
@@ -4068,9 +4327,13 @@ def main():
         require(runs[route][kernel] > 0, f"{route} launched no {kernel}")
     phase_done("dense routes")
     ml_resps, runs["multilevel"] = drive_multilevel()
-    check_multilevel_against_cpu(ml_resps)
+    check_against_cpu("multilevel", ml_resps, cpu["multilevel"].result())
     phase_done("multilevel")
-    runs["rm-replay"] = drive_rm_replay(ctx_bytes)
+    runs["exact-size"] = drive_exact_size(cpu["exact-size"].result())
+    phase_done("exact-size")
+    runs["rm-replay"] = drive_rm_replay(ctx_bytes, cpu["rm-replay"].result(),
+                                        cpu["rm-placement"].result())
+    pool.shutdown()
     phase_done("rm-replay")
     runs["lm-serve"] = drive_lm_serve()
     check_lm_against_cpu()
@@ -4097,7 +4360,7 @@ def main():
           f"build included", flush=True)
 
     d = delta[("event", "batched")]
-    o = obj[("generation", "smem", "batched")]
+    o = obj[("generation", "smem", "batched", BUCKET)]
     kernels = [
         dict(name="qap_delta", route="cuda",
              source="src/repro_torch/csrc/qap_delta.cu",

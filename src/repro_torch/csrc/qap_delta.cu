@@ -31,10 +31,30 @@
 //   64 and 32 buckets' 3-request waves spread over 132 blocks, whose
 //   staging then runs in parallel.
 //
-// * L2, larger orders.  One warp per candidate, eight to a block; the warp
-//   walks the contiguous rows C[a,:], C[b,:], C^T[a,:], C^T[b,:] (the
-//   caller passes C^T and M^T, made once per solve) and gathers M[u,p[.]],
-//   M[v,p[.]], M^T[u,p[.]], M^T[v,p[.]] through the permutation row.
+// * L2, orders above kSmemMaxN (the engine's exact-size requests of
+//   170-255 processes, Table 1's tai175/343/729; the caller passes C^T
+//   and M^T, made once per solve, so that every row a candidate reads is
+//   contiguous).  A block takes one permutation row and a contiguous
+//   slice of its candidates: floor(SMs / B) blocks a row, at least one
+//   and at most one a candidate, so that Table 1's 32 x 50 and the
+//   polish's 1 x 256 each fill 128 SMs.  The block stages its
+//   permutation row in shared memory once; warp w takes candidates w,
+//   w + warps, ... of the slice, and stages the four rows each one
+//   gathers from -- M[u], M[v], M^T[u], M^T[v] -- into a set of its own
+//   row slots by 16-byte cp.async (a row keeps its place within 16
+//   bytes, so only its ragged head and tail move a word at a time); the
+//   rows C[a], C[b], C^T[a], C^T[b] are read in place, coalesced (lane i
+//   reads word i + 32 j: the lane partition that keeps the two branches'
+//   bits equal rules out wider loads).  With two sets the next
+//   candidate's rows land while this one is summed.  The gathers
+//   M[u, p[i]] then hit shared-memory banks (some 3.5 wavefronts each)
+//   instead of up to 32 L1 lines of a row of global memory.  The warps a
+//   block and the sets a warp are decided on the host by one function
+//   (kernels/qap_delta.py l2_plan): 16 warps with two sets up to order
+//   445, one set and up to 16 warps above (more warps measured faster
+//   than two sets at tai729), and, for orders where not even one warp's
+//   one set fits (N >= 11,618), the same kernel reading its rows in
+//   place through L1 and L2, counted apart ("qap_delta/l2_unstaged").
 //
 // Both branches compute each lane's partial sums in the same order, the
 // same butterfly and the same corner expression, so they agree with each
@@ -43,14 +63,14 @@
 //
 // What bounds it on an H100: the bytes are C and M once per instance (4.2
 // MB for a 32-instance wave at the 128 bucket, 1.3 us at 3.35 TB/s); the
-// operations (8 per candidate and i) are far below the f32 peak.  The L2
-// branch moves 4 KB per candidate through L2 (52 MB per event round); the
+// operations (8 per candidate and i) are far below the f32 peak.  The
 // shared-memory branch stages 17 MB and then reads shared memory, where
 // the four gathers through p land on random banks (some 3.5 wavefronts
 // each against 1 for the four reads of C), so it is bound by shared-memory
-// wavefronts, and both branches take about the same device time at the
-// 128 bucket.  At these sizes the launch and the wrapper's issue cost are
-// a large part of a call.
+// wavefronts.  The L2 branch moves eight rows a candidate from L2 (37 MB
+// for Table 1's 1600 candidates on tai729: a few microseconds at L2
+// rates, against 1.3 us for C and M once from HBM).  At these sizes the
+// launch and the wrapper's issue cost are a large part of a call.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -63,11 +83,13 @@ namespace {
 
 using repro_torch::smem_stride;
 
-constexpr int kWarpsPerBlock = 8;  // L2 branch
-constexpr int kSmemWarps = 32;     // shared-memory branch
+constexpr int kSmemWarps = 32;  // shared-memory branch
+constexpr int kL2MaxWarps = 16;  // L2 branch
 
-// One flag word per instantiation of the shared-memory kernel.
+// One flag word per instantiation of the shared-memory kernel, one for
+// the staged L2 kernel.
 std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
+std::atomic<unsigned long long> g_l2_granted;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -134,41 +156,45 @@ qap_delta_smem_kernel(const float* __restrict__ C, const float* __restrict__ M,
   }
 }
 
-__global__ void qap_delta_l2_kernel(const float* __restrict__ C,
-                                    const float* __restrict__ CT,
-                                    const float* __restrict__ M,
-                                    const float* __restrict__ MT,
-                                    const int* __restrict__ p,
-                                    const int* __restrict__ pairs,
-                                    float* __restrict__ out, int B, int K,
-                                    int N, int rows_per_inst) {
-  const int lane = threadIdx.x & 31;
-  const long long q =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (q >= static_cast<long long>(B) * K) return;  // whole warp exits together
-  const int r = static_cast<int>(q / K);
-  const size_t nn = static_cast<size_t>(N) * N;
-  const size_t base = static_cast<size_t>(r / rows_per_inst) * nn;
-  const float* c = C + base;
-  const float* ct = CT + base;
-  const float* m = M + base;
-  const float* mt = MT + base;
-  const int* prow = p + static_cast<size_t>(r) * N;
-  const int a = pairs[2 * q];
-  const int b = pairs[2 * q + 1];
-  const int u = prow[a];
-  const int v = prow[b];
-  const float* ca = c + static_cast<size_t>(a) * N;
-  const float* cb = c + static_cast<size_t>(b) * N;
-  const float* cta = ct + static_cast<size_t>(a) * N;
-  const float* ctb = ct + static_cast<size_t>(b) * N;
-  const float* mu = m + static_cast<size_t>(u) * N;
-  const float* mv = m + static_cast<size_t>(v) * N;
-  const float* mtu = mt + static_cast<size_t>(u) * N;
-  const float* mtv = mt + static_cast<size_t>(v) * N;
+// The rows a candidate of the L2 branch reads: C[a,:], C[b,:], C^T[a,:],
+// C^T[b,:] (in place, coalesced), then the kStagedM it gathers from,
+// M[u,:], M[v,:], M^T[u,:], M^T[v,:] (staged).
+constexpr int kRowsPerCandidate = 8;
+constexpr int kStagedM = 4;
+constexpr int kFirstStaged = kRowsPerCandidate - kStagedM;
 
+// Shared memory of a staged L2 block: the permutation row's slot and
+// `sets` sets of the kStagedM row slots for each of its warps.
+constexpr size_t l2_block_bytes(int n, int warps, int sets) {
+  return sizeof(float) * repro_torch::row_slot_words(n) *
+         (1 + static_cast<size_t>(warps) * sets * kStagedM);
+}
+
+struct CandidateRows {
+  const float* r[kRowsPerCandidate];
+};
+
+__device__ __forceinline__ CandidateRows candidate_rows(
+    const float* c, const float* ct, const float* m, const float* mt, int a,
+    int b, int u, int v, int N) {
+  const size_t n = static_cast<size_t>(N);
+  return {{c + a * n, c + b * n, ct + a * n, ct + b * n, m + u * n,
+           m + v * n, mt + u * n, mt + v * n}};
+}
+
+// One candidate's delta from its eight rows and the permutation row
+// (shared or global memory alike): lane i takes i = lane + 32 j, sums col
+// and row in j order, the butterfly sums the lanes, and every lane
+// returns the delta -- the shared-memory branch's arithmetic, term for
+// term, with C[i,a] = C^T[a,i] and M[p[i],v] = M^T[v,p[i]].
+__device__ __forceinline__ float delta_from_rows(const float* const* x,
+                                                 const int* prow, int a,
+                                                 int b, int u, int v, int N) {
+  const float *ca = x[0], *cb = x[1], *cta = x[2], *ctb = x[3];
+  const float *mu = x[4], *mv = x[5], *mtu = x[6], *mtv = x[7];
   float col = 0.f, row = 0.f;
-  for (int i = lane; i < N; i += 32) {
+#pragma unroll 4
+  for (int i = threadIdx.x & 31; i < N; i += 32) {
     if (i == a || i == b) continue;
     const int pi = prow[i];
     col += (cta[i] - ctb[i]) * (mtv[pi] - mtu[pi]);
@@ -176,10 +202,101 @@ __global__ void qap_delta_l2_kernel(const float* __restrict__ C,
   }
   col = warp_sum(col);
   row = warp_sum(row);
-  if (lane == 0) {
-    const float corner = (ca[a] - cb[b]) * (mv[v] - mu[u]) +
-                         ca[b] * (mv[u] - mu[v]) + cb[a] * (mu[v] - mv[u]);
-    out[q] = col + row + corner;
+  const float corner = (ca[a] - cb[b]) * (mv[v] - mu[u]) +
+                       ca[b] * (mv[u] - mu[v]) + cb[a] * (mu[v] - mv[u]);
+  return col + row + corner;
+}
+
+// L2 branch.  Block = (permutation row, contiguous slice of its K
+// candidates); warp w takes candidates first + w, first + w + warps, ...
+// kStaged: the block stages its permutation row once, and each warp
+// stages the four rows of M its candidate gathers from into one of its
+// `sets` slot sets (two: the next candidate's rows land while this one
+// is summed); the rows of C are read in place, coalesced.  !kStaged
+// (orders whose one set does not fit): every row and p read in place,
+// through L1 and L2.
+template <bool kStaged>
+__global__ void __launch_bounds__(kL2MaxWarps * 32)
+qap_delta_l2_kernel(const float* __restrict__ C, const float* __restrict__ CT,
+                    const float* __restrict__ M, const float* __restrict__ MT,
+                    const int* __restrict__ p, const int* __restrict__ pairs,
+                    float* __restrict__ out, int K, int N, int rows_per_inst,
+                    int blocks_per_row, int sets) {
+  extern __shared__ __align__(16) float rows_smem[];
+  const int r = blockIdx.x / blocks_per_row;
+  const int part = blockIdx.x - r * blocks_per_row;
+  const int chunk = (K + blocks_per_row - 1) / blocks_per_row;
+  const int end = min(K, (part + 1) * chunk);
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t base =
+      static_cast<size_t>(r / rows_per_inst) * static_cast<size_t>(N) * N;
+  const float *c = C + base, *ct = CT + base, *m = M + base, *mt = MT + base;
+  const int* prow = p + static_cast<size_t>(r) * N;
+  const int2* ab = reinterpret_cast<const int2*>(pairs) +
+                   static_cast<size_t>(r) * K;
+  float* dst = out + static_cast<size_t>(r) * K;
+  int k = part * chunk + (threadIdx.x >> 5);
+
+  if (!kStaged) {
+    for (; k < end; k += warps) {
+      const int a = ab[k].x, b = ab[k].y, u = prow[a], v = prow[b];
+      const CandidateRows g = candidate_rows(c, ct, m, mt, a, b, u, v, N);
+      const float d = delta_from_rows(g.r, prow, a, b, u, v, N);
+      if (lane == 0) dst[k] = d;
+    }
+    return;
+  }
+
+  const int w = repro_torch::row_slot_words(N);
+  int* ps = reinterpret_cast<int*>(rows_smem);
+  repro_torch::stage_row(ps, prow, N, threadIdx.x, blockDim.x);
+  repro_torch::cp_async_commit();
+  repro_torch::cp_async_wait<0>();
+  __syncthreads();
+  const int* pr = ps + repro_torch::row_shift(prow);
+  float* mine = rows_smem + w + (threadIdx.x >> 5) * sets * kStagedM * w;
+  auto issue = [&](int kk, int set) {
+    const int a = ab[kk].x, b = ab[kk].y;
+    const CandidateRows g =
+        candidate_rows(c, ct, m, mt, a, b, pr[a], pr[b], N);
+    float* s = mine + set * kStagedM * w;
+#pragma unroll
+    for (int j = 0; j < kStagedM; ++j) {
+      repro_torch::stage_row(s + j * w, g.r[kFirstStaged + j], N, lane, 32);
+    }
+    repro_torch::cp_async_commit();
+  };
+  if (k >= end) return;  // no block barrier follows
+  int set = 0;
+  issue(k, 0);
+  for (; k < end; k += warps) {
+    const bool more = k + warps < end;
+    if (sets > 1 && more) {
+      issue(k + warps, set ^ 1);
+      repro_torch::cp_async_wait<1>();
+    } else {
+      repro_torch::cp_async_wait<0>();
+    }
+    __syncwarp();
+    const int a = ab[k].x, b = ab[k].y, u = pr[a], v = pr[b];
+    const CandidateRows g = candidate_rows(c, ct, m, mt, a, b, u, v, N);
+    const float* s = mine + set * kStagedM * w;
+    const float* x[kRowsPerCandidate];
+#pragma unroll
+    for (int j = 0; j < kRowsPerCandidate; ++j) {
+      x[j] = j < kFirstStaged ? g.r[j]
+                              : s + (j - kFirstStaged) * w +
+                                    repro_torch::row_shift(g.r[j]);
+    }
+    const float d = delta_from_rows(x, pr, a, b, u, v, N);
+    if (lane == 0) dst[k] = d;
+    __syncwarp();  // every lane has read the set before it is refilled
+    if (sets > 1) {
+      set ^= 1;
+    } else if (more) {
+      issue(k + warps, 0);
+    }
   }
 }
 
@@ -188,11 +305,14 @@ __global__ void qap_delta_l2_kernel(const float* __restrict__ C,
 extern "C" int qap_delta_smem_max_n() { return repro_torch::kSmemMaxN; }
 
 // CT and MT are read only above kSmemMaxN and may be null below it.
+// l2_warps and l2_sets: the L2 branch's plan for order N
+// (kernels/qap_delta.py l2_plan): warps a block and row sets a warp, 0
+// for the kernel that reads its rows in place.
 extern "C" int qap_delta_launch(const float* C, const float* CT,
                                 const float* M, const float* MT, const int* p,
                                 const int* pairs, float* out, int B, int K,
-                                int N, int rows_per_inst, int device,
-                                void* stream) {
+                                int N, int rows_per_inst, int l2_warps,
+                                int l2_sets, int device, void* stream) {
   repro_torch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -217,13 +337,36 @@ extern "C" int qap_delta_launch(const float* C, const float* CT,
       return cudaGetLastError();
     }));
   }
-  if (CT == nullptr || MT == nullptr) {
+  if (CT == nullptr || MT == nullptr || l2_warps < 1 ||
+      l2_warps > kL2MaxWarps || l2_sets < 0 || l2_sets > 2 ||
+      (l2_sets > 0 && l2_block_bytes(N, l2_warps, l2_sets) >
+                          static_cast<size_t>(repro_torch::kSmemBlockLimit))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long total = static_cast<long long>(B) * K;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  qap_delta_l2_kernel<<<blocks, kWarpsPerBlock * 32, 0, st>>>(
-      C, CT, M, MT, p, pairs, out, B, K, N, rows_per_inst);
+  if (l2_sets == 0) {
+    // One warp a candidate, l2_warps to a block, rows read in place.
+    const int per = (K + l2_warps - 1) / l2_warps;
+    qap_delta_l2_kernel<false>
+        <<<static_cast<unsigned>(B) * per, l2_warps * 32, 0, st>>>(
+            C, CT, M, MT, p, pairs, out, K, N, rows_per_inst, per, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int sms = 0;
+  const cudaError_t err = repro_torch::smem_launch_setup(
+      reinterpret_cast<const void*>(qap_delta_l2_kernel<true>), g_l2_granted,
+      sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Spread each permutation row over floor(SMs / B) blocks (at least
+  // one, at most one a candidate) and give a block no more warps than
+  // its slice has candidates: Table 1's 32 x 50 is 128 blocks of 13
+  // candidates, the polish's 1 x 256 128 blocks of 2.
+  const int per0 = std::max(1, std::min(sms / B, K));
+  const int chunk = (K + per0 - 1) / per0;
+  const int per = (K + chunk - 1) / chunk;
+  const int warps = std::min(l2_warps, chunk);
+  qap_delta_l2_kernel<true>
+      <<<static_cast<unsigned>(B) * per, warps * 32,
+         l2_block_bytes(N, warps, l2_sets), st>>>(
+          C, CT, M, MT, p, pairs, out, K, N, rows_per_inst, per, l2_sets);
   return static_cast<int>(cudaGetLastError());
 }

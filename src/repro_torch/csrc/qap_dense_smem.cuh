@@ -24,8 +24,9 @@
 // ints) fit the 227 KB a block may have on an H100 (kSmemBlockLimit,
 // granted with cudaFuncSetAttribute): N <= kSmemMaxN = 169, which covers
 // every order the engine solves densely (buckets 32/64/128, multilevel
-// coarse solves at 64 and below).  Above it both launchers take their L2
-// branch, which reads C, M and their transposes from global memory.
+// coarse solves at 64 and below).  Above it the launchers take their L2
+// branch: K1 and K2 stage single rows there (row_slot_words below), K4
+// reads C, M and their transposes from global memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +81,61 @@ __device__ __forceinline__ void stage_instance(float* c, float* m,
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+}
+
+// Rows staged by the L2 branches of K1 and K2 (orders above kSmemMaxN),
+// which copy single rows -- of C, C^T, M, M^T or a permutation -- rather
+// than whole instances.  A row keeps its source's position within 16
+// bytes (row_shift words), so that all but its ragged head and tail move
+// by 16-byte cp.async (cp.async.cg: through L2, not L1); a slot of
+// row_slot_words(n) words holds any row of n words, and element i of a
+// row staged from src lies at slot[row_shift(src) + i].
+__host__ __device__ constexpr int row_slot_words(int n) {
+  return (n + 6) & ~3;  // n + 3 rounded up to a multiple of 4
+}
+
+__device__ __forceinline__ int row_shift(const void* src) {
+  return static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of the calling thread's committed groups
+// are in flight.  Other threads' copies are visible after their own wait
+// and a barrier (__syncwarp or __syncthreads).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Issue the copies of an n-word row (floats or ints) from src into the
+// 16-byte-aligned slot; thread `rank` of a group of `count` takes every
+// count-th 16-byte chunk and every count-th word of the head and tail.
+template <typename T>
+__device__ __forceinline__ void stage_row(T* slot, const T* src, int n,
+                                          int rank, int count) {
+  static_assert(sizeof(T) == 4, "rows of 4-byte words");
+  const int shift = row_shift(src);
+  T* dst = slot + shift;
+  const int head = min(n, (4 - shift) & 3);
+  const int chunks = (n - head) >> 2;
+  const int tail = head + 4 * chunks;
+  for (int c = rank; c < chunks; c += count) {
+    cp_async16(dst + head + 4 * c, src + head + 4 * c);
+  }
+  for (int e = rank; e < head + n - tail; e += count) {
+    const int i = e < head ? e : tail + e - head;
+    cp_async4(dst + i, src + i);
+  }
 }
 
 // Host side: the current device's SM count, and the full 227 KB granted

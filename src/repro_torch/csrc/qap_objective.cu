@@ -30,22 +30,42 @@
 //   a permutation still speed the staging (16 warps measured faster than
 //   8 at the 128 bucket and than 4 at the 3-request waves).
 //
-// * L2, larger orders.  One block of 128 threads per permutation
-//   (block_objective): the block loads its permutation into shared memory
-//   (N ints), then each warp walks rows of C coalesced and gathers through
-//   the permutation from one row of M, all from global memory and L2.
-//   The TPU kernel's VMEM cap does not apply: any order whose permutation
-//   fits the default 48 KB of shared memory.
+// * L2, orders above kSmemMaxN (the engine's exact-size requests of
+//   170-255 processes, Table 1's tai175/343/729, sparse_scale's dense
+//   baseline at 4096).  The grid runs over (instance, group of G
+//   permutations, tile of R rows of C).  A block stages its G
+//   permutation rows in shared memory; warp w takes the tile's rows w,
+//   w + warps, ... in order, and for each stages C[k, :] and the G rows
+//   M[p_g[k], :] into one of its own slot sets by 16-byte cp.async (two
+//   sets: the next row's land while this one is summed), reads C[k, l]
+//   once for all G permutations and gathers M[p_g[k], p_g[l]] from
+//   shared memory, lanes over l.  Each permutation's tile sum (lanes by a
+//   butterfly, then warps in order) goes to a workspace, and a second
+//   small kernel adds a permutation's tiles in tile order.  The warps,
+//   sets and R = 4 rows a warp are chosen on the host from N alone, G
+//   (2, or 1 for an instance's single permutation or orders from 11,618)
+//   from the batch, in one function (kernels/qap_objective.py
+//   l2_tiling): a permutation's F then depends on N alone -- not on the
+//   batch, the SM count or which block finishes first -- and 8 x 4096
+//   runs 1024 blocks.  At most 4 warps a block, so that two or three
+//   blocks share an SM at Table 1's orders; warps with their own slots
+//   and no block barrier between rows measured 1.5-2.2x faster at Table
+//   1's shapes than blocks of 8 warps staging each row together, and 4
+//   warps with two sets 1.3x faster than 8 at tai729.  Any order whose
+//   permutation fits 48 KB.
 //
 // What bounds it on an H100: memory, and at the engine's shapes the
 // launch.  A GA generation of a 32-instance 128-bucket wave scores 1024
 // children: C and M of 32 instances are 4.2 MB of unique bytes (1.3 us at
-// 3.35 TB/s) against 34 MFLOP (0.5 us at the f32 peak).  The L2 branch
-// re-reads its instance's 128 KB for each permutation (134 MB through L2
-// per generation); the shared-memory branch reads each instance from L2
-// four times and then only shared memory, where the gathers through the
-// permutation land on random banks: it is bound by shared-memory
-// wavefronts (some 4.5 per row and 32 columns).
+// 3.35 TB/s) against 34 MFLOP (0.5 us at the f32 peak).  The
+// shared-memory branch reads each instance from L2 four times and then
+// only shared memory, where the gathers through the permutation land on
+// random banks: it is bound by shared-memory wavefronts (some 4.5 per row
+// and 32 columns).  The L2 branch moves every permutation's N rows of M
+// (N^2 words a permutation: 544 MB through L2 for Table 1's 4 x 64 on
+// tai729, whose instance L2 holds) and C once a group; at 8 x 4096 the
+// instance (134 MB) is past L2, so about 0.6 GB comes from HBM, some
+// 0.18 ms at 3.35 TB/s.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -59,11 +79,29 @@ namespace {
 
 using repro_torch::smem_stride;
 
-constexpr int kThreads = 128;   // L2 branch
-constexpr int kSmemWarps = 16;  // shared-memory branch
+constexpr int kSmemWarps = 16;   // shared-memory branch
+constexpr int kL2MaxWarps = 4;   // L2 branch
+constexpr int kL2MaxGroup = 2;
+constexpr int kSumThreads = 128;
 
-// One flag word per instantiation of the shared-memory kernel.
+// One flag word per instantiation of the shared-memory kernel and of the
+// L2 kernel (G = 1, 2).
 std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
+std::atomic<unsigned long long> g_l2_granted[kL2MaxGroup];
+
+// The reduction's G x warps floats, rounded to 16 bytes.
+__host__ __device__ constexpr int red_words(int group, int warps) {
+  return (group * warps + 3) & ~3;
+}
+
+// Shared memory of an L2 block: its G permutation rows, the reduction's
+// floats, and each warp's `sets` sets of C's row and the G rows of M.
+constexpr size_t l2_block_bytes(int n, int group, int warps, int sets) {
+  return sizeof(float) *
+         (static_cast<size_t>(repro_torch::row_slot_words(n)) *
+              (group + static_cast<size_t>(warps) * sets * (1 + group)) +
+          red_words(group, warps));
+}
 
 template <int ITERS>
 __global__ void __launch_bounds__(kSmemWarps * 32)
@@ -100,31 +138,186 @@ qap_objective_smem_kernel(const float* __restrict__ C,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-qap_objective_l2_kernel(const float* __restrict__ C,
-                        const float* __restrict__ M,
-                        const int* __restrict__ perms,
-                        float* __restrict__ out, int N,
-                        long long perms_per_inst) {
-  extern __shared__ int p[];
-  __shared__ float red[kThreads / 32];
-  const long long q = blockIdx.x;
-  const size_t base = static_cast<size_t>(q / perms_per_inst) * N * N;
-  const int* prow = perms + static_cast<size_t>(q) * N;
-  for (int i = threadIdx.x; i < N; i += kThreads) p[i] = prow[i];
+// L2 branch: one block per (instance, group of G permutations, tile of
+// tile_rows rows of C); partial[q * tiles + tile] = permutation q's sum
+// over the tile's rows.  Warp w takes the tile's rows w, w + warps, ...:
+// for each it stages C[k, :] and M[p_g[k], :], g < G, into one of its
+// `sets` slot sets (two: the next row's land while this one is summed),
+// then lane i reads C[k, l] once for the G permutations and gathers
+// M[p_g[k], p_g[l]], l = i, i + 32, ...
+template <int G>
+__global__ void __launch_bounds__(kL2MaxWarps * 32)
+qap_objective_tile_kernel(const float* __restrict__ C,
+                          const float* __restrict__ M,
+                          const int* __restrict__ perms,
+                          float* __restrict__ partial, int N,
+                          long long perms_per_inst, int groups_per_inst,
+                          int sets, int tile_rows) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int w = repro_torch::row_slot_words(N);
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tiles = (N + tile_rows - 1) / tile_rows;
+  const int tile = static_cast<int>(blockIdx.x % tiles);
+  const long long grp = blockIdx.x / tiles;
+  const long long inst = grp / groups_per_inst;
+  const long long q0 =
+      inst * perms_per_inst + (grp - inst * groups_per_inst) * G;
+  const int count = static_cast<int>(
+      min(static_cast<long long>(G), (inst + 1) * perms_per_inst - q0));
+  const size_t nn = static_cast<size_t>(N) * N;
+  const float* c = C + inst * nn;
+  const float* m = M + inst * nn;
+  int* ps = reinterpret_cast<int*>(tile_smem);
+  float* red = tile_smem + G * w;
+  float* mine = red + red_words(G, warps) + warp * sets * (1 + G) * w;
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g < count) {
+      repro_torch::stage_row(ps + g * w, perms + (q0 + g) * N, N,
+                             threadIdx.x, blockDim.x);
+    }
+  }
+  repro_torch::cp_async_commit();
+  repro_torch::cp_async_wait<0>();
   __syncthreads();
-  const float f =
-      repro_torch::block_objective<kThreads>(C + base, M + base, p, N, red);
-  if (threadIdx.x == 0) out[q] = f;
+  const int* pg[G];  // p_g, in shared memory
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    pg[g] = ps + g * w +
+            repro_torch::row_shift(perms + (q0 + min(g, count - 1)) * N);
+  }
+  const int k0 = tile * tile_rows;
+  const int rows = min(tile_rows, N - k0);
+  auto m_row = [&](int g, int k) {
+    return m + static_cast<size_t>(pg[min(g, count - 1)][k]) * N;
+  };
+  // Set `set` <- C[k0 + kk, :] and M[p_g[k0 + kk], :], g < count.
+  auto issue = [&](int kk, int set) {
+    float* s = mine + set * (1 + G) * w;
+    const int k = k0 + kk;
+    repro_torch::stage_row(s, c + static_cast<size_t>(k) * N, N, lane, 32);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < count) {
+        repro_torch::stage_row(s + (1 + g) * w, m_row(g, k), N, lane, 32);
+      }
+    }
+    repro_torch::cp_async_commit();
+  };
+
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  int set = 0;
+  if (warp < rows) issue(warp, 0);
+  for (int kk = warp; kk < rows; kk += warps) {
+    const bool more = kk + warps < rows;
+    if (sets > 1 && more) {
+      issue(kk + warps, set ^ 1);
+      repro_torch::cp_async_wait<1>();
+    } else {
+      repro_torch::cp_async_wait<0>();
+    }
+    __syncwarp();
+    const float* s = mine + set * (1 + G) * w;
+    const int k = k0 + kk;
+    const float* crow =
+        s + repro_torch::row_shift(c + static_cast<size_t>(k) * N);
+    const float* mrow[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      mrow[g] = s + (1 + g) * w + repro_torch::row_shift(m_row(g, k));
+    }
+#pragma unroll 4
+    for (int l = lane; l < N; l += 32) {
+      const float cl = crow[l];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g < count) acc[g] += cl * mrow[g][pg[g][l]];
+      }
+    }
+    __syncwarp();  // every lane has read the set before it is refilled
+    if (sets > 1) {
+      set ^= 1;
+    } else if (more) {
+      issue(kk + warps, 0);
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float v = acc[g];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) red[g * warps + warp] = v;
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < count) {
+    const float* r = red + threadIdx.x * warps;
+    float s = r[0];
+    for (int x = 1; x < warps; ++x) s += r[x];
+    partial[(q0 + threadIdx.x) * tiles + tile] = s;
+  }
+}
+
+// out[q] = permutation q's tile sums added in tile order.
+__global__ void __launch_bounds__(kSumThreads)
+qap_objective_tile_sum_kernel(const float* __restrict__ partial,
+                              float* __restrict__ out, long long total,
+                              int tiles) {
+  const long long q =
+      static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (q >= total) return;
+  const float* r = partial + q * tiles;
+  float s = r[0];
+  for (int t = 1; t < tiles; ++t) s += r[t];
+  out[q] = s;
+}
+
+template <int G>
+cudaError_t launch_tiles(const float* C, const float* M, const int* perms,
+                         float* out, float* partial, long long total, int N,
+                         long long perms_per_inst, int warps, int sets,
+                         int tile_rows, cudaStream_t st,
+                         std::atomic<unsigned long long>& granted) {
+  int sms = 0;
+  cudaError_t err = repro_torch::smem_launch_setup(
+      reinterpret_cast<const void*>(qap_objective_tile_kernel<G>), granted,
+      sms);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + tile_rows - 1) / tile_rows;
+  const long long groups = (perms_per_inst + G - 1) / G;
+  const long long blocks = total / perms_per_inst * groups * tiles;
+  qap_objective_tile_kernel<G>
+      <<<static_cast<unsigned>(blocks), warps * 32,
+         l2_block_bytes(N, G, warps, sets), st>>>(
+          C, M, perms, partial, N, perms_per_inst, static_cast<int>(groups),
+          sets, tile_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  qap_objective_tile_sum_kernel<<<static_cast<unsigned>(
+                                      (total + kSumThreads - 1) / kSumThreads),
+                                  kSumThreads, 0, st>>>(partial, out, total,
+                                                        tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// partial: total x ceil(N / tile_rows) floats of workspace, read only
+// above kSmemMaxN; group, warps, sets and tile_rows: the L2 branch's
+// tiling for order N (kernels/qap_objective.py l2_tiling).
 extern "C" int qap_objective_launch(const float* C, const float* M,
                                     const int* perms, float* out,
-                                    long long total, int N,
-                                    long long perms_per_inst, int device,
-                                    void* stream) {
+                                    float* partial, long long total, int N,
+                                    long long perms_per_inst, int group,
+                                    int warps, int sets, int tile_rows,
+                                    int device, void* stream) {
   repro_torch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -148,8 +341,19 @@ extern "C" int qap_objective_launch(const float* C, const float* M,
       return cudaGetLastError();
     }));
   }
-  qap_objective_l2_kernel<<<static_cast<unsigned>(total), kThreads,
-                            N * sizeof(int), st>>>(C, M, perms, out, N,
-                                                   perms_per_inst);
-  return static_cast<int>(cudaGetLastError());
+  if (partial == nullptr || warps < 1 || warps > kL2MaxWarps || sets < 1 ||
+      sets > 2 || tile_rows < 1 || group > perms_per_inst ||
+      l2_block_bytes(N, group, warps, sets) >
+          static_cast<size_t>(repro_torch::kSmemBlockLimit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      group == 1 ? launch_tiles<1>(C, M, perms, out, partial, total, N,
+                                   perms_per_inst, warps, sets, tile_rows, st,
+                                   g_l2_granted[0])
+      : group == 2 ? launch_tiles<2>(C, M, perms, out, partial, total, N,
+                                     perms_per_inst, warps, sets, tile_rows,
+                                     st, g_l2_granted[1])
+                   : cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

@@ -6,7 +6,9 @@
 //
 //   F(p) = sum_k sum_l C[k, l] * M[p[k], p[l]]
 //
-// Two forms, one per branch of K2 and K5:
+// Two forms: warp_objective for the shared-memory branches of K2 and K5,
+// block_objective for K5's L2 branch (K2's L2 branch tiles its work
+// over blocks and has its own kernel, csrc/qap_objective.cu):
 //
 // * warp_objective: one warp scores one permutation from an instance
 //   staged in shared memory (csrc/qap_dense_smem.cuh, rows at the odd

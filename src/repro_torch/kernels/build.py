@@ -53,9 +53,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a letter each: "p" a pointer or the stream, "i" an int, "q" a long
 # long, "f" a float.  Bound once, when the library is loaded.
 SIGNATURES: Dict[str, Dict[str, str]] = {
-    "qap_delta": {"qap_delta_launch": "i:pppppppiiiiip",
+    "qap_delta": {"qap_delta_launch": "i:pppppppiiiiiiip",
                   "qap_delta_smem_max_n": "i:"},
-    "qap_objective": {"qap_objective_launch": "i:ppppqiqip"},
+    "qap_objective": {"qap_objective_launch": "i:pppppqiqiiiiip"},
     "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip",
                     "qap_sa_step_smem_bytes": "q:ii"},
     "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffiip",
@@ -68,9 +68,28 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "f": ctypes.c_float}
 
+# The shared memory a block may have on an H100 (kSmemBlockLimit of
+# csrc/qap_dense_smem.cuh), against which the L2 branches of K1 and K2
+# size their staging (qap_delta.l2_plan, qap_objective.l2_tiling).
+SMEM_BLOCK_LIMIT = 232448
+
+
+def row_slot_words(n: int) -> int:
+    """Words of shared memory a row of ``n`` words staged by an L2 branch
+    takes (``row_slot_words`` of ``csrc/qap_dense_smem.cuh``): it keeps
+    its source's place within 16 bytes, so ``n + 3`` rounded up to 4."""
+    return (n + 6) & ~3
+
+
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
-# Launches by branch, for the kernels with two (K1, K2, K4, K5:
-# "qap_delta/smem", "qap_delta/l2", ...); cleared with LAUNCHES.
+# The branches of the kernels with two, by the order (K1, K2, K4; K5 by
+# what fits): shared memory and L2.  K1's L2 branch counts the orders
+# whose rows it cannot stage ("l2_unstaged", N >= 11618) apart.
+BRANCHES = {"qap_delta": ("smem", "l2", "l2_unstaged"),
+            "qap_sa_step": ("smem", "l2"), "qap_objective": ("smem", "l2"),
+            "qap_ga_step": ("smem", "l2")}
+# Launches by branch ("qap_delta/smem", "qap_delta/l2", ...); cleared
+# with LAUNCHES.
 BRANCH_LAUNCHES: "collections.Counter[str]" = collections.Counter()
 # Guards both counters: a Counter increment is a read then a write, so two
 # threads launching at once would lose counts without it.

@@ -56,13 +56,13 @@ def launch_counts() -> Dict[str, int]:
 
 def branch_counts() -> Dict[str, int]:
     """Launches of K1, K4, K2 and K5 by branch (``"qap_delta/smem"``,
-    ``"qap_delta/l2"``, ..., ``"qap_ga_step/l2"``) since the last
+    ``"qap_delta/l2"``, ``"qap_delta/l2_unstaged"``, ...,
+    ``"qap_ga_step/l2"``: :data:`build.BRANCHES`) since the last
     :func:`reset_launch_counts`."""
     with build.COUNT_LOCK:
         return {f"{name}/{branch}": build.BRANCH_LAUNCHES[f"{name}/{branch}"]
-                for name in ("qap_delta", "qap_sa_step", "qap_objective",
-                             "qap_ga_step")
-                for branch in ("smem", "l2")}
+                for name, branches in build.BRANCHES.items()
+                for branch in branches}
 
 
 def reset_launch_counts() -> None:

@@ -47,7 +47,7 @@ def test_every_kernel_has_a_signature_and_a_source():
 def test_branch_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert ops.branch_counts() == {
-        "qap_delta/smem": 0, "qap_delta/l2": 0,
+        "qap_delta/smem": 0, "qap_delta/l2": 0, "qap_delta/l2_unstaged": 0,
         "qap_sa_step/smem": 0, "qap_sa_step/l2": 0,
         "qap_objective/smem": 0, "qap_objective/l2": 0,
         "qap_ga_step/smem": 0, "qap_ga_step/l2": 0}

@@ -33,16 +33,19 @@ pytestmark = pytest.mark.gpu
 
 B0, RPT, K = 4, 8, 25
 # (n, nv, shared): K1 and K4 take orders up to 169 on their shared-memory
-# branch and 256 on their L2 branch; 32 is the engine's smallest bucket.
+# branch and 200 and 256 on their L2 branch (200: the service's exact-size
+# range, an order-193 request padded); 32 is the engine's smallest bucket.
 CASES = [(16, 16, True), (16, 11, False), (40, 29, True), (128, 125, False),
-         (32, 27, False), (169, 160, True), (256, 250, False)]
+         (32, 27, False), (169, 160, True), (256, 250, False),
+         (200, 193, False)]
 # K1/K4 block splits, (n, nv, shared, chains per instance, candidates):
 # the polish shape, one shared instance with many chains, an odd chain
-# count (a block's last warps unused), and the first order past the
-# shared-memory threshold.
+# count (a block's last warps unused), the first order past the
+# shared-memory threshold (rows not 16-byte aligned: 170 words), and the
+# polish shape on the L2 branch at order 200.
 SPLIT_CASES = [(128, 125, False, 1, 256), (64, 64, True, 128, 25),
                (128, 125, False, 5, 25), (32, 27, True, 5, 25),
-               (170, 170, False, 3, 25)]
+               (170, 170, False, 3, 25), (200, 193, False, 1, 256)]
 DENSE_CASES = [c + (RPT, K) for c in CASES] + SPLIT_CASES
 
 
@@ -193,6 +196,71 @@ def test_ga_kernels_at_a_three_request_wave(cuda, n, nv):
         assert torch.equal(g, w)
 
 
+def test_qap_delta_unstaged_l2_kernel_matches_plain(cuda):
+    """The first order whose rows K1's L2 branch cannot stage takes the
+    same kernel reading its rows in place, counted apart."""
+    from repro_torch.kernels.qap_delta import l2_plan
+    n = 11618
+    assert l2_plan(n)[1] == 0 and l2_plan(n - 1)[1] > 0
+    rng = np.random.default_rng(n)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    C = torch.randint(0, 10, (n, n), generator=g, device=cuda).float()
+    M = torch.randint(1, 10, (n, n), generator=g, device=cuda).float()
+    p = torch.as_tensor(np.stack([rng.permutation(n) for _ in range(2)]),
+                        dtype=torch.int32, device=cuda)
+    pairs = torch.as_tensor(np.sort(np.stack(
+        [rng.choice(n, 2, replace=False) for _ in range(2 * 16)]), axis=1)
+        .reshape(2, 16, 2).astype(np.int32), device=cuda)
+    branches = ops.branch_counts()
+    got = ops.qap_delta(C, M, p, pairs)
+    after = ops.branch_counts()
+    assert {k: after[k] - branches[k] for k in after
+            if after[k] != branches[k]} == {"qap_delta/l2_unstaged": 1}
+    assert torch.equal(got, qap_delta_plain(C, M, p, pairs))
+
+
+def test_qap_objective_l2_kernel_at_the_dense_baseline(cuda):
+    """K2 at sparse_scale's dense baseline, 8 permutations of one
+    order-4096 instance, 0/1 entries (F < 2^24: exact)."""
+    n = 4096
+    g = torch.Generator(device=cuda).manual_seed(n)
+    C = torch.randint(0, 2, (n, n), generator=g, device=cuda).float()
+    M = torch.randint(0, 2, (n, n), generator=g, device=cuda).float()
+    perms = torch.stack([torch.randperm(n, generator=g, device=cuda)
+                         for _ in range(8)]).int()[None].contiguous()
+    branches = ops.branch_counts()
+    got = ops.qap_objective(C, M, perms)
+    assert _launched_on("qap_objective", n, branches)
+    want = qap_objective_plain(C, M, perms)
+    assert float(want.max()) < 2 ** 24
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [200, 343])
+def test_qap_objective_l2_kernel_is_deterministic(cuda, n):
+    """On real-valued flows K2's L2 branch gives the same bits on a second
+    call and for each permutation alone (its tiles depend on the order
+    alone), within 1e-5 of the plain version."""
+    rng = np.random.default_rng(n)
+    C = torch.as_tensor(rng.random((2, n, n)).astype(np.float32) * 7.3,
+                        device=cuda)
+    M = torch.as_tensor(rng.random((2, n, n)).astype(np.float32) * 3.1,
+                        device=cuda)
+    perms = torch.as_tensor(np.stack([np.stack([rng.permutation(n)
+                                                for _ in range(12)])
+                                      for _ in range(4)]),
+                            dtype=torch.int32, device=cuda)
+    got = ops.qap_objective(C, M, perms)
+    assert torch.equal(got, ops.qap_objective(C, M, perms))
+    for b in range(4):
+        for j in range(12):
+            alone = ops.qap_objective(C[b // 2], M[b // 2],
+                                      perms[b, j][None, None].contiguous())
+            assert torch.equal(alone[0, 0], got[b, j])
+    want = qap_objective_plain(C, M, perms)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     C, M, p, pairs, *_ = _inputs(16, 16, True, 0, cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -257,6 +325,36 @@ def test_ga_engine_on_card_matches_engine_on_cpu(cuda, algorithm, ga_eval):
     for g, c in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(g.perm, c.perm)
         assert g.objective == c.objective
+
+
+@pytest.mark.parametrize("algorithm", ["psa", "pga"])
+def test_oversize_engine_on_card_matches_engine_on_cpu(cuda, algorithm):
+    """A 200-process request (a 10 x 20 torus allocation) has no dense
+    bucket and lies below the multilevel route: the engine solves it at
+    its own size, every K1 and K2 launch on the L2 branch, card == CPU."""
+    sa = annealing.SAConfig(max_neighbors=25, iters_per_exchange=10,
+                            num_exchanges=4, solvers=4)
+    ga = genetic.GAConfig(generations=20, pop_size=32)
+    inst = exact.make_torus((10, 20))
+    req = MapRequest(job_id="torus200", C=inst.C, M=inst.M, seed=3,
+                     algorithm=algorithm)
+    out = {}
+    for device in ("cuda", "cpu"):
+        engine = MappingEngine(sa_cfg=sa, ga_cfg=ga, polish_rounds=50,
+                               device=device)
+        ops.reset_launch_counts()
+        fut = engine.submit(req)
+        engine.flush()
+        out[device] = fut.result()
+        if device == "cuda":
+            counts, branches = ops.launch_counts(), ops.branch_counts()
+            assert out[device].bucket is None
+            assert counts["qap_delta"] == branches["qap_delta/l2"] > 0
+            assert counts["qap_objective"] == branches["qap_objective/l2"]
+            assert (counts["qap_objective"] > 0) == (algorithm == "pga")
+    np.testing.assert_array_equal(out["cuda"].perm, out["cpu"].perm)
+    assert out["cuda"].objective == out["cpu"].objective
+    assert inst.optimum <= out["cuda"].objective <= out["cuda"].baseline
 
 
 @pytest.mark.parametrize("algorithm", ["psa", "pga", "pca"])

@@ -72,9 +72,13 @@ def _t(x, dtype=None):
 
 
 CASES = [(16, 16, True), (16, 11, False), (40, 40, False), (40, 29, True)]
+# Orders past the card's shared-memory threshold (169), where K1 and K2
+# take their L2 branches and these plain versions are the card checks'
+# oracles: the engine's exact-size range, a ragged edge and a full order.
+L2_CASES = [(176, 170, False), (200, 200, True)]
 
 
-@pytest.mark.parametrize("n,nv,shared", CASES)
+@pytest.mark.parametrize("n,nv,shared", CASES + L2_CASES)
 def test_qap_delta_plain_matches_ref_and_pallas(n, nv, shared):
     Cs, Ms, ps, pairs = _wave(n, nv, shared, seed=n + nv)
     got = qap_delta_plain(_t(Cs), _t(Ms), _t(ps), _t(pairs)).numpy()
@@ -136,7 +140,7 @@ def _islands(n, nv, shared, seed, pop=8):
     return Cs, Ms, pops, fits, keys, np.full(B, nv, np.int32)
 
 
-@pytest.mark.parametrize("n,nv,shared", CASES)
+@pytest.mark.parametrize("n,nv,shared", CASES + L2_CASES)
 def test_qap_objective_plain_matches_ref_and_pallas(n, nv, shared):
     Cs, Ms, pops, *_ = _islands(n, nv, shared, seed=3 * n + nv)
     got = qap_objective_plain(_t(Cs), _t(Ms), _t(pops)).numpy()
@@ -191,6 +195,71 @@ def test_qap_ga_step_plain_matches_ref_and_pallas(n, nv, shared, crossover):
         for g, w in zip(got, want):
             assert g[r].numpy().tobytes() == np.asarray(w).tobytes()
     np.testing.assert_array_equal(got[0][..., nv:].numpy(), pops[..., nv:])
+
+
+@pytest.mark.parametrize("n,per_inst,insts", [
+    (170, 32, 1), (200, 64, 1), (255, 16, 8), (343, 256, 1), (729, 256, 1),
+    (729, 3, 5), (2230, 8, 1), (4096, 8, 1), (11614, 2, 1), (12288, 1, 1)])
+def test_qap_objective_l2_tiling_covers_every_row_once(n, per_inst, insts):
+    """K2's L2 tiling: its row tiles cover 0..n-1 exactly once, its
+    groups every permutation of an instance once, its block fits shared
+    memory, and it takes no property of the card."""
+    import inspect
+    from repro_torch.kernels.qap_objective import (L2_MAX_GROUP, L2_MAX_WARPS,
+                                                   l2_block_bytes, l2_tiling)
+    assert list(inspect.signature(l2_tiling).parameters) == [
+        "n", "perms_per_inst", "instances"]
+    t = l2_tiling(n, per_inst, insts)
+    rows = [k for tile in range(t.tiles)
+            for k in range(tile * t.tile_rows,
+                           min(n, (tile + 1) * t.tile_rows))]
+    assert rows == list(range(n))
+    groups = -(-per_inst // t.group)
+    perms = [q for g in range(groups)
+             for q in range(g * t.group, min(per_inst, (g + 1) * t.group))]
+    assert perms == list(range(per_inst))
+    assert t.blocks == insts * groups * t.tiles
+    assert 1 <= t.group <= min(L2_MAX_GROUP, per_inst)
+    assert 1 <= t.warps <= L2_MAX_WARPS and t.sets in (1, 2)
+    assert l2_block_bytes(n, t.group, t.warps, t.sets) \
+        <= build.SMEM_BLOCK_LIMIT
+    # the warps and tiles, and so a permutation's bits, depend on the
+    # order alone, not on the batch
+    assert t[1:5] == l2_tiling(n, 1, 1)[1:5] == l2_tiling(n, 64, 3)[1:5]
+
+
+def test_qap_objective_l2_tiling_fills_the_card_at_the_dense_baseline():
+    """sparse_scale's dense baseline, 8 permutations of one order-4096
+    instance, runs hundreds of blocks (132 SMs); Table 1's 4 x 64 on
+    tai729 more; two row sets a warp where 4 warps fit them."""
+    from repro_torch.kernels.qap_objective import l2_tiling
+    wide = l2_tiling(4096, 8, 1)
+    assert wide.blocks >= 2 * 132
+    assert l2_tiling(729, 256, 1).blocks >= wide.blocks
+    assert l2_tiling(729, 256, 1).sets == 2
+    assert l2_tiling(12288, 1, 1).sets == 1
+
+
+@pytest.mark.parametrize("n", [170, 200, 256, 343, 445, 446, 729, 891,
+                               4096, 11617, 11618, 30000])
+def test_qap_delta_l2_plan_fits_shared_memory(n):
+    """K1's L2 plan: 16 warps with two row sets where they fit with the
+    permutation row within the block's shared memory; else one set and as
+    many warps as fit; the unstaged kernel only where one warp's one set
+    does not fit."""
+    from repro_torch.kernels.qap_delta import (L2_MAX_WARPS, l2_block_bytes,
+                                               l2_plan)
+    warps, sets = l2_plan(n)
+    if sets == 0:
+        assert l2_block_bytes(n, 1, 1) > build.SMEM_BLOCK_LIMIT
+        return
+    assert 1 <= warps <= L2_MAX_WARPS
+    assert l2_block_bytes(n, warps, sets) <= build.SMEM_BLOCK_LIMIT
+    if warps < L2_MAX_WARPS:
+        assert l2_block_bytes(n, warps + 1, sets) > build.SMEM_BLOCK_LIMIT
+    assert (sets == 2) == (l2_block_bytes(n, L2_MAX_WARPS, 2)
+                           <= build.SMEM_BLOCK_LIMIT)
+    assert l2_plan(729) == (16, 1) and l2_plan(200) == (16, 2)
 
 
 def test_ops_take_the_plain_path_on_cpu_tensors():
