@@ -5,7 +5,8 @@ not integer-valued.
 
 Run from the root of a checkout:
 
-    python3 chip_kernels.py [--src DIR] [--probe] [--k7-mt] [--k6]
+    python3 chip_kernels.py [--src DIR] [--probe] [--host] [--k4-phases]
+        [--k4-skeleton] [--k7-mt] [--k6]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be compared in one
@@ -20,7 +21,10 @@ candidates per instance) and K4 ``qap_sa_step`` (16 chains per instance,
 of 32), 2 islands a request at the same waves (64 islands at the 128
 bucket, 6 at the others), then for K1 and K2 on their L2 branches
 (Table 1's 32 x 50 and 4 x 64 on tai343 and tai729, the exact-size
-polish's 1 x 256 at order 200, K2 at 8 x 4096), then for K7
+polish's 1 x 256 at order 200, K2 at 8 x 4096) and K4 and K5 on theirs
+(``chip_smoke.py``'s 128 x 25 and 16 islands of 32 at order 256, one
+exact-size request at order 200, Table 1's fused 32 x 50 and 4 islands
+of 128 with 64 children on tai343 and tai729), then for K7
 ``qap_delta_sparse`` at the
 multilevel route's shapes (the 4096 torus's finest level, n=4096 and ELL
 width 6, and its coarsest, n=128 and width 46, at 4 chains x 16
@@ -31,7 +35,14 @@ calls, in a CUDA graph of the same calls (device time alone), and their
 difference: what the host adds per call when it, and not the card, sets
 the pace.  ``--probe`` also runs each kernel of the port (K1, K2, K4-K8)
 and its plain version on random real-valued inputs and prints whether
-they agree bit for bit (and K6 against itself on a second call).
+they agree bit for bit (and K4, K5 and K6 against themselves on a second
+call, K5's new members' fitness against K2's F of them).  ``--host``
+splits what the host spends issuing a call of some rows into the
+wrapper's Python and its C launch function.  ``--k4-phases`` splits K4's
+L2 kernel's cycles a candidate by clock64() (``K4_PHASE_EDITS``), and
+``--k4-skeleton`` times it against its loop alone and against an empty
+loop (``K4_SKELETON_EDITS``), copies of the package's source built into
+``build/``.
 ``--k7-mt`` also times, in a CUDA graph at every level of the 4096 torus
 (4 chains x 16 candidates) and at the polish's 1 x 256, K7 as built (the
 column terms gathered down columns of ``M``) against the same kernel
@@ -50,6 +61,7 @@ The shapes and helpers are those of ``chip_smoke.py``.  Prints the card's
 name and power limit; exits non-zero without a CUDA device.
 """
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -82,12 +94,12 @@ def island_perms(order, bucket, islands, pop, device):
     return qap.masked_random_permutations(ck, pop, bucket, order).contiguous()
 
 
-def timings(k6=False):
-    """(label, events ms, graph ms) of each kernel at the smoke's shapes:
-    K1, K4, K2 and K5 at the 128 bucket's 32-request wave and the 64 and
-    32 buckets' 3-request waves (2 islands a request for K2/K5), then K7
-    and K8 at their routes' shapes; with ``k6``, then K6 at the shapes
-    of ``k6_cases``."""
+def timing_rows(dev, k6=False):
+    """(label, fn, reps) of each kernel at the smoke's shapes: K1, K4, K2
+    and K5 at the 128 bucket's 32-request wave and the 64 and 32 buckets'
+    3-request waves (2 islands a request for K2/K5), then the L2 branches
+    (``l2_rows``), K7 and K8 at their routes' shapes; with ``k6``, then K6
+    at the shapes of ``k6_cases``."""
     import torch
     import chip_smoke as cs
     from repro_torch.core import annealing, keys, qap
@@ -96,7 +108,6 @@ def timings(k6=False):
     from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                    qap_objective_plain)
     from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda
-    dev = torch.device("cuda")
     rpt = cs.NUM_PROCESSES * cs.SA_KW["solvers"]
     k = cs.SA_KW["max_neighbors"]
     out = []
@@ -145,8 +156,15 @@ def timings(k6=False):
     out += l2_rows(dev) + sparse_delta_rows(dev) + scan_rows(dev)
     if k6:
         out += sparse_objective_rows(dev)
+    return out
+
+
+def timings(k6=False):
+    """(label, events ms, graph ms) of each row of ``timing_rows``."""
+    import torch
+    import chip_smoke as cs
     return [(label, cs.cuda_ms(fn, reps), cs.graph_ms(fn, reps))
-            for label, fn, reps in out]
+            for label, fn, reps in timing_rows(torch.device("cuda"), k6)]
 
 
 def l2_rows(dev):
@@ -196,6 +214,150 @@ def l2_rows(dev):
                                     n)[None].contiguous()
     out.append((f"K2 L2 N={n} 1x{count}",
                 lambda: qap_objective_cuda(Cw, Mw, perms), 10))
+    return out + fused_l2_rows(dev)
+
+
+def fused_l2_rows(dev):
+    """K4 and K5 past their shared-memory thresholds, at the shapes their
+    L2 branches serve: chip_smoke's order-256 checks (8 integer instances
+    x 16 chains x 25 candidates; 16 islands of 32, 16 children), one
+    exact-size request of order 193 padded into 200 (16 chains; 2 islands
+    of 32), and Table 1's fused PSA and PGA on tai343 and tai729 (32
+    chains x 50 candidates; 4 islands of 128, 64 children).  The SA steps
+    start at T0 with at most 10 acceptances.  Through the wrappers alone,
+    so any package compares."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core import annealing, instances, keys, qap
+    from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda
+    from repro_torch.kernels.qap_objective import (qap_objective_cuda,
+                                                   qap_objective_plain)
+    from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda
+
+    def sa_row(label, C, M, order, chains, k):
+        b0, n = C.shape[0], C.shape[-1]
+        CT = C.transpose(1, 2).contiguous()
+        MT = M.transpose(1, 2).contiguous()
+        ck = keys.split(keys.prng_key(7, dev), chains)
+        p = qap.masked_random_permutation(ck, n, order)
+        f = qap.objective(C, M, p.view(b0, chains // b0, n)).reshape(-1)
+        temp = annealing.initial_temperature(f, 0.3, 0.3)
+        nv = torch.full((chains,), order, dtype=torch.int32, device=dev)
+        args = (C, M, p, f, p.clone(), f.clone(), temp, keys.fold_in(ck, 3),
+                nv)
+        return (f"K4 L2 {label} {chains}x{k}",
+                lambda: qap_sa_step_cuda(*args, max_neighbors=k,
+                                         max_success=10, CT=CT, MT=MT), 100)
+
+    def ga_rows(label, C, M, order, islands, pop, n_off):
+        """K5, then K2 scoring as many permutations (K5's scoring part)."""
+        n = C.shape[-1]
+        ck = keys.split(keys.prng_key(pop + 1, dev), islands)
+        pops = qap.masked_random_permutations(ck, pop, n, order).contiguous()
+        fits = qap_objective_plain(C, M, pops)
+        gk = keys.split(keys.prng_key(5, dev), islands)
+        nv = torch.full((islands,), order, dtype=torch.int32, device=dev)
+        kids = pops[:, :n_off].contiguous()
+        return [(f"K5 L2 {label} {islands}x{pop}/{n_off}",
+                 lambda: qap_ga_step_cuda(
+                     C, M, pops, fits, gk, nv, n_off=n_off, tournament=2,
+                     p_crossover=1.0, p_mutation=0.001, crossover="ox"), 50),
+                (f"K2 L2 {label} {islands}x{n_off}",
+                 lambda: qap_objective_cuda(C, M, kids), 50)]
+
+    out = []
+    C, M = cs.integer_instances(cs.L2_ORDER, 8, 257, dev)
+    out.append(sa_row(f"N={cs.L2_ORDER}", C, M, cs.L2_ORDER, 8 * 16,
+                      cs.SA_KW["max_neighbors"]))
+    C, M = cs.integer_instances(cs.L2_ORDER, cs.L2_INSTANCES, 258, dev)
+    out += ga_rows(f"N={cs.L2_ORDER}", C, M, cs.L2_ORDER,
+                   cs.L2_INSTANCES * cs.NUM_PROCESSES, cs.GA_KW["pop_size"],
+                   cs.N_OFF)
+    n, nv = cs.EXACT_ORDER, cs.EXACT_NV
+    C, M = cs.padded_integer_instances(n, nv, 1, 200, dev)
+    out.append(sa_row(f"N={n}", C, M, nv,
+                      cs.NUM_PROCESSES * cs.SA_KW["solvers"],
+                      cs.SA_KW["max_neighbors"]))
+    out += ga_rows(f"N={n}", C, M, nv, cs.NUM_PROCESSES, cs.GA_KW["pop_size"],
+                   cs.N_OFF)
+    for n in cs.PAPER_KERNEL_ORDERS:
+        inst = instances.get_instance(n)
+        C = torch.as_tensor(inst.C, device=dev)[None].contiguous()
+        M = torch.as_tensor(inst.M, device=dev)[None].contiguous()
+        out.append(sa_row(f"tai{n}", C, M, n, 32, 50))
+        out += ga_rows(f"tai{n}", C, M, n, 4, 128, 64)[:1]  # K2: l2_rows
+    return out
+
+
+class _Recorder:
+    """A kernel library whose launch functions record their arguments and
+    return 0 (no launch); its other functions are the library's."""
+
+    def __init__(self, real, seen):
+        self.real, self.seen = real, seen
+
+    def __getattr__(self, attr):
+        f = getattr(self.real, attr)
+        if not attr.endswith("_launch"):
+            return f
+
+        def record(*args):
+            self.seen["call"] = (f, args)
+            return 0
+        return record
+
+
+@contextlib.contextmanager
+def recording(seen):
+    """Within the block, the package's wrappers hand their C launch
+    function's arguments to ``seen["call"]`` = (function, args) and launch
+    nothing."""
+    from repro_torch.kernels import build
+    library, stubs = build.library, {}
+
+    def stub(name):
+        if name not in stubs:
+            stubs[name] = _Recorder(library(name), seen)
+        return stubs[name]
+
+    build.library = stub
+    try:
+        yield
+    finally:
+        build.library = library
+
+
+def host_rows(rows):
+    """(label, wrapper ms, wrapper without its launch ms, launch alone ms)
+    on the host clock, each over 200 calls with no synchronize between
+    them: what the host spends issuing one call, split into the wrapper's
+    Python (its C launch function replaced by a stub that returns 0) and
+    the C launch function with the same arguments (its checks, its
+    launches through the driver).  ``rows``: (label, fn, reps) as
+    ``timings`` takes them."""
+    import time
+    import torch
+
+    def per_call(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        took = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return took / reps * 1e3
+
+    out = []
+    for label, fn, _ in rows:
+        seen = {}
+        with recording(seen):
+            python_ms = per_call(fn)
+            kept = fn()  # the outputs the recorded launch writes
+        launch, args = seen["call"]
+        out.append((label, per_call(fn), python_ms,
+                    per_call(lambda: launch(*args))))
+        del kept
     return out
 
 
@@ -439,28 +601,170 @@ K7_MT_EDITS = (
 )
 
 
-def k7_mt_library():
-    """Build the M^T form of this package's K7 into ``build/k7_mt/``
-    with the package's flags; returns it bound as the package binds K7."""
+def edited_library(name, edits, tag):
+    """This package's kernel library ``name`` built from a copy of its
+    sources with ``edits`` ((old, new) pairs, each found exactly once)
+    applied, with the package's flags, into ``build/<tag>/``; returns it
+    bound as the package binds ``name``.  Raises if the source no longer
+    matches an edit."""
     import ctypes
     import shutil
     from repro_torch.kernels import build
-    out = os.path.join(ROOT, "build", "k7_mt")
+    out = os.path.join(ROOT, "build", tag)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(build.CSRC, out)
-    path = os.path.join(out, "qap_delta_sparse.cu")
+    path = os.path.join(out, f"{name}.cu")
     with open(path) as f:
         src = f.read()
-    for old, new in K7_MT_EDITS:
+    for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"K7 source has changed: {old.strip()!r}")
+            raise RuntimeError(f"{name} source has changed: {old.strip()!r}")
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
-    lib = os.path.join(out, "libqap_delta_sparse.so")
+    lib = os.path.join(out, f"lib{name}.so")
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", out, "-o", lib,
                     path], check=True, capture_output=True, text=True)
-    return build._bind(ctypes.CDLL(lib), build.SIGNATURES["qap_delta_sparse"])
+    return build._bind(ctypes.CDLL(lib), build.SIGNATURES[name])
+
+
+def k7_mt_library():
+    """The M^T form of this package's K7 (``K7_MT_EDITS``), built into
+    ``build/k7_mt/``."""
+    return edited_library("qap_delta_sparse", K7_MT_EDITS, "k7_mt")
+
+
+# K4's L2 kernel with its time split by clock64(): per chain, the cycles
+# of the whole kernel after its state is loaded, and for each candidate
+# those of requesting the next candidate's rows, of waiting for its own
+# rows, of its delta and of its accept step; and the candidates scored --
+# written over best_p's first six words.  (old, new) pairs, each found
+# exactly once.
+K4_PHASE_EDITS = (
+    ("  const float tsafe = fmaxf(temp[r], 1e-9f);\n  __syncwarp();\n",
+     "  const float tsafe = fmaxf(temp[r], 1e-9f);\n  __syncwarp();\n"
+     "  const long long t_start = clock64();\n"
+     "  long long t_issue = 0, t_wait = 0, t_delta = 0, t_accept = 0;\n"
+     "  int scored = 0;\n"),
+    ("    if (more) request(a1, b1, set ^ 1, false);\n    land(set);\n",
+     "    const long long t0 = clock64();\n"
+     "    if (more) request(a1, b1, set ^ 1, false);\n"
+     "    const long long t0b = clock64();\n    land(set);\n"),
+    ("    const float d =\n",
+     "    const long long t1 = clock64();\n    const float d =\n"),
+    ("    bool restage = false;\n",
+     "    const long long t2 = clock64();\n    t_issue += t0b - t0;\n"
+     "    t_wait += t1 - t0b;\n    t_delta += t2 - t1;\n    ++scored;\n"
+     "    bool restage = false;\n"),
+    ("    set ^= 1;\n  }\n",
+     "    set ^= 1;\n    t_accept += clock64() - t2;\n  }\n"),
+    ("    bf_out[r] = bf;\n  }\n}\n\n}  // namespace",
+     "    bf_out[r] = bf;\n"
+     "    bp_out[row0] = static_cast<int>(clock64() - t_start);\n"
+     "    bp_out[row0 + 1] = static_cast<int>(t_issue);\n"
+     "    bp_out[row0 + 2] = static_cast<int>(t_wait);\n"
+     "    bp_out[row0 + 3] = static_cast<int>(t_delta);\n"
+     "    bp_out[row0 + 4] = static_cast<int>(t_accept);\n"
+     "    bp_out[row0 + 5] = scored;\n  }\n}\n\n}  // namespace"),
+)
+
+
+def k4_phase_rows(edits=(), tag="k4_phases"):
+    """(label, graph ms, mean cycles a chain: whole loop, then a
+    candidate's request for the next one's rows, wait for its own rows,
+    delta and accept step, candidates scored) of K4's L2 branch at the
+    ``fused_l2_rows`` SA shapes, from the ``K4_PHASE_EDITS`` copy (and ``edits`` after them) launched with the
+    package's arguments."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    lib = edited_library("qap_sa_step", K4_PHASE_EDITS + tuple(edits), tag)
+    dev = torch.device("cuda")
+    rows = []
+    for label, fn, _ in fused_l2_rows(dev):
+        if not label.startswith("K4"):
+            continue
+        seen = {}
+        with recording(seen):
+            kept = fn()  # the outputs the recorded arguments point to
+        args = list(seen["call"][1])
+        B, n = args[15], args[16]
+        bp = torch.empty(B * n, dtype=torch.int32, device=dev)
+        args[13] = bp.data_ptr()
+
+        def launch():
+            args[-1] = torch.cuda.current_stream(dev).cuda_stream
+            build.check(lib.qap_sa_step_launch(*args), label)
+
+        ms = cs.graph_ms(launch, 50)
+        launch()
+        torch.cuda.synchronize()
+        c = bp.view(B, n)[:, :6].double()
+        per = c[:, 5].clamp_min(1)
+        rows.append((label, ms, float(c[:, 0].mean()),
+                     *(float((c[:, k] / per).mean()) for k in (1, 2, 3, 4)),
+                     float(c[:, 5].mean())))
+        del kept
+    return rows
+
+
+# K4's L2 kernel cut down, for timing alone (neither gives K4's results):
+# "skeleton" stages no rows and scores nothing (d = 0, each candidate
+# accepted without the Metropolis test), so only the loop around them is
+# left -- the draws' shuffles, the swap, the best copy; "empty" scores no
+# candidate.  (old, new) pairs, each found exactly once.
+K4_SKELETON_EDITS = {
+    "skeleton": (
+        ("    const float d =\n        repro_torch::delta_from_regs"
+         "<kMaxRegIters>(x, pr, a, b, u, v, N);\n",
+         "    const float d = 0.f * x[0][lane];\n"),
+        ("    if ((d < 0.f) || (ut < expf(-d / tsafe))) {  // the same in "
+         "every lane\n      __syncwarp();  // every lane has read p[a] and "
+         "p[b]\n      if (lane == 0) {\n        p[a] = v;",
+         "    if ((d < 0.f) || (ut < 2.f)) {\n      __syncwarp();\n"
+         "      if (lane == 0) {\n        p[a] = v;"),
+        ("  if (producer && !scores) return;\n", "  if (producer) return;\n"),
+        ("pending = scores ? 1u : 0u,", "pending = 0u,"),
+        ("    if (more) request(a1, b1, set ^ 1, false);\n    land(set);\n",
+         ""),
+        ("  if (scores && lane == 0) {\n", "  if (false) {\n"),
+        ("      restage = more && (a1 == a || a1 == b || b1 == a || b1 == b);"
+         "\n", "")),
+    "empty": (
+        ("  for (int t = 0; t < K && successes < max_success; ++t) {\n",
+         "  for (int t = 0; t < 0; ++t) {\n"),),
+}
+
+
+def k4_skeleton_rows():
+    """(label, graph ms of the package's K4 L2 kernel, of its skeleton, of
+    its empty loop) at the ``fused_l2_rows`` SA shapes (10 candidates
+    scored a chain), each from ``K4_SKELETON_EDITS`` launched with the
+    package's arguments."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    libs = [build.library("qap_sa_step")] + [
+        edited_library("qap_sa_step", e, f"k4_{name}")
+        for name, e in K4_SKELETON_EDITS.items()]
+    dev = torch.device("cuda")
+    rows = []
+    for label, fn, _ in fused_l2_rows(dev):
+        if not label.startswith("K4"):
+            continue
+        seen = {}
+        with recording(seen):
+            kept = fn()  # the outputs the recorded arguments point to
+        args = list(seen["call"][1])
+        times = []
+        for lib in libs:
+            def launch(lib=lib):
+                args[-1] = torch.cuda.current_stream(dev).cuda_stream
+                build.check(lib.qap_sa_step_launch(*args), label)
+            times.append(cs.graph_ms(launch, 100))
+        rows.append((label, *times))
+        del kept
+    return rows
 
 
 def k7_mt_rows():
@@ -562,8 +866,9 @@ def probe():
         args = (C, M, p, f, p.clone(), f.clone(), temp, keys.fold_in(ck, 3),
                 nv)
         kw = dict(max_neighbors=25, max_success=10)
-        record(f"K4 N={n}", ops.qap_sa_step(*args, **kw),
-               qap_sa_step_plain(*args, **kw))
+        got = ops.qap_sa_step(*args, **kw)
+        record(f"K4 N={n}", got, qap_sa_step_plain(*args, **kw))
+        record(f"K4 N={n} again", ops.qap_sa_step(*args, **kw), got)
     C, M = float_instances(cs.BUCKET, 4, 3, dev)
     pk = keys.split(keys.prng_key(3, dev), 4 * 32)
     pops = qap.random_permutation(pk, cs.BUCKET).reshape(4, 32, cs.BUCKET)
@@ -576,6 +881,22 @@ def probe():
               crossover="ox")
     record("K5 N=128", ops.qap_ga_step(C, M, pops, fits, gk, gnv, **kw),
            qap_ga_step_plain(C, M, pops, fits, gk, gnv, **kw))
+    # K5's L2 branch: against the plain version, and its new members'
+    # fitness against K2's F of them
+    n = cs.L2_ORDER
+    C, M = float_instances(n, 2, n + 1, dev)
+    pk = keys.split(keys.prng_key(n, dev), 4 * 32)
+    pops = qap.random_permutation(pk, n).reshape(4, 32, n)
+    fits = ops.qap_objective(C, M, pops)
+    gnv = torch.full((4,), n, dtype=torch.int32, device=dev)
+    got = ops.qap_ga_step(C, M, pops, fits, gk, gnv, **kw)
+    record(f"K5 N={n}", got, qap_ga_step_plain(C, M, pops, fits, gk, gnv,
+                                               **kw))
+    record(f"K5 N={n} again", ops.qap_ga_step(C, M, pops, fits, gk, gnv,
+                                              **kw), got)
+    new = (got[0] != pops).any(-1)
+    record(f"K5 N={n} F = K2's", got[1][new],
+           ops.qap_objective(C, M, got[0])[new])
     # sparse flows: the 4096 torus's finest (D = 6) and coarsest (n = 128,
     # D = 46) levels with real-valued weights
     g = torch.Generator().manual_seed(6)
@@ -609,6 +930,9 @@ def main():
     parser.add_argument("--probe", action="store_true")
     parser.add_argument("--k7-mt", action="store_true")
     parser.add_argument("--k6", action="store_true")
+    parser.add_argument("--host", action="store_true")
+    parser.add_argument("--k4-phases", action="store_true")
+    parser.add_argument("--k4-skeleton", action="store_true")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -630,6 +954,15 @@ def main():
     for label, ev, gr in timings(args.k6):
         print(f"{label:26s} events {ev:.4f} ms, graph {gr:.5f} ms, events - "
               f"graph {ev - gr:.4f} ms", flush=True)
+    if args.host:
+        import torch
+        wanted = ("K1 event N=128", "K4 N=128", "K5 N=128", "K1 L2 tai343",
+                  "K4 L2", "K5 L2 N=256")
+        rows = [r for r in timing_rows(torch.device("cuda"), False)
+                if r[0].startswith(wanted)]
+        for label, total, python_ms, launch in host_rows(rows):
+            print(f"host {label:26s} wrapper {total:.4f} ms: Python "
+                  f"{python_ms:.4f} ms, launch {launch:.4f} ms", flush=True)
     if args.probe:
         for label, same, err, scale in probe():
             print(f"probe {label:18s} bitwise {same}, max abs diff {err:.3e} "
@@ -639,6 +972,17 @@ def main():
             print(f"k6 {label:20s} graph ms " + "; ".join(
                 f"{name} (G={g}) {a:.5f}, {b:.5f}"
                 for name, g, a, b in cells), flush=True)
+    if args.k4_phases:
+        for label, ms, total, issue, wait, delta, accept, scored in \
+                k4_phase_rows():
+            print(f"k4-phases {label:22s} graph {ms:.5f} ms; "
+                  f"cycles a chain {total:.0f}, a candidate: issue "
+                  f"{issue:.0f}, wait {wait:.0f}, delta {delta:.0f}, accept "
+                  f"{accept:.0f}; {scored:.1f} scored", flush=True)
+    if args.k4_skeleton:
+        for label, kernel, skeleton, empty in k4_skeleton_rows():
+            print(f"k4-skeleton {label:22s} graph ms: kernel {kernel:.5f}, "
+                  f"skeleton {skeleton:.5f}, empty {empty:.5f}", flush=True)
     if args.k7_mt:
         for label, m1, t1, t2, m2 in k7_mt_rows():
             print(f"k7-mt {label:22s} graph ms reading M {m1:.5f}, M^T "

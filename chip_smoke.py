@@ -927,8 +927,10 @@ def check_qap_ga_step(device):
     with 16 islands of 32 at order 256; each at the engine's GA settings
     (16 children, binary tournaments, OX, p_mutation 0.001) and at a wider
     setting (32 children, more than the kernel's 16 warps: every member
-    replaced, the elitism guard; OXS, p_mutation 0.3).  Returns the 128
-    bucket's numbers at the engine's settings."""
+    replaced, the elitism guard; OXS, p_mutation 0.3); then the L2 one at
+    Table 1's fused PGA on tai343 (``check_ga_step_table1``).  Returns the
+    128 bucket's numbers at the engine's settings, the largest error of
+    all."""
     import torch
     from repro_torch.core import keys
     from repro_torch.kernels.qap_ga_step import (qap_ga_step_cuda,
@@ -971,8 +973,46 @@ def check_qap_ga_step(device):
               f"N={n} ({branch} branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms "
               f"in a graph), plain {plain:.4f} ms, bound {bound:.4f} ms "
               f"({by}), max err {err}", flush=True)
+    out["table1"] = dict(err=check_ga_step_table1(device))
     out["smem"]["err"] = max(v["err"] for v in out.values())
     return out["smem"]
+
+
+def check_ga_step_table1(device):
+    """K5 at Table 1's fused PGA on tai343e01s (4 islands of min(n, 128)
+    members, 64 children, the GA's default operators): one launch on the
+    L2 branch, equal to the plain version bit for bit (F < 2^24)."""
+    import torch
+    from repro_torch.core import instances, keys, qap
+    from repro_torch.kernels.qap_ga_step import (qap_ga_step_cuda,
+                                                 qap_ga_step_plain)
+    from repro_torch.kernels.qap_objective import qap_objective_plain
+    n = PAPER_KERNEL_ORDERS[0]
+    inst = instances.get_instance(n)
+    C = torch.as_tensor(inst.C, device=device)
+    M = torch.as_tensor(inst.M, device=device)
+    pops = qap.random_permutations(keys.split(keys.prng_key(n, device), 4),
+                                   128, n)
+    fits = qap_objective_plain(C, M, pops)
+    step_keys = keys.split(keys.prng_key(n + 1, device), 4)
+    nv = torch.full((4,), n, dtype=torch.int32, device=device)
+    args = (C, M, pops, fits, step_keys, nv)
+    kw = dict(n_off=64, tournament=2, p_crossover=1.0, p_mutation=0.001,
+              crossover="ox")
+    got = branch_launched("qap_ga_step", "l2",
+                          lambda: qap_ga_step_cuda(*args, **kw))
+    want = qap_ga_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    require(float(want[1].max()) < F32_EXACT, f"qap_ga_step tai{n}: F "
+            f"{float(want[1].max())} passes f32's exact range")
+    for name, g, w in zip(("pop", "fit"), got, want):
+        require(torch.equal(g, w), f"qap_ga_step tai{n} 4x128 {name}: kernel "
+                f"!= plain (max err {err})")
+    print(f"qap_ga_step tai{n}e01s 4 islands x 128, 64 children (l2 branch): "
+          f"equal to the plain version bit for bit", flush=True)
+    return err
 
 
 @functools.lru_cache(maxsize=None)

@@ -77,11 +77,19 @@
 #include <atomic>
 #include <cstddef>
 
+#include "qap_delta.cuh"
 #include "qap_dense_smem.cuh"
 
 namespace {
 
+using repro_torch::CandidateRows;
+using repro_torch::candidate_rows;
+using repro_torch::delta_from_rows;
+using repro_torch::kFirstStaged;
+using repro_torch::kRowsPerCandidate;
+using repro_torch::kStagedM;
 using repro_torch::smem_stride;
+using repro_torch::warp_sum;
 
 constexpr int kSmemWarps = 32;  // shared-memory branch
 constexpr int kL2MaxWarps = 16;  // L2 branch
@@ -90,14 +98,6 @@ constexpr int kL2MaxWarps = 16;  // L2 branch
 // the staged L2 kernel.
 std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
 std::atomic<unsigned long long> g_l2_granted;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
 
 template <int ITERS>
 __global__ void __launch_bounds__(kSmemWarps * 32)
@@ -156,55 +156,11 @@ qap_delta_smem_kernel(const float* __restrict__ C, const float* __restrict__ M,
   }
 }
 
-// The rows a candidate of the L2 branch reads: C[a,:], C[b,:], C^T[a,:],
-// C^T[b,:] (in place, coalesced), then the kStagedM it gathers from,
-// M[u,:], M[v,:], M^T[u,:], M^T[v,:] (staged).
-constexpr int kRowsPerCandidate = 8;
-constexpr int kStagedM = 4;
-constexpr int kFirstStaged = kRowsPerCandidate - kStagedM;
-
 // Shared memory of a staged L2 block: the permutation row's slot and
 // `sets` sets of the kStagedM row slots for each of its warps.
 constexpr size_t l2_block_bytes(int n, int warps, int sets) {
   return sizeof(float) * repro_torch::row_slot_words(n) *
          (1 + static_cast<size_t>(warps) * sets * kStagedM);
-}
-
-struct CandidateRows {
-  const float* r[kRowsPerCandidate];
-};
-
-__device__ __forceinline__ CandidateRows candidate_rows(
-    const float* c, const float* ct, const float* m, const float* mt, int a,
-    int b, int u, int v, int N) {
-  const size_t n = static_cast<size_t>(N);
-  return {{c + a * n, c + b * n, ct + a * n, ct + b * n, m + u * n,
-           m + v * n, mt + u * n, mt + v * n}};
-}
-
-// One candidate's delta from its eight rows and the permutation row
-// (shared or global memory alike): lane i takes i = lane + 32 j, sums col
-// and row in j order, the butterfly sums the lanes, and every lane
-// returns the delta -- the shared-memory branch's arithmetic, term for
-// term, with C[i,a] = C^T[a,i] and M[p[i],v] = M^T[v,p[i]].
-__device__ __forceinline__ float delta_from_rows(const float* const* x,
-                                                 const int* prow, int a,
-                                                 int b, int u, int v, int N) {
-  const float *ca = x[0], *cb = x[1], *cta = x[2], *ctb = x[3];
-  const float *mu = x[4], *mv = x[5], *mtu = x[6], *mtv = x[7];
-  float col = 0.f, row = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x & 31; i < N; i += 32) {
-    if (i == a || i == b) continue;
-    const int pi = prow[i];
-    col += (cta[i] - ctb[i]) * (mtv[pi] - mtu[pi]);
-    row += (ca[i] - cb[i]) * (mv[pi] - mu[pi]);
-  }
-  col = warp_sum(col);
-  row = warp_sum(row);
-  const float corner = (ca[a] - cb[b]) * (mv[v] - mu[u]) +
-                       ca[b] * (mv[u] - mu[v]) + cb[a] * (mu[v] - mv[u]);
-  return col + row + corner;
 }
 
 // L2 branch.  Block = (permutation row, contiguous slice of its K

@@ -1,5 +1,5 @@
 // One dense QAP instance staged in shared memory, for K1 (qap_delta.cu)
-// and K4 (qap_sa_step.cu).
+// and K4 (qap_sa_step.cu); then the single rows the L2 branches stage.
 //
 // A block copies one instance's C and M -- only these two, no transposes
 // -- from global memory into dynamic shared memory: row r of each at word
@@ -25,8 +25,11 @@
 // granted with cudaFuncSetAttribute): N <= kSmemMaxN = 169, which covers
 // every order the engine solves densely (buckets 32/64/128, multilevel
 // coarse solves at 64 and below).  Above it the launchers take their L2
-// branch: K1 and K2 stage single rows there (row_slot_words below), K4
-// reads C, M and their transposes from global memory.
+// branch, which stages single rows (row_slot_words below): K1 and K2 (and
+// K5, which scores its children with K2's tile kernel) by cp.async from
+// many warps at once; K4, one warp a chain, the four rows of M and M^T a
+// candidate gathers from by bulk copy, its rows of C read in place after
+// an L1 prefetch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -138,16 +141,104 @@ __device__ __forceinline__ void stage_row(T* slot, const T* src, int n,
   }
 }
 
-// Host side: the current device's SM count, and the full 227 KB granted
-// to `kernel` once per device (bit d of `granted`).
+// The same row layout by Hopper's bulk copy (cp.async.bulk, the TMA's
+// one-dimensional form), for a warp that stages rows alone: one thread
+// copies the 16-byte-aligned span that holds the row -- from src rounded
+// down to 16 bytes to its end rounded up, at most row_slot_words(n) words,
+// never past the 16-byte granule of the row's last word -- so that element
+// i lies at slot[row_shift(src) + i], as stage_row leaves it; completion
+// is counted in bytes on an mbarrier in shared memory.  stage_row issues
+// a cp.async for every 16 bytes of the row; this, one instruction for the
+// row (K4's one warp a chain measured the difference: PERF.md).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ const void* bulk_row_src(const void* src) {
+  return reinterpret_cast<const void*>(reinterpret_cast<size_t>(src) &
+                                       ~static_cast<size_t>(15));
+}
+
+__device__ __forceinline__ unsigned bulk_row_bytes(const void* src, int n) {
+  const size_t s = reinterpret_cast<size_t>(src);
+  return static_cast<unsigned>(((s + 4 * static_cast<size_t>(n) + 15) &
+                                ~static_cast<size_t>(15)) -
+                               (s & ~static_cast<size_t>(15)));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (and an mbarrier's
+// init) before its later bulk copies, which run in the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Arrive on `bar` and add `bytes` to the transfers its phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Arrive on `bar` (release: this thread's earlier writes are seen by a
+// thread that observes the phase complete).
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Host side: the current device's SM count (queried once per device and
+// library), and the full 227 KB granted to `kernel` once per device (bit
+// d of `granted`).
 inline cudaError_t smem_launch_setup(const void* kernel,
                                      std::atomic<unsigned long long>& granted,
                                      int& sms) {
+  static std::atomic<int> sm_counts[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
+  sms = sm_counts[dev & 63].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sm_counts[dev & 63].store(sms, std::memory_order_relaxed);
+  }
   const unsigned long long bit = 1ull << (dev & 63);
   if (granted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,

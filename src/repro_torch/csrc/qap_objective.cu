@@ -11,8 +11,9 @@
 // The TPU kernel built a one-hot P and ran P @ M @ P^T on the MXU, with
 // permutations padded to 128 by an identity tail.  That is a systolic
 // array's trick; here M[p[k], p[l]] is gathered directly, the ragged edge
-// is masked, and no tensor core is used (csrc/qap_objective.cuh holds the
-// arithmetic, shared with the fused GA step K5).
+// is masked, and no tensor core is used (csrc/qap_objective.cuh and
+// csrc/qap_objective_tiles.cuh hold the arithmetic of the two branches,
+// shared with the fused GA step K5).
 //
 // Two branches, chosen on the host by the order (qap_dense_smem.cuh):
 //
@@ -41,10 +42,11 @@
 //   once for all G permutations and gathers M[p_g[k], p_g[l]] from
 //   shared memory, lanes over l.  Each permutation's tile sum (lanes by a
 //   butterfly, then warps in order) goes to a workspace, and a second
-//   small kernel adds a permutation's tiles in tile order.  The warps,
-//   sets and R = 4 rows a warp are chosen on the host from N alone, G
-//   (2, or 1 for an instance's single permutation or orders from 11,618)
-//   from the batch, in one function (kernels/qap_objective.py
+//   small kernel adds a permutation's tiles in tile order (the tile
+//   kernel is csrc/qap_objective_tiles.cuh; K5's L2 branch runs it too).
+//   The warps, sets and R = 4 rows a warp are chosen on the host from N
+//   alone, G (2, or 1 for an instance's single permutation or orders from
+//   11,618) from the batch, in one function (kernels/qap_objective.py
 //   l2_tiling): a permutation's F then depends on N alone -- not on the
 //   batch, the SM count or which block finishes first -- and 8 x 4096
 //   runs 1024 blocks.  At most 4 warps a block, so that two or three
@@ -74,34 +76,19 @@
 
 #include "qap_dense_smem.cuh"
 #include "qap_objective.cuh"
+#include "qap_objective_tiles.cuh"
 
 namespace {
 
 using repro_torch::smem_stride;
 
 constexpr int kSmemWarps = 16;   // shared-memory branch
-constexpr int kL2MaxWarps = 4;   // L2 branch
-constexpr int kL2MaxGroup = 2;
 constexpr int kSumThreads = 128;
 
 // One flag word per instantiation of the shared-memory kernel and of the
-// L2 kernel (G = 1, 2).
+// tile kernel (G = 1, 2).
 std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
-std::atomic<unsigned long long> g_l2_granted[kL2MaxGroup];
-
-// The reduction's G x warps floats, rounded to 16 bytes.
-__host__ __device__ constexpr int red_words(int group, int warps) {
-  return (group * warps + 3) & ~3;
-}
-
-// Shared memory of an L2 block: its G permutation rows, the reduction's
-// floats, and each warp's `sets` sets of C's row and the G rows of M.
-constexpr size_t l2_block_bytes(int n, int group, int warps, int sets) {
-  return sizeof(float) *
-         (static_cast<size_t>(repro_torch::row_slot_words(n)) *
-              (group + static_cast<size_t>(warps) * sets * (1 + group)) +
-          red_words(group, warps));
-}
+std::atomic<unsigned long long> g_l2_granted[repro_torch::kTileMaxGroup];
 
 template <int ITERS>
 __global__ void __launch_bounds__(kSmemWarps * 32)
@@ -138,133 +125,6 @@ qap_objective_smem_kernel(const float* __restrict__ C,
   }
 }
 
-// L2 branch: one block per (instance, group of G permutations, tile of
-// tile_rows rows of C); partial[q * tiles + tile] = permutation q's sum
-// over the tile's rows.  Warp w takes the tile's rows w, w + warps, ...:
-// for each it stages C[k, :] and M[p_g[k], :], g < G, into one of its
-// `sets` slot sets (two: the next row's land while this one is summed),
-// then lane i reads C[k, l] once for the G permutations and gathers
-// M[p_g[k], p_g[l]], l = i, i + 32, ...
-template <int G>
-__global__ void __launch_bounds__(kL2MaxWarps * 32)
-qap_objective_tile_kernel(const float* __restrict__ C,
-                          const float* __restrict__ M,
-                          const int* __restrict__ perms,
-                          float* __restrict__ partial, int N,
-                          long long perms_per_inst, int groups_per_inst,
-                          int sets, int tile_rows) {
-  extern __shared__ __align__(16) float tile_smem[];
-  const int w = repro_torch::row_slot_words(N);
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tiles = (N + tile_rows - 1) / tile_rows;
-  const int tile = static_cast<int>(blockIdx.x % tiles);
-  const long long grp = blockIdx.x / tiles;
-  const long long inst = grp / groups_per_inst;
-  const long long q0 =
-      inst * perms_per_inst + (grp - inst * groups_per_inst) * G;
-  const int count = static_cast<int>(
-      min(static_cast<long long>(G), (inst + 1) * perms_per_inst - q0));
-  const size_t nn = static_cast<size_t>(N) * N;
-  const float* c = C + inst * nn;
-  const float* m = M + inst * nn;
-  int* ps = reinterpret_cast<int*>(tile_smem);
-  float* red = tile_smem + G * w;
-  float* mine = red + red_words(G, warps) + warp * sets * (1 + G) * w;
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g < count) {
-      repro_torch::stage_row(ps + g * w, perms + (q0 + g) * N, N,
-                             threadIdx.x, blockDim.x);
-    }
-  }
-  repro_torch::cp_async_commit();
-  repro_torch::cp_async_wait<0>();
-  __syncthreads();
-  const int* pg[G];  // p_g, in shared memory
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    pg[g] = ps + g * w +
-            repro_torch::row_shift(perms + (q0 + min(g, count - 1)) * N);
-  }
-  const int k0 = tile * tile_rows;
-  const int rows = min(tile_rows, N - k0);
-  auto m_row = [&](int g, int k) {
-    return m + static_cast<size_t>(pg[min(g, count - 1)][k]) * N;
-  };
-  // Set `set` <- C[k0 + kk, :] and M[p_g[k0 + kk], :], g < count.
-  auto issue = [&](int kk, int set) {
-    float* s = mine + set * (1 + G) * w;
-    const int k = k0 + kk;
-    repro_torch::stage_row(s, c + static_cast<size_t>(k) * N, N, lane, 32);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g < count) {
-        repro_torch::stage_row(s + (1 + g) * w, m_row(g, k), N, lane, 32);
-      }
-    }
-    repro_torch::cp_async_commit();
-  };
-
-  float acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  int set = 0;
-  if (warp < rows) issue(warp, 0);
-  for (int kk = warp; kk < rows; kk += warps) {
-    const bool more = kk + warps < rows;
-    if (sets > 1 && more) {
-      issue(kk + warps, set ^ 1);
-      repro_torch::cp_async_wait<1>();
-    } else {
-      repro_torch::cp_async_wait<0>();
-    }
-    __syncwarp();
-    const float* s = mine + set * (1 + G) * w;
-    const int k = k0 + kk;
-    const float* crow =
-        s + repro_torch::row_shift(c + static_cast<size_t>(k) * N);
-    const float* mrow[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      mrow[g] = s + (1 + g) * w + repro_torch::row_shift(m_row(g, k));
-    }
-#pragma unroll 4
-    for (int l = lane; l < N; l += 32) {
-      const float cl = crow[l];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g < count) acc[g] += cl * mrow[g][pg[g][l]];
-      }
-    }
-    __syncwarp();  // every lane has read the set before it is refilled
-    if (sets > 1) {
-      set ^= 1;
-    } else if (more) {
-      issue(kk + warps, 0);
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float v = acc[g];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    }
-    if (lane == 0) red[g * warps + warp] = v;
-  }
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) < count) {
-    const float* r = red + threadIdx.x * warps;
-    float s = r[0];
-    for (int x = 1; x < warps; ++x) s += r[x];
-    partial[(q0 + threadIdx.x) * tiles + tile] = s;
-  }
-}
-
 // out[q] = permutation q's tile sums added in tile order.
 __global__ void __launch_bounds__(kSumThreads)
 qap_objective_tile_sum_kernel(const float* __restrict__ partial,
@@ -273,38 +133,7 @@ qap_objective_tile_sum_kernel(const float* __restrict__ partial,
   const long long q =
       static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
   if (q >= total) return;
-  const float* r = partial + q * tiles;
-  float s = r[0];
-  for (int t = 1; t < tiles; ++t) s += r[t];
-  out[q] = s;
-}
-
-template <int G>
-cudaError_t launch_tiles(const float* C, const float* M, const int* perms,
-                         float* out, float* partial, long long total, int N,
-                         long long perms_per_inst, int warps, int sets,
-                         int tile_rows, cudaStream_t st,
-                         std::atomic<unsigned long long>& granted) {
-  int sms = 0;
-  cudaError_t err = repro_torch::smem_launch_setup(
-      reinterpret_cast<const void*>(qap_objective_tile_kernel<G>), granted,
-      sms);
-  if (err != cudaSuccess) return err;
-  const int tiles = (N + tile_rows - 1) / tile_rows;
-  const long long groups = (perms_per_inst + G - 1) / G;
-  const long long blocks = total / perms_per_inst * groups * tiles;
-  qap_objective_tile_kernel<G>
-      <<<static_cast<unsigned>(blocks), warps * 32,
-         l2_block_bytes(N, G, warps, sets), st>>>(
-          C, M, perms, partial, N, perms_per_inst, static_cast<int>(groups),
-          sets, tile_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  qap_objective_tile_sum_kernel<<<static_cast<unsigned>(
-                                      (total + kSumThreads - 1) / kSumThreads),
-                                  kSumThreads, 0, st>>>(partial, out, total,
-                                                        tiles);
-  return cudaGetLastError();
+  out[q] = repro_torch::tile_total(partial + q * tiles, tiles);
 }
 
 }  // namespace
@@ -341,19 +170,15 @@ extern "C" int qap_objective_launch(const float* C, const float* M,
       return cudaGetLastError();
     }));
   }
-  if (partial == nullptr || warps < 1 || warps > kL2MaxWarps || sets < 1 ||
-      sets > 2 || tile_rows < 1 || group > perms_per_inst ||
-      l2_block_bytes(N, group, warps, sets) >
-          static_cast<size_t>(repro_torch::kSmemBlockLimit)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err =
-      group == 1 ? launch_tiles<1>(C, M, perms, out, partial, total, N,
-                                   perms_per_inst, warps, sets, tile_rows, st,
-                                   g_l2_granted[0])
-      : group == 2 ? launch_tiles<2>(C, M, perms, out, partial, total, N,
-                                     perms_per_inst, warps, sets, tile_rows,
-                                     st, g_l2_granted[1])
-                   : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = repro_torch::launch_objective_tiles(
+      C, M, perms, partial, total, N, perms_per_inst, group, warps, sets,
+      tile_rows, st, g_l2_granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (N + tile_rows - 1) / tile_rows;
+  qap_objective_tile_sum_kernel<<<static_cast<unsigned>(
+                                      (total + kSumThreads - 1) / kSumThreads),
+                                  kSumThreads, 0, st>>>(partial, out, total,
+                                                        tiles);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,33 +1,31 @@
-// The QAP objective of one permutation, as device functions shared by the
+// The QAP objective of one permutation, as device code shared by the
 // kernels that score permutations: K2 (csrc/qap_objective.cu) and the
-// fused GA step K5 (csrc/qap_ga_step.cu), which scores each child with
-// the same arithmetic.  Its fixed-order reduction, block_sum, also ends
-// the sparse objective K6 (csrc/qap_objective_sparse.cu).
+// fused GA step K5 (csrc/qap_ga_step.cu), which scores its children with
+// the same arithmetic on both of its branches.  Its fixed-order
+// reduction, block_sum, also ends the sparse objective K6
+// (csrc/qap_objective_sparse.cu).
 //
 //   F(p) = sum_k sum_l C[k, l] * M[p[k], p[l]]
 //
-// Two forms: warp_objective for the shared-memory branches of K2 and K5,
-// block_objective for K5's L2 branch (K2's L2 branch tiles its work
-// over blocks and has its own kernel, csrc/qap_objective.cu):
+// Two forms, one for each branch of K2 and K5:
 //
-// * warp_objective: one warp scores one permutation from an instance
-//   staged in shared memory (csrc/qap_dense_smem.cuh, rows at the odd
-//   stride s).  Lane i holds its columns' targets p[i + 32 j] in
-//   registers; for each row k (its target p[k] passed by a shuffle) it
-//   reads C[k, i + 32 j] (consecutive words, no bank conflict) and
-//   gathers M[p[k], p[i + 32 j]] from one row of M, whose banks follow
-//   p[i + 32 j] mod 32 (some 3.5 wavefronts a gather for a random
-//   permutation).  The row loop is unrolled by 8, so that a warp has some
-//   32 independent loads in flight (K2 measured much faster so at the 128
-//   bucket, with only 8 permutations an SM, than without unrolling).
-//   Each lane keeps one partial sum per j, adds them in j order, and the
-//   lanes meet in a xor butterfly: every lane returns the same total.
-// * block_objective: a block of threads scores one permutation from C
-//   and M in global memory (L2).  Warp w takes rows k = w, w + warps,
-//   ...; lane i takes columns l = i, i + 32, ... of each, so a warp reads
-//   the row C[k, :] coalesced and gathers M[p[k], p[.]] from one row of
-//   M.  Each thread sums its terms in that order, the lanes of a warp by
-//   a butterfly, then the warps in warp order.
+// * warp_objective (shared-memory branches): one warp scores one
+//   permutation from an instance staged in shared memory
+//   (csrc/qap_dense_smem.cuh, rows at the odd stride s).  Lane i holds its
+//   columns' targets p[i + 32 j] in registers; for each row k (its target
+//   p[k] passed by a shuffle) it reads C[k, i + 32 j] (consecutive words,
+//   no bank conflict) and gathers M[p[k], p[i + 32 j]] from one row of M,
+//   whose banks follow p[i + 32 j] mod 32 (some 3.5 wavefronts a gather
+//   for a random permutation).  The row loop is unrolled by 8, so that a
+//   warp has some 32 independent loads in flight (K2 measured much faster
+//   so at the 128 bucket, with only 8 permutations an SM, than without
+//   unrolling).  Each lane keeps one partial sum per j, adds them in j
+//   order, and the lanes meet in a xor butterfly: every lane returns the
+//   same total.
+// * qap_objective_tile_kernel (L2 branches, orders above kSmemMaxN;
+//   csrc/qap_objective_tiles.cuh): a block takes a group of permutations
+//   and a tile of rows of C from L2, and a permutation's tiles are added
+//   in tile order.
 //
 // Both run in a fixed order for a given N, so the result is
 // deterministic; the ragged edge past N is masked by the loop bounds, not
@@ -96,26 +94,6 @@ __device__ __forceinline__ float warp_objective(const float* c, const float* m,
     total += __shfl_xor_sync(0xffffffffu, total, off);
   }
   return total;
-}
-
-// p: the permutation (shared memory or global); red: kThreads / 32
-// floats of shared memory.  Every thread returns the total.  Contains
-// __syncthreads(): call it from every thread of the block.
-template <int kThreads>
-__device__ __forceinline__ float block_objective(const float* __restrict__ c,
-                                                 const float* __restrict__ m,
-                                                 const int* p, int N,
-                                                 float* red) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float acc = 0.f;
-  for (int k = warp; k < N; k += kWarps) {
-    const float* crow = c + static_cast<size_t>(k) * N;
-    const float* mrow = m + static_cast<size_t>(p[k]) * N;
-    for (int l = lane; l < N; l += 32) acc += crow[l] * mrow[p[l]];
-  }
-  return block_sum<kThreads>(acc, red);
 }
 
 }  // namespace repro_torch

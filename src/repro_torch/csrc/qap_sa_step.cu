@@ -32,24 +32,36 @@
 //   other's latency, and half the staging of one block per SM.  Warps past
 //   an instance's last chain exit after staging.
 //
-// * L2, larger orders (up to the fused steps' 768 cap and beyond): one
-//   128-thread block per chain.  C, C^T, M and M^T stay in global memory
-//   and L2; the chain's p, best_p and its candidate stream sit in shared
-//   memory; each candidate's delta is a block reduction in a fixed order
-//   (warp butterflies, then the warp sums in warp order), so every thread
-//   holds the same d without a broadcast.
+// * L2, larger orders (the engine's exact-size requests of 170-255
+//   processes, Table 1's fused PSA on tai175/343/729, up to the fused
+//   steps' cap of 768): the shared-memory branch's loop, one warp per
+//   chain, with the eight rows each candidate reads staged in the chain's
+//   own shared memory by Hopper's bulk copy, the next candidate's while
+//   this one is summed, by a producer warp beside the chain; the chain
+//   sums each candidate with K1's terms in K1's order
+//   (csrc/qap_delta.cuh), so its delta is K1's bits on any input.
+//   Details at qap_sa_step_l2_kernel.
 //
 // What bounds it on an H100: the bytes are C and M once per instance plus
 // the chains' state (4.2 MB + 1 MB for 512 chains at the 128 bucket, 1.6
 // us at 3.35 TB/s); the time is the longest chain's sequence of up to K
-// candidates, each some 250 dependent instructions of one warp (4
-// unrolled shared-memory iterations, 2 x 5 shuffles, a division and an
-// expf).  The shared-memory branch takes every read of a candidate from
-// shared memory and has no block barrier; the L2 branch makes three
-// dependent L2 round trips and several block barriers per candidate.
+// candidates, each a chain of dependent instructions of one warp.  On
+// the shared-memory branch some 250 of them (4 unrolled shared-memory
+// iterations, 2 x 5 shuffles, a division and an expf), every read from
+// shared memory, no block barrier.  On the L2 branch a candidate also
+// waits for its rows (staged one candidate ahead) and its warp sums
+// ceil(N / 32) lane-iterations alone, where a block of four warps a chain
+// split them, with block barriers, before this design.  There the warp's
+// own delta (some 970 cycles a candidate at order 256, 2,040 on tai729)
+// sets the pace, then the loop around it (draws' shuffles, swap, best
+// copy: about a sixth of the kernel's time at order 256), which is why
+// the swap's register updates branch once per kRegGroup lane-iterations,
+// not once each.  On an H100 128 chains x 25 candidates at order 256 take
+// 0.0130 ms in a CUDA graph against 0.0133 for the block of four warps a
+// chain, Table 1's 32 x 50 on tai729 0.0212 against 0.0275.
 // Scoring several candidates per round against the current state (the
-// event loop's trick) measured slower: the warp is bound by the
-// instructions it issues, not by their latency.
+// event loop's trick) measured slower on the shared-memory branch: the
+// warp is bound by the instructions it issues, not by their latency.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -57,40 +69,53 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "qap_delta.cuh"
 #include "qap_dense_smem.cuh"
 #include "threefry.cuh"
 
 namespace {
 
+using repro_torch::kRowsPerCandidate;
 using repro_torch::smem_stride;
+using repro_torch::warp_sum;
 
-constexpr int kThreads = 128;  // L2 branch
-constexpr int kWarps = kThreads / 32;
 constexpr int kSmemMaxWarps = 16;  // shared-memory branch: chains per block
 constexpr unsigned kFull = 0xffffffffu;
 
-// One flag word per instantiation of the shared-memory kernel.
+// One flag word per instantiation of the shared-memory kernel, one for the
+// L2 kernel.
 std::atomic<unsigned long long> g_smem_granted[repro_torch::kSmemMaxIters + 1];
-std::atomic<unsigned long long> g_l2_granted{0};
+std::atomic<unsigned long long> g_l2_granted;
 
 // One chain's p and best_p on the shared-memory branch.
 size_t chain_state_bytes(int n) {
   return 2 * static_cast<size_t>(n) * sizeof(int);
 }
 
-// p, best_p, the K candidates and the reduction slots on the L2 branch.
-size_t l2_smem_bytes(int n, int k) {
-  const size_t words = 2 * static_cast<size_t>(n) +
-                       3 * static_cast<size_t>(k) + 2 * kWarps;
-  return words * sizeof(int);
+// The L2 branch holds each lane's p[lane + 32 j] in registers, which
+// bounds its order at 32 kMaxRegIters, the fused steps' cap (768).
+constexpr int kMaxRegIters = 24;
+
+// Row sets of the L2 branch: the next candidate's rows land in one while
+// the warp sums this one's from the other.
+constexpr int kL2Sets = 2;
+
+// Words of a row slot on the L2 branch: a row keeps its place within 16
+// bytes (row_shift), and the slot holds it up to whole groups of
+// delta_from_regs (128 words), so that a lane's reads past n stay in it.
+__host__ __device__ constexpr int l2_slot_words(int n) {
+  constexpr int kSpan = 32 * repro_torch::kRegGroup;
+  return kSpan * ((n + kSpan - 1) / kSpan) + 4;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(kFull, x, off);
-  }
-  return x;
+// Words of the L2 block's shared memory: the two sets of kRowsPerCandidate
+// row slots, p and best_p (a slot each), then an mbarrier a set for its
+// copies and one for its requests (8 words) and a request of 4 words a
+// set.
+constexpr size_t l2_block_words(int n) {
+  return static_cast<size_t>(l2_slot_words(n)) *
+             (kL2Sets * kRowsPerCandidate + 2) +
+         16;
 }
 
 template <int ITERS>
@@ -221,27 +246,30 @@ qap_sa_step_smem_kernel(const float* __restrict__ C,
   }
 }
 
-// Block-wide sum of two values in a fixed order; every thread gets both
-// totals.  `red` holds 2 * kWarps floats.
-__device__ __forceinline__ void block_sum2(float& x, float& y, float* red) {
-  x = warp_sum(x);
-  y = warp_sum(y);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[warp] = x;
-    red[kWarps + warp] = y;
-  }
-  __syncthreads();
-  x = red[0];
-  y = red[kWarps];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    x += red[w];
-    y += red[kWarps + w];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+// L2 branch: one warp per chain, the shared-memory branch's loop with the
+// eight rows each candidate reads -- C[a], C[b], C^T[a], C^T[b], M[u],
+// M[v], M^T[u], M^T[v] -- staged in the chain's shared memory by bulk copy
+// (one instruction a row, completion in bytes on the set's mbarrier), and
+// beside the chain's warp a producer warp that issues them: a bulk copy
+// takes uniform operands, so a warp issues its eight one after another,
+// some 800 cycles that would sit on the chain's path.  Block = chain
+// blockIdx.x: warp 0 runs it, warp 1 is its producer.  The chain keeps p
+// and best_p in shared memory and each lane its p[lane + 32 j] in
+// registers (N <= 32 kMaxRegIters), as the shared-memory branch does, and
+// sums a candidate with K1's terms in K1's order (delta_from_regs).  The
+// chain posts the next candidate (a, b, p[a], p[b]) to the producer (a
+// request a set, an mbarrier arrive) before summing this one; requests
+// alternate the two row sets, and the producer stages each into its set
+// (candidate 0's at once, while the chain loads its state).  A swap
+// changes p only at a and b, so the next candidate's rows stay valid
+// unless this one is accepted and shares a position with it: then the
+// chain waits for those copies and stages the rows again itself.  With no
+// candidate to score (K or max_success 0) neither warp touches a barrier
+// past their init.  Lanes draw 32 candidates at a time (lane t draws
+// candidate base + t, the next 32 one batch ahead) and hand them out by
+// shuffles.  One block barrier, before the loops (the barriers' init);
+// none in them.
+__global__ void __launch_bounds__(64)
 qap_sa_step_l2_kernel(const float* __restrict__ C,
                       const float* __restrict__ CT,
                       const float* __restrict__ M,
@@ -256,86 +284,223 @@ qap_sa_step_l2_kernel(const float* __restrict__ C,
                       float* __restrict__ f_out, int* __restrict__ bp_out,
                       float* __restrict__ bf_out, int N, int rows_per_inst,
                       int K, int max_success) {
-  extern __shared__ float smem[];
-  int* p = reinterpret_cast<int*>(smem);
-  int* bp = p + N;
-  int* da = bp + N;
-  int* db = da + K;
-  float* du = reinterpret_cast<float*>(db + K);
-  float* red = du + K;
-
+  extern __shared__ __align__(16) float l2_smem[];
+  const int lane = threadIdx.x & 31;
+  const bool producer = threadIdx.x >= 32;
   const int r = blockIdx.x;
+  const int w = l2_slot_words(N);
+  float* slots = l2_smem;
+  int* p = reinterpret_cast<int*>(slots + kL2Sets * kRowsPerCandidate * w);
+  int* bp = p + w;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(bp + w);
+  unsigned long long* req = full + kL2Sets;
+  int* mail = reinterpret_cast<int*>(req + kL2Sets);  // request s: mail[4 s..]
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kL2Sets; ++k) {
+      repro_torch::mbar_init(full + k, 1);
+      repro_torch::mbar_init(req + k, 1);
+    }
+    repro_torch::fence_proxy_async();
+  }
+  __syncthreads();  // every barrier initialised; no block barrier follows
+  // a candidate to score: else the chain requests no rows and the
+  // producer waits for none
+  const bool scores = K > 0 && max_success > 0;
+  if (producer && !scores) return;
   const size_t nn = static_cast<size_t>(N) * N;
   const size_t base = static_cast<size_t>(r / rows_per_inst) * nn;
-  const float* c = C + base;
-  const float* ct = CT + base;
-  const float* m = M + base;
-  const float* mt = MT + base;
-  const size_t row0 = static_cast<size_t>(r) * N;
+  const float *c = C + base, *ct = CT + base, *m = M + base, *mt = MT + base;
+  // row_shift of row 0 of C, C^T, M, M^T (row k's: + k N, mod 4)
+  const int shifts[4] = {repro_torch::row_shift(c), repro_torch::row_shift(ct),
+                         repro_torch::row_shift(m), repro_torch::row_shift(mt)};
 
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    p[i] = p_in[row0 + i];
-    bp[i] = bp_in[row0 + i];
-  }
+  // Set `set` <- the eight rows of candidate (a, b) with u = p[a], v =
+  // p[b], lane j < 8 copying row j; every lane of the calling warp calls
+  // it.
+  auto stage = [&](int a, int b, int u, int v, int set) {
+    const int j = lane & (kRowsPerCandidate - 1);
+    const float* mat = j < 2 ? c : j < 4 ? ct : j < 6 ? m : mt;
+    const int row = (j & 1) ? (j < 4 ? b : v) : (j < 4 ? a : u);
+    const float* src = mat + static_cast<size_t>(row) * N;
+    const unsigned bytes = repro_torch::bulk_row_bytes(src, N);
+    const unsigned total =
+        __reduce_add_sync(kFull, lane < kRowsPerCandidate ? bytes : 0u);
+    if (lane == 0) repro_torch::mbar_expect_tx(full + set, total);
+    __syncwarp();
+    if (lane < kRowsPerCandidate) {
+      repro_torch::fence_proxy_async();
+      repro_torch::bulk_copy(slots + (set * kRowsPerCandidate + j) * w,
+                             repro_torch::bulk_row_src(src), bytes,
+                             full + set);
+    }
+  };
+
+  // uint32 key words held in int64: the low 32 bits are the word.
   const uint32_t k0 = static_cast<uint32_t>(keys[2 * r]);
   const uint32_t k1 = static_cast<uint32_t>(keys[2 * r + 1]);
   const int nv = n_valid[r];
-  for (int t = threadIdx.x; t < K; t += kThreads) {
-    repro_torch::sa_draw(k0, k1, static_cast<uint32_t>(t), nv, da[t], db[t],
-                         du[t]);
+  const size_t row0 = static_cast<size_t>(r) * N;
+  if (producer) {
+    // Candidate 0 into set 0 at once, while the chain loads its state;
+    // then the chain's requests, which alternate sets 1, 0, 1, ...; a < 0
+    // ends them.
+    int a, b;
+    float u;
+    repro_torch::sa_draw(k0, k1, 0u, nv, a, b, u);
+    stage(a, b, p_in[row0 + a], p_in[row0 + b], 0);
+    for (unsigned s = 1, parity = 0;; s ^= 1u) {
+      repro_torch::mbar_wait(req + s, (parity >> s) & 1u);
+      parity ^= 1u << s;
+      const int a = mail[4 * s];
+      if (a < 0) return;
+      stage(a, mail[4 * s + 1], mail[4 * s + 2], mail[4 * s + 3], s);
+    }
   }
-  __syncthreads();
 
+  for (int i = lane; i < N; i += 32) {
+    p[i] = p_in[row0 + i];
+    bp[i] = bp_in[row0 + i];
+  }
+  int pr[kMaxRegIters];  // p[lane + 32 j], 0 past N
+#pragma unroll
+  for (int j = 0; j < kMaxRegIters; ++j) {
+    const int i = lane + 32 * j;
+    pr[j] = i < N ? p_in[row0 + i] : 0;
+  }
   float f = f_in[r];
   float bf = bf_in[r];
   const float tsafe = fmaxf(temp[r], 1e-9f);
-  int successes = 0;
-  for (int t = 0; t < K && successes < max_success; ++t) {
-    const int a = da[t], b = db[t];
-    const int u = p[a], v = p[b];
-    const float* ca = c + static_cast<size_t>(a) * N;
-    const float* cb = c + static_cast<size_t>(b) * N;
-    const float* cta = ct + static_cast<size_t>(a) * N;
-    const float* ctb = ct + static_cast<size_t>(b) * N;
-    const float* mu = m + static_cast<size_t>(u) * N;
-    const float* mv = m + static_cast<size_t>(v) * N;
-    const float* mtu = mt + static_cast<size_t>(u) * N;
-    const float* mtv = mt + static_cast<size_t>(v) * N;
-    float col = 0.f, row = 0.f;
-    for (int i = threadIdx.x; i < N; i += kThreads) {
-      if (i == a || i == b) continue;
-      const int pi = p[i];
-      col += (cta[i] - ctb[i]) * (mtv[pi] - mtu[pi]);
-      row += (ca[i] - cb[i]) * (mv[pi] - mu[pi]);
+  __syncwarp();
+
+  auto draw = [&](int from, int& a, int& b, float& u) {
+    a = b = 0;
+    u = 0.f;
+    if (from + lane < K) {
+      repro_torch::sa_draw(k0, k1, static_cast<uint32_t>(from + lane), nv, a,
+                           b, u);
     }
-    block_sum2(col, row, red);  // its barrier also ends every read of p
-    const float muu = mu[u], mvv = mv[v], muv = mu[v], mvu = mv[u];
-    const float corner = (ca[a] - cb[b]) * (mvv - muu) + ca[b] * (mvu - muv) +
-                         cb[a] * (muv - mvu);
-    const float d = col + row + corner;
-    const bool accept = (d < 0.f) || (du[t] < expf(-d / tsafe));
-    __syncthreads();  // every thread has read red before it is reused
-    if (accept) {
-      if (threadIdx.x == 0) {
+  };
+  // Bit s of `phase`: the parity set s completes next; of `pending`, a
+  // copy into set s not yet waited for.  `posted`: the set of the
+  // producer's next request.  Candidate 0's rows: in set 0, staged by the
+  // producer.
+  unsigned phase = 0, pending = scores ? 1u : 0u, posted = 1;
+  // Candidate (a, b)'s rows into `set` at the current p: by the producer
+  // or by this warp; every lane calls it after every lane's last read of
+  // the set.
+  auto request = [&](int a, int b, int set, bool self) {
+    const int u = p[a], v = p[b];
+    if (self) {
+      stage(a, b, u, v, set);
+    } else {
+      if (lane == 0) {
+        mail[4 * set] = a;
+        mail[4 * set + 1] = b;
+        mail[4 * set + 2] = u;
+        mail[4 * set + 3] = v;
+        repro_torch::mbar_arrive(req + set);
+      }
+      posted ^= 1u;
+    }
+    pending |= 1u << set;
+  };
+  auto land = [&](int set) {
+    repro_torch::mbar_wait(full + set, (phase >> set) & 1u);
+    phase ^= 1u << set;
+    pending &= ~(1u << set);
+  };
+
+  int la, lb, na, nb;  // candidates base + lane and base + 32 + lane
+  float lu, nu;
+  int first = 0;
+  draw(0, la, lb, lu);
+  draw(32, na, nb, nu);
+  int successes = 0, set = 0;
+  for (int t = 0; t < K && successes < max_success; ++t) {
+    if (t == first + 32) {
+      first = t;
+      la = na;
+      lb = nb;
+      lu = nu;
+      draw(first + 32, na, nb, nu);
+    }
+    const int a = __shfl_sync(kFull, la, t - first);
+    const int b = __shfl_sync(kFull, lb, t - first);
+    const float ut = __shfl_sync(kFull, lu, t - first);
+    const bool more = t + 1 < K;
+    const int nt = t + 1 - first;  // the next candidate's lane, 1..32
+    const int a1 = __shfl_sync(kFull, nt < 32 ? la : na, nt & 31);
+    const int b1 = __shfl_sync(kFull, nt < 32 ? lb : nb, nt & 31);
+    if (more) request(a1, b1, set ^ 1, false);
+    land(set);
+    const int u = p[a], v = p[b];
+    // row j of the set, at its source's place within 16 bytes (row_shift)
+    const float* s = slots + set * kRowsPerCandidate * w;
+    const int rows[kRowsPerCandidate] = {a, b, a, b, u, v, u, v};
+    const float* x[kRowsPerCandidate];
+#pragma unroll
+    for (int j = 0; j < kRowsPerCandidate; ++j) {
+      x[j] = s + j * w + ((shifts[j >> 1] + rows[j] * N) & 3);
+    }
+    const float d =
+        repro_torch::delta_from_regs<kMaxRegIters>(x, pr, a, b, u, v, N);
+    bool restage = false;
+    if ((d < 0.f) || (ut < expf(-d / tsafe))) {  // the same in every lane
+      __syncwarp();  // every lane has read p[a] and p[b]
+      if (lane == 0) {
         p[a] = v;
         p[b] = u;
       }
+#pragma unroll
+      for (int j0 = 0; j0 < kMaxRegIters; j0 += repro_torch::kRegGroup) {
+        if (32 * j0 >= N) break;
+#pragma unroll
+        for (int j = j0; j < j0 + repro_torch::kRegGroup; ++j) {
+          const int i = lane + 32 * j;
+          pr[j] = i == a ? v : (i == b ? u : pr[j]);
+        }
+      }
+      __syncwarp();
       f = f + d;
       ++successes;
       if (f < bf) {
         bf = f;
-        __syncthreads();
-        for (int i = threadIdx.x; i < N; i += kThreads) bp[i] = p[i];
+#pragma unroll
+        for (int j0 = 0; j0 < kMaxRegIters; j0 += repro_torch::kRegGroup) {
+          if (32 * j0 >= N) break;
+#pragma unroll
+          for (int j = j0; j < j0 + repro_torch::kRegGroup; ++j) {
+            const int i = lane + 32 * j;
+            if (i < N) bp[i] = pr[j];
+          }
+        }
       }
-      __syncthreads();
+      restage = more && (a1 == a || a1 == b || b1 == a || b1 == b);
     }
+    __syncwarp();  // every lane has read the set and p
+    if (restage && successes < max_success) {
+      // the next candidate's rows again, after the copies requested before
+      // this one's swap have landed
+      if ((pending >> (set ^ 1)) & 1u) land(set ^ 1);
+      __syncwarp();
+      request(a1, b1, set ^ 1, true);
+    }
+    set ^= 1;
+  }
+  // copies still in flight land before the warp leaves; then the producer
+  // is told to stop
+  if (pending & 1u) land(0);
+  if (pending & 2u) land(1);
+  if (scores && lane == 0) {
+    mail[4 * posted] = -1;
+    repro_torch::mbar_arrive(req + posted);
   }
 
-  for (int i = threadIdx.x; i < N; i += kThreads) {
+  for (int i = lane; i < N; i += 32) {
     p_out[row0 + i] = p[i];
     bp_out[row0 + i] = bp[i];
   }
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     f_out[r] = f;
     bf_out[r] = bf;
   }
@@ -343,21 +508,9 @@ qap_sa_step_l2_kernel(const float* __restrict__ C,
 
 }  // namespace
 
-// Dynamic shared memory of the branch that takes order N with K
-// candidates (at one chain per block on the shared-memory branch), or -1
-// where no branch takes it: the L2 branch's state past 227 KB.
-extern "C" long long qap_sa_step_smem_bytes(int N, int K) {
-  const size_t need =
-      N <= repro_torch::kSmemMaxN
-          ? repro_torch::smem_instance_bytes(N) + chain_state_bytes(N)
-          : l2_smem_bytes(N, K);
-  return need > static_cast<size_t>(repro_torch::kSmemBlockLimit)
-             ? -1
-             : static_cast<long long>(need);
-}
-
 // CT and MT are read only above kSmemMaxN and may be null below it; keys
-// are the uint32 words held in int64.
+// are the uint32 words held in int64.  The L2 branch takes orders up to
+// 32 kMaxRegIters (kernels/qap_sa_step.py l2_plan).
 extern "C" int qap_sa_step_launch(const float* C, const float* CT,
                                   const float* M, const float* MT,
                                   const int* p_in, const float* f_in,
@@ -367,9 +520,6 @@ extern "C" int qap_sa_step_launch(const float* C, const float* CT,
                                   int* bp_out, float* bf_out, int B, int N,
                                   int rows_per_inst, int K, int max_success,
                                   int device, void* stream) {
-  if (qap_sa_step_smem_bytes(N, K) < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   repro_torch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -400,13 +550,16 @@ extern "C" int qap_sa_step_launch(const float* C, const float* CT,
       return cudaGetLastError();
     }));
   }
-  if (CT == nullptr || MT == nullptr) {
+  const size_t bytes = sizeof(float) * l2_block_words(N);
+  if (CT == nullptr || MT == nullptr || N > 32 * kMaxRegIters ||
+      bytes > static_cast<size_t>(repro_torch::kSmemBlockLimit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = repro_torch::smem_launch_setup(
       reinterpret_cast<const void*>(qap_sa_step_l2_kernel), g_l2_granted, sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  qap_sa_step_l2_kernel<<<B, kThreads, l2_smem_bytes(N, K), st>>>(
+  // a block a chain: its warp and its producer warp
+  qap_sa_step_l2_kernel<<<B, 64, bytes, st>>>(
       C, CT, M, MT, p_in, f_in, bp_in, bf_in, temp, keys, n_valid, p_out,
       f_out, bp_out, bf_out, N, rows_per_inst, K, max_success);
   return static_cast<int>(cudaGetLastError());

@@ -13,11 +13,10 @@ round them.  That makes a kernel equal its plain version bit for bit on
 any input only where it also sums in the plain version's order: K8
 ``selective_scan``'s final state does (its ``y`` sums the states in
 another order and agrees to 2e-4), and so did K7 ``qap_delta_sparse`` on
-every real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4 (its
-shared-memory branch), K5 and K6 sum in other orders and differed there
-in the last bits; they agree bit for bit on
-integer-valued instances, where every f32 sum is exact in any order,
-and those are what the engine's parity rests on.  ``-Xptxas -v`` leaves
+every real-valued input of ``chip_kernels.py --probe``.  K1, K2, K4, K5
+and K6 sum in other orders and can differ there in the last bits; they
+agree bit for bit on integer-valued instances, where every f32 sum is
+exact in any order, and those are what the engine's parity rests on.  ``-Xptxas -v`` leaves
 each kernel's register and shared-memory use in the build log.
 
 Every launch also adds one to ``LAUNCHES[name]`` (:func:`count_launch`,
@@ -56,10 +55,8 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "qap_delta": {"qap_delta_launch": "i:pppppppiiiiiiip",
                   "qap_delta_smem_max_n": "i:"},
     "qap_objective": {"qap_objective_launch": "i:pppppqiqiiiiip"},
-    "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip",
-                    "qap_sa_step_smem_bytes": "q:ii"},
-    "qap_ga_step": {"qap_ga_step_launch": "i:ppppppppiiiiiiffiip",
-                    "qap_ga_step_smem_bytes": "i:iiii",
+    "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip"},
+    "qap_ga_step": {"qap_ga_step_launch": "i:pppppppppiiiiiiffiiiiiiip",
                     "qap_ga_step_smem_warps": "i:iiii"},
     "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiiqip"},
     "qap_delta_sparse": {"qap_delta_sparse_launch": "i:ppppppppiiiiiip"},
@@ -69,8 +66,9 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "f": ctypes.c_float}
 
 # The shared memory a block may have on an H100 (kSmemBlockLimit of
-# csrc/qap_dense_smem.cuh), against which the L2 branches of K1 and K2
-# size their staging (qap_delta.l2_plan, qap_objective.l2_tiling).
+# csrc/qap_dense_smem.cuh), against which the L2 branches of K1, K2, K4 and
+# K5 size their staging (qap_delta.l2_plan, qap_objective.l2_tiling,
+# qap_sa_step.l2_plan, qap_ga_step.l2_plan).
 SMEM_BLOCK_LIMIT = 232448
 
 

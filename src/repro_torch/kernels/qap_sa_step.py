@@ -12,17 +12,19 @@ The plain version consumes the candidates with the acceptance-event loop
 (:func:`event_loop`, also the ``loop="event"`` hot loop of
 ``core.annealing``): each round scores a window of candidates (all of
 them unless ``event_width`` narrows it) against the current state in one
-wide delta call and applies the first accepted one.  The kernel (``csrc/qap_sa_step.cu``) scans them one by one: up to
-``build.dense_smem_max_n()`` (every dense bucket) one warp per chain,
-the chains of an instance sharing a block that stages ``C`` and ``M`` in
-shared memory; above it one block per chain, reading ``C``, ``M`` and
-their transposes from global memory.
+wide delta call and applies the first accepted one.  The kernel
+(``csrc/qap_sa_step.cu``) scans them one by one, one warp per chain: up
+to ``build.dense_smem_max_n()`` (every dense bucket) the chains of an
+instance share a block that stages ``C`` and ``M`` in shared memory;
+above it, up to :data:`L2_MAX_N` (the fused steps' cap), each chain
+stages the eight rows of ``C``, ``C^T``, ``M`` and ``M^T`` each
+candidate reads, by bulk copies that a second warp issues, and sums the
+candidate as K1's L2 branch does.
 Rejected candidates never change the state, so the two agree bit for bit
 on integer-valued instances, where every f32 sum is exact in any order.
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional
 
 import torch
@@ -102,11 +104,33 @@ def qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
                       event_width)
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_bytes(n: int, k: int) -> int:
-    """Shared memory of the K4 branch that takes order ``n`` with ``k``
-    candidates; -1 where neither branch takes it."""
-    return build.library("qap_sa_step").qap_sa_step_smem_bytes(n, k)
+# The L2 branch's largest order (32 kMaxRegIters of csrc/qap_sa_step.cu:
+# each lane keeps its p[lane + 32 j] in registers), the fused steps' cap,
+# and the rows a candidate stages (kRowsPerCandidate of
+# csrc/qap_delta.cuh), in each of its two row sets.
+L2_MAX_N = 768
+L2_STAGED_ROWS = 8
+
+
+def l2_block_bytes(n: int) -> int:
+    """Shared memory of K4's L2 block at order ``n`` (``l2_block_words``
+    of ``csrc/qap_sa_step.cu``): two sets of eight row slots of ``128
+    ceil(n / 128) + 4`` words, the chain's p and best_p, a slot each, and
+    64 bytes of mbarriers and requests."""
+    slot = 128 * -(-n // 128) + 4
+    return 4 * (slot * (2 * L2_STAGED_ROWS + 2) + 16)
+
+
+def l2_plan(n: int) -> int:
+    """The shared memory of K4's L2 block at order ``n``, from the order
+    alone: a block a chain, its warp and the warp that issues its copies,
+    with two row sets (the next candidate's rows land while one is
+    summed).  Raises ``ValueError`` above :data:`L2_MAX_N`."""
+    if n > L2_MAX_N:
+        raise ValueError(f"no branch of the qap_sa_step kernel takes order "
+                         f"{n}: its L2 branch holds a chain's permutation "
+                         f"in registers up to order {L2_MAX_N}")
+    return l2_block_bytes(n)
 
 
 def qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
@@ -126,16 +150,14 @@ def qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
         ("best_f", best_f, torch.float32, (B,)),
         ("temp", temp, torch.float32, (B,)), ("keys", keys, torch.int64, (B, 2)),
         ("n_valid", n_valid, torch.int32, (B,)))
-    if _smem_bytes(n, max_neighbors) < 0:
-        raise ValueError(f"no branch of the qap_sa_step kernel takes order "
-                         f"{n} with {max_neighbors} candidates: its state "
-                         f"needs more than 227 KB of shared memory")
+    smem = n <= build.dense_smem_max_n()
+    if not smem:
+        l2_plan(n)  # refuses an order the L2 branch does not take
     # one allocation for p and best_p, one for f and best_f
     perms = torch.empty((2, B, n), dtype=torch.int32, device=p.device)
     fs = torch.empty((2, B), dtype=torch.float32, device=p.device)
     if B == 0:
         return perms[0], fs[0], perms[1], fs[1]
-    smem = n <= build.dense_smem_max_n()
     ct = mt = None
     if not smem:
         CT = C.transpose(-2, -1).contiguous() if CT is None else CT

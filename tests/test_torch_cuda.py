@@ -196,6 +196,115 @@ def test_ga_kernels_at_a_three_request_wave(cuda, n, nv):
         assert torch.equal(g, w)
 
 
+def _k5_l2_matches_plain(C, M, pops, fits, keys, nvs, **kw):
+    """K5 on its L2 branch, once, equal to its plain version bit for bit."""
+    P, n = pops.shape[1:]
+    assert not smem_branch(P, n, kw["n_off"], kw["tournament"])
+    branches = ops.branch_counts()
+    got = ops.qap_ga_step(C, M, pops, fits, keys, nvs, **kw)
+    assert _launched_on("qap_ga_step", n, branches, False)
+    for g, w in zip(got, qap_ga_step_plain(C, M, pops, fits, keys, nvs, **kw)):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("crossover", ["ox", "oxs"])
+@pytest.mark.parametrize("n_off", [100, 200])
+def test_qap_ga_step_l2_kernel_at_pop_equal_to_the_order(cuda, n_off,
+                                                         crossover):
+    """The GA at its default pop_size (the order): 2 islands of 200
+    members of an order-193 request padded into 200, 100 children or
+    every member replaced (the elitism guard fires)."""
+    C, M, pops, fits, keys, nvs = _islands(200, 193, False, 11 + n_off, cuda,
+                                           pop=200, insts=1, rpt=2)
+    _k5_l2_matches_plain(C, M, pops, fits, keys, nvs, n_off=n_off,
+                         tournament=2, p_crossover=0.9, p_mutation=0.2,
+                         crossover=crossover)
+
+
+def test_qap_ga_step_l2_kernel_at_table1_fused_shape(cuda):
+    """Table 1's fused PGA: 4 islands of 128 members, 64 children, at
+    order 256."""
+    C, M, pops, fits, keys, nvs = _islands(256, 256, True, 13, cuda, pop=128,
+                                           insts=1, rpt=4)
+    _k5_l2_matches_plain(C, M, pops, fits, keys, nvs, n_off=64, tournament=2,
+                         p_crossover=1.0, p_mutation=0.01)
+
+
+def test_qap_ga_step_l2_kernel_scores_children_as_k2(cuda):
+    """On real-valued flows K5's L2 branch gives each new member K2's F of
+    it, bit for bit, and the same bits on a second call."""
+    C, M, pops, fits, keys, nvs = _islands(200, 200, False, 17, cuda,
+                                           insts=2, rpt=2)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    C = C * torch.rand(C.shape, generator=g, device=cuda)
+    M = M * torch.rand(M.shape, generator=g, device=cuda)
+    fits = ops.qap_objective(C, M, pops)
+    kw = dict(n_off=16, tournament=2, p_crossover=1.0, p_mutation=0.1)
+    pop1, fit1 = ops.qap_ga_step(C, M, pops, fits, keys, nvs, **kw)
+    pop2, fit2 = ops.qap_ga_step(C, M, pops, fits, keys, nvs, **kw)
+    assert torch.equal(pop1, pop2) and torch.equal(fit1, fit2)
+    new = (pop1 != pops).any(-1)
+    assert int(new.sum()) > 0
+    assert torch.equal(fit1[new], ops.qap_objective(C, M, pop1)[new])
+
+
+# K4's L2 orders: the first past the threshold (rows not 16-byte
+# aligned), the exact-size 200, 256, each side of a row slot's growth
+# (257, 384 and 385: a slot holds whole groups of 128 words) and the fused
+# cap 768, the L2 branch's last order.
+@pytest.mark.parametrize("n,nv", [(170, 170), (200, 193), (256, 256),
+                                  (257, 250), (384, 384), (385, 385),
+                                  (768, 760)])
+def test_qap_sa_step_l2_kernel_across_its_plan(cuda, n, nv):
+    """K4's L2 branch bit for bit against its plain version on integer
+    instances across its orders, a block a chain, 26 chains over two
+    instances."""
+    C, M, p, _, f, temp, keys, nv_t = _inputs(n, nv, False, n + 3, cuda, 13,
+                                              K, insts=2)
+    args = (C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t)
+    kw = dict(max_neighbors=K, max_success=8)
+    branches = ops.branch_counts()
+    got = ops.qap_sa_step(*args, **kw)
+    assert _launched_on("qap_sa_step", n, branches)
+    for g, w in zip(got, qap_sa_step_plain(*args, **kw)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,max_success", [(K, 0), (0, 8), (1, 8)])
+def test_qap_sa_step_l2_kernel_with_few_candidates(cuda, k, max_success):
+    """K4's L2 branch with nothing to score (no candidate, or a cap of no
+    swap: the state comes back as it went in) and with one candidate, bit
+    for bit against its plain version at order 200."""
+    C, M, p, _, f, temp, keys, nv_t = _inputs(200, 193, False, 11, cuda, 5,
+                                              max(k, 1), insts=2)
+    args = (C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t)
+    kw = dict(max_neighbors=k, max_success=max_success)
+    branches = ops.branch_counts()
+    got = ops.qap_sa_step(*args, **kw)
+    assert _launched_on("qap_sa_step", 200, branches)
+    for g, w in zip(got, qap_sa_step_plain(*args, **kw)):
+        assert torch.equal(g, w)
+    if k == 0 or max_success == 0:
+        assert torch.equal(got[0], p) and torch.equal(got[1], f)
+
+
+def test_qap_sa_step_l2_kernel_is_deterministic(cuda):
+    """On real-valued flows K4's L2 branch gives the same bits on two
+    calls."""
+    C, M, p, _, f, temp, keys, nv_t = _inputs(256, 256, False, 5, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    C = C * torch.rand(C.shape, generator=g, device=cuda)
+    M = M * torch.rand(M.shape, generator=g, device=cuda)
+    f = ops.qap_objective(C, M, p.view(B0, RPT, -1)).reshape(-1)
+    args = (C, M, p, f, p.clone(), f.clone(), temp * 0.01, keys, nv_t)
+    kw = dict(max_neighbors=K, max_success=10)
+    first = ops.qap_sa_step(*args, **kw)
+    for a, b in zip(first, ops.qap_sa_step(*args, **kw)):
+        assert torch.equal(a, b)
+    assert not torch.equal(first[0], p)
+
+
 def test_qap_delta_unstaged_l2_kernel_matches_plain(cuda):
     """The first order whose rows K1's L2 branch cannot stage takes the
     same kernel reading its rows in place, counted apart."""
@@ -267,9 +376,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.qap_delta(C, M, p.long(), pairs)
     with pytest.raises(ValueError, match="divide"):
         ops.qap_delta(torch.stack([C] * 3), torch.stack([M] * 3), p, pairs)
-    # an order neither branch of K4 takes: the L2 branch's 2n + 3K ints of
-    # chain state pass 227 KB of shared memory
-    n = 30000
+    # an order neither branch of K4 takes: past the fused cap, its L2
+    # branch's lanes no longer hold a chain's permutation in registers
+    n = 769
     big = torch.empty((n, n), device=cuda)
     p_big = torch.arange(n, dtype=torch.int32, device=cuda)[None]
     one = torch.ones(1, device=cuda)

@@ -262,6 +262,71 @@ def test_qap_delta_l2_plan_fits_shared_memory(n):
     assert l2_plan(729) == (16, 1) and l2_plan(200) == (16, 2)
 
 
+@pytest.mark.parametrize("n", [170, 171, 200, 256, 343, 445, 729, 768, 3072,
+                               3073, 5632, 5633, 30000])
+def test_qap_sa_step_l2_plan_fits_shared_memory(n):
+    """K4's L2 plan: a block a chain with two row sets, which fits the
+    block's shared memory, up to the fused cap; an order past it (where a
+    chain's permutation no longer fits its lanes' registers) is refused."""
+    from repro_torch.kernels.qap_sa_step import (L2_MAX_N, l2_block_bytes,
+                                                 l2_plan)
+    assert L2_MAX_N == ops.MAX_FUSED_N
+    if n > L2_MAX_N:
+        with pytest.raises(ValueError, match=f"order {n}"):
+            l2_plan(n)
+        return
+    assert l2_plan(n) == l2_block_bytes(n) <= build.SMEM_BLOCK_LIMIT
+    assert l2_block_bytes(n) >= 4 * (2 * 8 + 2) * n
+
+
+@pytest.mark.parametrize("P,n_off", [(32, 16), (128, 64), (0, 0)])
+def test_fused_l2_plans_fit_every_fused_order(P, n_off):
+    """Every order the fused steps take past the shared-memory threshold
+    (170-768): K4's chains and K5's breed, rank, finish and tile blocks
+    fit the block's shared memory, at the engine's GA, Table 1's fused
+    PGA and the GA's default pop = n with every member replaced (P = 0
+    below).  Both plans read the order and shapes alone, no property of
+    the card, so the bits cannot change with the machine."""
+    import inspect
+    from repro_torch.kernels import qap_ga_step as ga, qap_sa_step as sa
+    from repro_torch.kernels.qap_objective import l2_block_bytes, l2_tiling
+    assert list(inspect.signature(sa.l2_plan).parameters) == ["n"]
+    assert list(inspect.signature(ga.l2_plan).parameters) == [
+        "P", "n", "n_off", "tournament", "islands", "instances"]
+    for n in range(170, ops.MAX_FUSED_N + 1):
+        assert sa.l2_plan(n) <= build.SMEM_BLOCK_LIMIT
+        pop, kids = (P, n_off) if P else (n, n)
+        plan = ga.l2_plan(pop, n, kids, 3, 4, 2)
+        assert 1 <= plan.breed_warps <= min(ga.L2_BREED_WARPS, kids)
+        assert ga.l2_breed_bytes(n, 3, plan.breed_warps) \
+            <= build.SMEM_BLOCK_LIMIT
+        assert 4 * (pop + 3) <= build.SMEM_BLOCK_LIMIT
+        t = plan.tiling
+        assert t == l2_tiling(n, 2 * kids, 2)
+        assert l2_block_bytes(n, t.group, t.warps, t.sets) \
+            <= build.SMEM_BLOCK_LIMIT
+        assert plan.work_words == 4 * kids * (1 + n + t.tiles)
+
+
+def test_qap_ga_step_l2_plan_scores_children_with_k2s_tiling():
+    """K5's L2 plan tiles its children as K2 tiles the same permutations
+    (so their F is K2's, bit for bit), breeds at most L2_BREED_WARPS
+    children a block and refuses what does not fit."""
+    from repro_torch.kernels import qap_ga_step as ga
+    from repro_torch.kernels.qap_objective import l2_tiling
+    plan = ga.l2_plan(32, 256, 16, 2, 16, 8)
+    assert plan.tiling == l2_tiling(256, 2 * 16, 8)
+    assert plan.breed_warps == ga.L2_BREED_WARPS
+    assert ga.l2_plan(32, 200, 3, 2, 2, 1).breed_warps == 3
+    assert ga.l2_plan(128, 729, 64, 2, 4).tiling[1:5] == l2_tiling(
+        729, 1)[1:5]
+    with pytest.raises(ValueError, match="order 30000"):
+        ga.l2_plan(32, 30000, 16, 2, 2, 1)
+    with pytest.raises(ValueError, match="pop 58110"):
+        ga.l2_plan(58110, 256, 16, 2, 2, 1)
+    assert ga.l2_plan(58109, 256, 16, 2, 2, 1).breed_warps == 4
+
+
 def test_ops_take_the_plain_path_on_cpu_tensors():
     ops.reset_launch_counts()
     Cs, Ms, ps, pairs = _wave(16, 12, False, seed=5)
