@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import as_tensor, resolve_device
+from .. import as_tensor, resolve_device, spans
 from ..kernels import ops, prng
 from ..kernels.qap_delta import qap_delta_plain
 from ..kernels.qap_sa_step import event_loop
@@ -435,56 +435,59 @@ def anneal_chains(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
     instance's best after each round, ``(B0, num_exchanges)``.
     """
     _check(cfg)
-    b0, n = C.shape[0], C.shape[-1]
-    r = num_processes * cfg.solvers
-    dev = C.device
-    ks = keys.split(key, 3)
-    kinit, kbeta, krun = ks[:, 0], ks[:, 1], ks[:, 2]
-    beta = make_beta(C, M, kbeta, cfg, n_valid)
+    with spans.span("solver.init"):
+        b0, n = C.shape[0], C.shape[-1]
+        r = num_processes * cfg.solvers
+        dev = C.device
+        ks = keys.split(key, 3)
+        kinit, kbeta, krun = ks[:, 0], ks[:, 1], ks[:, 2]
+        beta = make_beta(C, M, kbeta, cfg, n_valid)
 
-    chain_keys = keys.split(kinit, r)                             # (B0, R, 2)
-    if n_valid is None:
-        p = qap.random_permutation(chain_keys, n)
-    else:
-        p = qap.masked_random_permutation(chain_keys, n, n_valid[:, None])
-    f = qap.objective(C, M, p)
-    state = SAState(p, f, p, f, initial_temperature(f, cfg.mu, cfg.phi))
-    ident = torch.arange(n, dtype=torch.int32, device=dev).expand(b0, n)
-    if seed_identity:
-        state = _seed_chain0(C, M, state, ident,
-                             torch.ones(b0, dtype=torch.bool, device=dev),
-                             cfg, num_processes)
-    if init_perm is not None:
-        # a negative first entry keeps the chain-0 state the config made
-        use = init_perm[:, 0] >= 0
-        perm = torch.where(use[:, None], init_perm.to(torch.int32), ident)
-        state = _seed_chain0(C, M, state, perm, use, cfg, num_processes)
+        chain_keys = keys.split(kinit, r)                             # (B0, R, 2)
+        if n_valid is None:
+            p = qap.random_permutation(chain_keys, n)
+        else:
+            p = qap.masked_random_permutation(chain_keys, n, n_valid[:, None])
+        f = qap.objective(C, M, p)
+        state = SAState(p, f, p, f, initial_temperature(f, cfg.mu, cfg.phi))
+        ident = torch.arange(n, dtype=torch.int32, device=dev).expand(b0, n)
+        if seed_identity:
+            state = _seed_chain0(C, M, state, ident,
+                                 torch.ones(b0, dtype=torch.bool, device=dev),
+                                 cfg, num_processes)
+        if init_perm is not None:
+            # a negative first entry keeps the chain-0 state the config made
+            use = init_perm[:, 0] >= 0
+            perm = torch.where(use[:, None], init_perm.to(torch.int32), ident)
+            state = _seed_chain0(C, M, state, perm, use, cfg, num_processes)
 
-    inst = (C, M) + ops.transposes(C, M)
-    beta_c = beta.repeat_interleave(r)
-    nv_c = None if n_valid is None else n_valid.repeat_interleave(r)
-    nv32 = _nv32(nv_c, n, b0 * r, dev)
-    flat = SAState(*(x.reshape((b0 * r,) + x.shape[2:]) for x in state))
-    round_keys = keys.split(krun, cfg.num_exchanges)              # (B0, E, 2)
+        inst = (C, M) + ops.transposes(C, M)
+        beta_c = beta.repeat_interleave(r)
+        nv_c = None if n_valid is None else n_valid.repeat_interleave(r)
+        nv32 = _nv32(nv_c, n, b0 * r, dev)
+        flat = SAState(*(x.reshape((b0 * r,) + x.shape[2:]) for x in state))
+        round_keys = keys.split(krun, cfg.num_exchanges)              # (B0, E, 2)
     history = []
     rows = torch.arange(b0, device=dev)
     for e in range(cfg.num_exchanges):
-        ck = keys.split(round_keys[:, e], r).reshape(b0 * r, 2)
-        flat = _chain_round(inst, flat, ck, cfg, beta_c, nv_c, nv32)
-        best_f = flat.best_f.view(b0, r)
-        best_p = flat.best_p.view(b0, r, n)
-        i = qap.first_argmin(best_f)
-        gbest_f, gbest_p = best_f[rows, i], best_p[rows, i]
-        history.append(gbest_f)
-        if exchange:
-            better = gbest_f[:, None] < best_f
-            flat = SAState(
-                p=gbest_p.repeat_interleave(r, dim=0),
-                f=gbest_f.repeat_interleave(r),
-                best_p=torch.where(better[..., None], gbest_p[:, None],
-                                   best_p).reshape(b0 * r, n),
-                best_f=torch.minimum(gbest_f[:, None], best_f).reshape(-1),
-                temp=flat.temp)
+        with spans.span("solver.round", e=e):
+            ck = keys.split(round_keys[:, e], r).reshape(b0 * r, 2)
+            flat = _chain_round(inst, flat, ck, cfg, beta_c, nv_c, nv32)
+            best_f = flat.best_f.view(b0, r)
+            best_p = flat.best_p.view(b0, r, n)
+            i = qap.first_argmin(best_f)
+            gbest_f, gbest_p = best_f[rows, i], best_p[rows, i]
+            history.append(gbest_f)
+            if exchange:
+                better = gbest_f[:, None] < best_f
+                flat = SAState(
+                    p=gbest_p.repeat_interleave(r, dim=0),
+                    f=gbest_f.repeat_interleave(r),
+                    best_p=torch.where(better[..., None], gbest_p[:, None],
+                                       best_p).reshape(b0 * r, n),
+                    best_f=torch.minimum(gbest_f[:, None],
+                                         best_f).reshape(-1),
+                    temp=flat.temp)
     return flat, torch.stack(history, dim=1)
 
 

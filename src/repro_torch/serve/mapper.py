@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, spans
 from ..core import (annealing, batch_sharded, composite, genetic, keys,
                     mapping as mapping_lib, multilevel)
 from ..kernels import build
@@ -59,6 +59,8 @@ DEFAULT_BUCKETS = (32, 64, 128)
 LARGE_BUCKETS = (512, 1024, 4096)
 
 ALGORITHMS = ("psa", "pga", "pca")
+# the span of each solver's call (names made once, not per call)
+_SOLVER_SPANS = {a: "solver." + a for a in ALGORITHMS + ("multilevel",)}
 AUTO = "auto"                       # algorithm chosen by the deadline policy
 
 TIERS = ("default", "tight")
@@ -122,17 +124,20 @@ class MapFuture:
 
     Resolution is claimed under a per-future lock: exactly one of
     ``_resolve`` / ``_fail`` / :meth:`cancel` wins.  ``resolved_at`` is
-    the ``time.monotonic()`` stamp of resolution.
+    the ``time.monotonic()`` stamp of resolution; ``dispatched_at`` the
+    one at which the request's group started its solve (the start of
+    ``MapResponse.seconds``), None for a cache hit or a refused submit.
     """
 
     __slots__ = ("_event", "_response", "_exception", "resolved_at",
-                 "_claim", "_cancelled")
+                 "dispatched_at", "_claim", "_cancelled")
 
     def __init__(self) -> None:
         self._event = threading.Event()
         self._response: Optional[MapResponse] = None
         self._exception: Optional[BaseException] = None
         self.resolved_at: Optional[float] = None
+        self.dispatched_at: Optional[float] = None
         self._claim = threading.Lock()
         self._cancelled = False
 
@@ -625,9 +630,40 @@ class MappingEngine:
         responses: Dict[str, MapResponse] = {}
         if not pending:
             return responses
+        with spans.span("engine.dispatch", requests=len(pending)) as top:
+            groups = self._cache_pass(pending, responses)
+            top.set(groups=len(groups))
+            if not groups:
+                return responses
+            with self._dispatch_lock:
+                first_error: Optional[BaseException] = None
+                for (bucket, algorithm, tier), by_digest in groups.items():
+                    try:
+                        heads, solved, warms, seconds = self._solve_group(
+                            bucket, algorithm, tier, by_digest)
+                    except Exception as e:   # fail this group's futures only
+                        for ps in by_digest.values():
+                            for p in ps:
+                                p.future._fail(e)
+                        first_error = first_error or e
+                        continue
+                    with spans.span("engine.respond"):
+                        self._resolve_group(by_digest, heads, solved, warms,
+                                            bucket, seconds, responses)
+                if first_error is not None and raise_errors:
+                    raise first_error
+        return responses
+
+    def _cache_pass(self, pending: List[_Pending],
+                    responses: Dict[str, MapResponse]
+                    ) -> Dict[Tuple[Optional[int], str, str],
+                              "OrderedDict[str, List[_Pending]]"]:
+        """Answer exact-digest hits into ``responses``; the rest grouped
+        by (bucket, algorithm, tier), then by digest."""
         groups: Dict[Tuple[Optional[int], str, str],
                      "OrderedDict[str, List[_Pending]]"] = {}
-        with self._lock:
+        hits = misses = 0
+        with spans.span("engine.cache_pass") as sp, self._lock:
             for p in pending:
                 if p.future.done():          # cancelled while queued
                     self.stats.cancelled += 1
@@ -635,6 +671,7 @@ class MappingEngine:
                 key = self.digest(p.req, p.algorithm, p.tier)
                 hit = self._cache_get(key)
                 if hit is not None:
+                    hits += 1
                     perm, objective = hit
                     self.stats.cache_hits += 1
                     resp = self._respond(
@@ -646,58 +683,66 @@ class MappingEngine:
                     else:
                         self.stats.cancelled += 1
                     continue
+                misses += 1
                 g = groups.setdefault(self._group_key(p), OrderedDict())
                 g.setdefault(key, []).append(p)
-        if not groups:
-            return responses
-        with self._dispatch_lock:
-            first_error: Optional[BaseException] = None
-            for (bucket, algorithm, tier), by_digest in groups.items():
-                heads = [ps[0] for ps in by_digest.values()]
-                try:
-                    t0 = time.perf_counter()
-                    with self._lock:
-                        warms = [self._warm_perm(p.req) for p in heads]
-                    if bucket is None:
-                        solved = [self._solve_exact(p.req, algorithm, tier, w)
-                                  for p, w in zip(heads, warms)]
-                    elif bucket in self._large_set:
-                        # one multilevel solve per head; shape-tier warm
-                        # starts are ignored (the coarse solve is the seed)
-                        solved = [self._solve_multilevel(p.req)
-                                  for p in heads]
-                        warms = [None] * len(heads)
+            sp.set(hits=hits, misses=misses)
+        return groups
+
+    def _solve_group(self, bucket: Optional[int], algorithm: str, tier: str,
+                     by_digest: "OrderedDict[str, List[_Pending]]"):
+        """Solve one group's distinct requests (the first of each digest):
+        ``(heads, solved, warms, seconds)``.  Stamps every future of the
+        group with the solve's start."""
+        heads = [ps[0] for ps in by_digest.values()]
+        with spans.span("engine.group", bucket=bucket, algorithm=algorithm,
+                        tier=tier, batch=len(heads)) as g:
+            t0 = time.perf_counter()
+            dispatched = time.monotonic()
+            for ps in by_digest.values():
+                for p in ps:
+                    p.future.dispatched_at = dispatched
+            with self._lock:
+                warms = [self._warm_perm(p.req) for p in heads]
+            if bucket is None:
+                solved = [self._solve_exact(p.req, algorithm, tier, w)
+                          for p, w in zip(heads, warms)]
+            elif bucket in self._large_set:
+                # one multilevel solve per head; shape-tier warm starts are
+                # ignored (the coarse solve is the seed)
+                solved = [self._solve_multilevel(p.req) for p in heads]
+                warms = [None] * len(heads)
+            else:
+                solved = self._solve_bucket(
+                    bucket, algorithm, tier, [p.req for p in heads], warms)
+            seconds = time.perf_counter() - t0
+            if g:
+                g.set(warm=sum(w is not None for w in warms),
+                      jobs=[p.req.job_id for ps in by_digest.values()
+                            for p in ps])
+        return heads, solved, warms, seconds
+
+    def _resolve_group(self, by_digest, heads, solved, warms,
+                       bucket: Optional[int], seconds: float,
+                       responses: Dict[str, MapResponse]) -> None:
+        """Cache a solved group's answers and resolve its futures."""
+        total = sum(len(ps) for ps in by_digest.values())
+        per_instance = seconds / max(total, 1)
+        with self._lock:
+            self.stats.warm_starts += sum(w is not None for w in warms)
+            for key, (perm, objective), w, p0 in zip(
+                    by_digest, solved, warms, heads):
+                self._cache_put(key, self.shape_digest(p0.req),
+                                perm, objective)
+                for p in by_digest[key]:
+                    resp = self._respond(
+                        p, perm, objective, bucket=bucket,
+                        cached=False, seconds=per_instance,
+                        batch_size=total, warm_start=w is not None)
+                    if p.future._resolve(resp):
+                        responses[p.req.job_id] = resp
                     else:
-                        solved = self._solve_bucket(
-                            bucket, algorithm, tier, [p.req for p in heads],
-                            warms)
-                    seconds = time.perf_counter() - t0
-                except Exception as e:       # fail this group's futures only
-                    for ps in by_digest.values():
-                        for p in ps:
-                            p.future._fail(e)
-                    first_error = first_error or e
-                    continue
-                total = sum(len(ps) for ps in by_digest.values())
-                per_instance = seconds / max(total, 1)
-                with self._lock:
-                    self.stats.warm_starts += sum(w is not None for w in warms)
-                    for key, (perm, objective), w, p0 in zip(
-                            by_digest, solved, warms, heads):
-                        self._cache_put(key, self.shape_digest(p0.req),
-                                        perm, objective)
-                        for p in by_digest[key]:
-                            resp = self._respond(
-                                p, perm, objective, bucket=bucket,
-                                cached=False, seconds=per_instance,
-                                batch_size=total, warm_start=w is not None)
-                            if p.future._resolve(resp):
-                                responses[p.req.job_id] = resp
-                            else:
-                                self.stats.cancelled += 1
-            if first_error is not None and raise_errors:
-                raise first_error
-        return responses
+                        self.stats.cancelled += 1
 
     def _respond(self, p: _Pending, perm: np.ndarray, objective: float,
                  bucket: Optional[int], cached: bool, seconds: float,
@@ -724,9 +769,10 @@ class MappingEngine:
         sa_cfg, ga_cfg = self._tier_cfgs[tier]
         cfg = {"psa": sa_cfg, "pga": ga_cfg}.get(algorithm) or \
             composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg)
-        p, f, _ = batch_sharded._dispatch_sharded(
-            algorithm, cfg, self.num_processes, True, C, M, key, nv, ips,
-            self.mesh, self.instance_axis)
+        with spans.span(_SOLVER_SPANS[algorithm]):
+            p, f, _ = batch_sharded._dispatch_sharded(
+                algorithm, cfg, self.num_processes, True, C, M, key, nv, ips,
+                self.mesh, self.instance_axis)
         return p, f
 
     def _dispatch_local(self, algorithm: str, tier: str, C, M, key, nv, ips):
@@ -734,16 +780,17 @@ class MappingEngine:
         unpadded instance as a batch of one): ``(perms, fs)``."""
         sa_cfg, ga_cfg = self._tier_cfgs[tier]
         kw = dict(n_valid=nv, init_perm=ips, device=self.device)
-        if algorithm == "psa":
-            p, f, _ = annealing.run_psa_batch(C, M, key, sa_cfg,
-                                              self.num_processes, **kw)
-        elif algorithm == "pga":
-            p, f, _ = genetic.run_pga_batch(C, M, key, ga_cfg,
-                                            self.num_processes, **kw)
-        else:
-            p, f, _ = composite.run_pca_batch(
-                C, M, key, composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg),
-                self.num_processes, **kw)
+        with spans.span(_SOLVER_SPANS[algorithm]):
+            if algorithm == "psa":
+                p, f, _ = annealing.run_psa_batch(C, M, key, sa_cfg,
+                                                  self.num_processes, **kw)
+            elif algorithm == "pga":
+                p, f, _ = genetic.run_pga_batch(C, M, key, ga_cfg,
+                                                self.num_processes, **kw)
+            else:
+                p, f, _ = composite.run_pca_batch(
+                    C, M, key, composite.CompositeConfig(sa=sa_cfg, ga=ga_cfg),
+                    self.num_processes, **kw)
         return p, f
 
     def _solve_bucket(self, bucket: int, algorithm: str, tier: str,
@@ -763,41 +810,44 @@ class MappingEngine:
             return out
         B = len(reqs)
         Bp = 1 << (B - 1).bit_length() if self.pad_batches else B
-        Cs = np.zeros((Bp, bucket, bucket), np.float32)
-        Ms = np.zeros((Bp, bucket, bucket), np.float32)
-        nvs = np.zeros(Bp, np.int64)
-        seeds = np.zeros(Bp, np.int64)
-        for i, req in enumerate(reqs):
-            n = req.C.shape[0]
-            Cs[i, :n, :n] = req.C
-            Ms[i, :n, :n] = req.M
-            nvs[i] = n
-            seeds[i] = req.seed
-        Cs[B:], Ms[B:], nvs[B:] = Cs[0], Ms[0], nvs[0]
-        dev = self.device
-        key = torch.stack([keys.prng_key(int(s), dev) for s in seeds])
-        C_t = torch.as_tensor(Cs, device=dev)
-        M_t = torch.as_tensor(Ms, device=dev)
-        nv_t = torch.as_tensor(nvs, device=dev)
-        ips = None
-        if any(w is not None for w in warms):
-            # all-(-1) rows: the solver's "no warm start" sentinel
-            ips = np.full((Bp, bucket), -1, np.int32)
-            for i, (req, w) in enumerate(zip(reqs, warms)):
-                if w is not None:
-                    n = req.C.shape[0]
-                    ips[i, :n] = w
-                    ips[i, n:] = np.arange(n, bucket, dtype=np.int32)
+        with spans.span("engine.stage", batch=B, padded=Bp):
+            Cs = np.zeros((Bp, bucket, bucket), np.float32)
+            Ms = np.zeros((Bp, bucket, bucket), np.float32)
+            nvs = np.zeros(Bp, np.int64)
+            seeds = np.zeros(Bp, np.int64)
+            for i, req in enumerate(reqs):
+                n = req.C.shape[0]
+                Cs[i, :n, :n] = req.C
+                Ms[i, :n, :n] = req.M
+                nvs[i] = n
+                seeds[i] = req.seed
+            Cs[B:], Ms[B:], nvs[B:] = Cs[0], Ms[0], nvs[0]
+            dev = self.device
+            key = torch.stack([keys.prng_key(int(s), dev) for s in seeds])
+            C_t = torch.as_tensor(Cs, device=dev)
+            M_t = torch.as_tensor(Ms, device=dev)
+            nv_t = torch.as_tensor(nvs, device=dev)
+            ips = None
+            if any(w is not None for w in warms):
+                # all-(-1) rows: the solver's "no warm start" sentinel
+                ips = np.full((Bp, bucket), -1, np.int32)
+                for i, (req, w) in enumerate(zip(reqs, warms)):
+                    if w is not None:
+                        n = req.C.shape[0]
+                        ips[i, :n] = w
+                        ips[i, n:] = np.arange(n, bucket, dtype=np.int32)
         perms, fs = self._dispatch(algorithm, tier, C_t, M_t, key, nv_t, ips)
         if self.polish_rounds > 0:
-            perms, fs = mapping_lib.polish_batch(
-                C_t, M_t, perms, keys.fold_in(key, 7), self.polish_rounds,
-                nv_t, device=dev)
+            with spans.span("solver.polish"):
+                perms, fs = mapping_lib.polish_batch(
+                    C_t, M_t, perms, keys.fold_in(key, 7), self.polish_rounds,
+                    nv_t, device=dev)
         with self._lock:
             self.stats.solver_batches += 1
             self.stats.solver_calls += B
-        perms = perms.cpu().numpy()
-        fs = fs.cpu().numpy()
+        with spans.span("engine.copy_back"):
+            perms = perms.cpu().numpy()
+            fs = fs.cpu().numpy()
         out = []
         for i, req in enumerate(reqs):
             n = int(nvs[i])
@@ -823,8 +873,9 @@ class MappingEngine:
                                     None if warm is None else warm[None])
         p, f = p[0], f[0]
         if self.polish_rounds > 0:
-            p, f = mapping_lib.polish(C, M, p, keys.fold_in(key, 7),
-                                      self.polish_rounds, device=dev)
+            with spans.span("solver.polish"):
+                p, f = mapping_lib.polish(C, M, p, keys.fold_in(key, 7),
+                                          self.polish_rounds, device=dev)
         with self._lock:
             self.stats.solver_batches += 1
             self.stats.solver_calls += 1
@@ -833,9 +884,10 @@ class MappingEngine:
     def _solve_multilevel(self, req: MapRequest) -> Tuple[np.ndarray, float]:
         """A large-bucket request through ``core.multilevel`` at exact
         size; ``multilevel_cfg`` governs, not the tier's budgets."""
-        res = multilevel.solve_multilevel(
-            req.C, req.M, keys.prng_key(req.seed, self.device),
-            self.multilevel_cfg, device=self.device)
+        with spans.span(_SOLVER_SPANS["multilevel"]):
+            res = multilevel.solve_multilevel(
+                req.C, req.M, keys.prng_key(req.seed, self.device),
+                self.multilevel_cfg, device=self.device)
         with self._lock:
             self.stats.solver_batches += 1
             self.stats.solver_calls += 1
