@@ -211,11 +211,15 @@ def bench_fused_sa(n, batch, cfg, repeats, dev):
     # event_width candidates per round (all of them on the card), one K1
     # launch a round, for at most max_success accepting rounds plus
     # ceil(max_neighbors / event_width) sweeping ones; the fused step is
-    # one K4.
+    # one K4, and on the card, at orders K4's shared-memory branch takes,
+    # one K4 runs a whole exchange round of steps.
     width = annealing.resolved_event_width(variants["event"], n, dev)
     k, s = cfg.max_neighbors, cfg.max_success
-    out["dispatches_per_temperature_step"] = {"fused": 1,
-                                              "event": min(s, k) + -(-k // width)}
+    # the wave's chains' permutations: their order and device decide
+    chains = torch.zeros((batch, n), dtype=torch.int32, device=dev)
+    out["dispatches_per_temperature_step"] = {
+        "fused": 1 / annealing._round_steps(variants["fused"], chains),
+        "event": min(s, k) + -(-k // width)}
     return out
 
 

@@ -7,6 +7,7 @@ Run from the root of a checkout:
 
     python3 chip_kernels.py [--src DIR] [--probe] [--host] [--k4-phases]
         [--k4-skeleton] [--k7-mt] [--k6]
+    python3 chip_kernels.py [--src DIR] --k4-round
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two commits can be compared in one
@@ -56,6 +57,16 @@ cluster capped at 4, 8 and 16 blocks and the variants of
 ``K6_STAGE_EDITS`` (where the kernel keeps the permutation; copies of
 the package's source with only that changed, built into
 ``build/k6_<i>/``), each checked bit for bit first.
+``--k4-round`` times, alone, one PSA exchange round (2 x 125 chains an
+instance, the paper's 100 temperature steps of 50 candidates) through
+``annealing._chain_round``, hot (at T0) and cold (at t_final), by CUDA
+events and in a CUDA graph, at every instantiation's shapes the engine
+gives K4's shared-memory branch: the 32 and 64 buckets, the benchmark
+cell's wave (128 instances of order 125 in the 128 bucket) and order
+169: on a package whose K4 runs a round a launch, that launch and,
+beside it, the same round forced to a launch a step; on an older
+package its 100 launches with the host's key splits and cooling between
+them; and one single-step launch alone.
 
 The shapes and helpers are those of ``chip_smoke.py``.  Prints the card's
 name and power limit; exits non-zero without a CUDA device.
@@ -767,6 +778,106 @@ def k4_skeleton_rows():
     return rows
 
 
+# (label, order, bucket, instances) of --k4-round: the engine's waves of
+# taiXe-27 and -45 in the 32 and 64 buckets, the benchmark cell's
+# (taiXe-125 in the 128 bucket) and integer instances of order 169, the
+# shared-memory branch's largest, at 250 chains an instance.
+K4_ROUND_SHAPES = (("27 in 32", 27, 32, 128), ("45 in 64", 45, 64, 128),
+                   ("125 in 128", 125, 128, 128), ("169", 169, 169, 16))
+
+
+def k4_round_rows(dev, shapes=K4_ROUND_SHAPES):
+    """(label, events ms, graph ms) of one PSA exchange round (the paper's
+    100 temperature steps of 50 candidates, 250 chains an instance)
+    through ``annealing._chain_round``, hot (at T0) and cold (at t_final),
+    at each of ``shapes``: "round" (one launch) where the package's K4
+    runs a round a launch, raising unless it gives the bits of the steps;
+    "steps", a launch a temperature step with the host's cooling between
+    them (by events ``_chain_round`` forced to it, key splits included;
+    in the graph ``_advance`` 100 times from keys split beforehand); and
+    "step", one single-step K4 launch alone."""
+    import torch
+    from repro_torch.core import annealing, instances, keys, qap
+    from repro_torch.kernels import ops
+    import chip_smoke as cs
+    cfg = annealing.SAConfig(max_neighbors=50, max_success=10,
+                             iters_per_exchange=100, num_exchanges=50,
+                             solvers=125, loop="fused")
+    r = 2 * cfg.solvers
+    has_round = hasattr(annealing, "_round_steps")
+    rows = []
+    for name, order, n, b0 in shapes:
+        if order in instances.GRID:
+            C, M = padded_wave(order, n, b0, dev)
+        else:
+            C, M = cs.integer_instances(n, b0, order, dev)
+        nv = torch.full((b0,), order, dtype=torch.int64, device=dev)
+        key = keys.split(keys.split(keys.prng_key(35, dev), b0), 3)
+        beta = annealing.make_beta(C, M, key[:, 0], cfg, nv) \
+            .repeat_interleave(r)
+        ck = keys.split(key[:, 1], r)
+        p = qap.masked_random_permutation(ck, n, nv[:, None])
+        f = qap.objective(C, M, p)
+        p, f = p.reshape(b0 * r, n), f.reshape(-1)
+        nv_c = nv.repeat_interleave(r)
+        nv32 = nv_c.to(torch.int32)
+        inst = (C, M) + ops.transposes(C, M)
+        rk = keys.split(key[:, 2], r).reshape(b0 * r, 2)
+        step_keys = keys.split(rk, cfg.iters_per_exchange).transpose(0, 1) \
+            .contiguous()
+        for phase, temp in (
+                ("hot", annealing.initial_temperature(f, cfg.mu, cfg.phi)),
+                ("cold", torch.full_like(f, annealing._f32(cfg.t_final)))):
+            state = annealing.SAState(p, f, p.clone(), f.clone(), temp)
+
+            def one_round(state=state):
+                return annealing._chain_round(inst, state, rk, cfg, beta,
+                                              nv_c, nv32)
+
+            def steps(state=state):
+                # the key splits made outside: a graph cannot capture them
+                for t in range(cfg.iters_per_exchange):
+                    state = annealing._advance(inst, state, step_keys[t],
+                                               None, None, cfg, beta, nv32)
+                return state
+
+            def one_step(state=state):
+                return ops.qap_sa_step(
+                    C, M, state.p, state.f, state.best_p, state.best_f,
+                    state.temp, step_keys[0], nv32,
+                    max_neighbors=cfg.max_neighbors,
+                    max_success=cfg.max_success)
+
+            label = f"{name} {phase} {b0 * r}"
+            want = steps()
+            if has_round:
+                if not all(torch.equal(a, b)
+                           for a, b in zip(one_round(), want)):
+                    raise RuntimeError(f"K4 {label}: the round differs from "
+                                       f"its steps")
+                rows.append((f"K4 round {label}", cs.cuda_ms(one_round, 2),
+                             cs.graph_ms(one_round, 3)))
+            with forced_steps(annealing) if has_round else \
+                    contextlib.nullcontext():
+                events = cs.cuda_ms(one_round, 2)
+            rows.append((f"K4 steps {label}", events, cs.graph_ms(steps, 3)))
+            rows.append((f"K4 step {label}", cs.cuda_ms(one_step, 20),
+                         cs.graph_ms(one_step, 20)))
+    return rows
+
+
+@contextlib.contextmanager
+def forced_steps(annealing):
+    """``annealing._chain_round`` a launch a temperature step, inside the
+    block."""
+    real = annealing._round_steps
+    annealing._round_steps = lambda cfg, p: 1
+    try:
+        yield
+    finally:
+        annealing._round_steps = real
+
+
 def k7_mt_rows():
     """(label, graph ms reading M, graph ms reading M^T, graph ms reading
     M^T, graph ms reading M) of K7 at every level of the 4096 torus (4
@@ -933,6 +1044,7 @@ def main():
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--k4-phases", action="store_true")
     parser.add_argument("--k4-skeleton", action="store_true")
+    parser.add_argument("--k4-round", action="store_true")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -951,6 +1063,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; package {src}", flush=True)
+    if args.k4_round:
+        for label, ev, gr in k4_round_rows(torch.device("cuda")):
+            print(f"k4-round {label:34s} events {ev:.4f} ms, graph "
+                  f"{gr:.4f} ms", flush=True)
+        return 0
     for label, ev, gr in timings(args.k6):
         print(f"{label:26s} events {ev:.4f} ms, graph {gr:.5f} ms, events - "
               f"graph {ev - gr:.4f} ms", flush=True)

@@ -15,7 +15,9 @@ Phases, each of which must pass:
    card, at the shapes the engine gives it (bitwise: the instances are
    integer-valued), and time both, by CUDA events and (the kernel) in a
    CUDA graph; K1, K4, K2 and K5 on both branches, the shared-memory
-   one at the 128 bucket and the L2 one at order 256; K1 and K2's L2
+   one at the 128 bucket and the L2 one at order 256, K4 also as a round
+   of 100 temperature steps in one launch at the 128 bucket (the fused
+   PSA's mode there; temperatures compared too); K1 and K2's L2
    branches also at the service's exact-size shapes of an order-193
    instance padded into 200 (K1 16 x 25 and the polish's 1 x 256, K2 2
    islands), K1's unstaged L2 kernel at order 11618 (the first its rows do
@@ -777,6 +779,74 @@ def check_qap_sa_step(device):
     return out["smem"]
 
 
+def check_qap_sa_round(device, steps=100):
+    """K4's round, the mode the fused PSA runs on the shared-memory
+    branch, against the plain round: ``steps`` temperature steps in one
+    launch from round keys at the 128 bucket (512 chains, order 125), 25
+    candidates and at most 10 acceptances a step, Cauchy cooling from T0
+    with a beta that reaches t_final halfway, so the clamp acts too.
+    Temperatures are compared with the state.  The bound is the round's
+    work: C, M and the chains' state read once, 8 N operations for each
+    candidate the sequential scan scores in each of the steps."""
+    import torch
+    from repro_torch.core import annealing, keys, qap
+    from repro_torch.kernels.qap_sa_step import (cooled, qap_sa_step_cuda,
+                                                 qap_sa_step_plain)
+    Cs, Ms = wave_instances(device)
+    nv_i = torch.full((WAVE,), ORDER, dtype=torch.int64, device=device)
+    Cs = qap.mask_flows(Cs, nv_i)
+    rpt = NUM_PROCESSES * SA_KW["solvers"]
+    k, cap, n, chains = SA_KW["max_neighbors"], 10, BUCKET, WAVE * rpt
+    cfg = annealing.SAConfig(max_neighbors=k, max_success=cap,
+                             iters_per_exchange=steps // 2, num_exchanges=1)
+    key = keys.split(keys.prng_key(35, device), 3)
+    beta = annealing.make_beta(Cs, Ms, keys.split(key[0], WAVE), cfg, nv_i)
+    cooling = annealing._cooling(cfg, beta.repeat_interleave(rpt))
+    ck = keys.split(key[1], chains)
+    p = qap.masked_random_permutation(ck, n, ORDER)
+    f = qap.objective(Cs, Ms, p.view(WAVE, rpt, n)).reshape(-1)
+    temp = annealing.initial_temperature(f, cfg.mu, cfg.phi)
+    nv = torch.full((chains,), ORDER, dtype=torch.int32, device=device)
+    round_keys = keys.split(key[2], chains)
+    args = (Cs, Ms, p, f, p.clone(), f.clone(), temp, round_keys, nv)
+    kw = dict(max_neighbors=k, max_success=cap, steps=steps, cooling=cooling)
+    t_kernel, t_plain = torch.empty_like(temp), torch.empty_like(temp)
+    launch = lambda: qap_sa_step_cuda(*args, temp_out=t_kernel, **kw)
+    plain = lambda: qap_sa_step_plain(*args, temp_out=t_plain, **kw)
+    got = branch_launched("qap_sa_step", "smem_round", launch) + (t_kernel,)
+    want = plain() + (t_plain,)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    for name, g, w in zip(("p", "f", "best_p", "best_f", "temp"), got, want):
+        require(torch.equal(g, w), f"qap_sa_step round {name}: kernel != "
+                f"plain (max err {err})")
+    require(bool((t_kernel == cooling.t_final).all()),
+            "qap_sa_step round: t_final not reached")
+    # the scan's scored candidates, step by step along the plain round
+    evaluated, state = 0, args[2:7]
+    step_keys = keys.split(round_keys, steps)
+    for t in range(steps):
+        sp, sf, sbp, sbf, st = state
+        evaluated += scan_evaluated(Cs, Ms, sp, sf, st, step_keys[:, t], nv,
+                                    k, cap)
+        state = qap_sa_step_plain(Cs, Ms, sp, sf, sbp, sbf, st,
+                                  step_keys[:, t], nv, max_neighbors=k,
+                                  max_success=cap) + (cooled(st, cooling),)
+    ms, dev_ms = cuda_ms(launch, 20), graph_ms(launch, 20)
+    plain_ms = cuda_ms(plain, 2)
+    io = (4 * 4 * chains * n                 # p, best_p in and out
+          + chains * (4 * 4 + 4 * 2 + 4 + 16 + 4))  # f, bf, T, nv, keys, beta
+    bound, by = bound_ms(4 * 2 * WAVE * n * n + io, 8 * n * evaluated)
+    print(f"qap_sa_step round B={chains} N={n} K={k} cap={cap} steps={steps} "
+          f"(smem_round branch): kernel {ms:.4f} ms ({dev_ms:.4f} ms in a "
+          f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{evaluated} of {chains * k * steps} candidates scored, max err "
+          f"{err}", flush=True)
+    return dict(err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+
+
 def island_populations(device, pop):
     """``ISLANDS`` populations of ``pop`` random order-125 permutations in
     the 128 bucket (identity tail), over the wave's masked instances."""
@@ -1290,11 +1360,12 @@ def route_requests(route):
 def require_smem_branch(route, counts, branches):
     """Every K1, K2, K4 and K5 launch of a dense bucket (orders up to 128)
     or a multilevel coarse solve (order 64) took the shared-memory
-    branch."""
+    branch (K4's a step or a whole exchange round a launch)."""
     for kernel in ("qap_delta", "qap_sa_step", "qap_objective",
                    "qap_ga_step"):
-        require(branches[f"{kernel}/smem"] == counts[kernel]
-                and branches[f"{kernel}/l2"] == 0,
+        smem = branches[f"{kernel}/smem"] + branches.get(
+            f"{kernel}/smem_round", 0)
+        require(smem == counts[kernel] and branches[f"{kernel}/l2"] == 0,
                 f"[{route}] {kernel} launches {counts[kernel]}, by branch "
                 f"{branches}: not all on the shared-memory branch")
 
@@ -4345,6 +4416,7 @@ def main():
     device = torch.device("cuda")
     delta = check_qap_delta(device)
     sa = check_qap_sa_step(device)
+    sa_round = check_qap_sa_round(device)
     obj = check_qap_objective(device)
     ga = check_qap_ga_step(device)
     dsp = check_qap_delta_sparse(device)
@@ -4412,9 +4484,12 @@ def main():
         dict(name="qap_sa_step", route="cuda",
              source="src/repro_torch/csrc/qap_sa_step.cu",
              replaces="src/repro/kernels/qap_sa_step.py:122",
-             launches=runs["psa-fused"]["qap_sa_step"], max_abs_err=sa["err"],
-             ms=sa["ms"], plain_ms=sa["plain_ms"], bound_ms=sa["bound_ms"],
-             bound_by=sa["bound_by"], library_ms=None),
+             # the route's launches are rounds: a round's numbers beside them
+             launches=runs["psa-fused"]["qap_sa_step"],
+             max_abs_err=max(sa["err"], sa_round["err"]),
+             **{k: sa_round[k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             library_ms=None),
         dict(name="qap_objective", route="cuda",
              source="src/repro_torch/csrc/qap_objective.cu",
              replaces="src/repro/kernels/qap_objective.py:65",

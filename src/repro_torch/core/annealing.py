@@ -14,6 +14,9 @@ accepts at most ``max_success`` of them.  ``SAConfig.loop`` picks how:
   card), the first accepted one applied;
 * ``"fused"``: one ``kernels.ops.qap_sa_step`` launch (kernel K4) runs
   the whole level, candidates drawn on the card from the counter stream;
+  on the card at orders up to ``build.dense_smem_max_n()`` one launch
+  runs a whole exchange round of levels, step keys and cooling included
+  (``_chain_round``);
 * ``"scan"``: the sequential candidate scan, the golden reference.
 
 All three give the same states.  ``init_chain``, ``_chain_round`` and
@@ -49,6 +52,7 @@ import torch
 from .. import as_tensor, resolve_device, spans
 from ..kernels import ops, prng
 from ..kernels.qap_delta import qap_delta_plain
+from ..kernels import qap_sa_step as sa_step
 from ..kernels.qap_sa_step import event_loop
 from ..kernels.qap_sparse import qap_delta_sparse_plain
 from . import keys, qap
@@ -107,12 +111,13 @@ def initial_temperature(f0: torch.Tensor, mu: float, phi: float
 
 def cool(temp: torch.Tensor, cfg: SAConfig, beta: torch.Tensor
          ) -> torch.Tensor:
-    if cfg.schedule == "linear":
-        return temp * _f32(cfg.q)
-    if cfg.schedule == "cauchy":
-        # 1 + beta*T rounded once: the f64 product of two f32 is exact.
-        return temp / (beta.double() * temp.double() + 1.0).float()
-    raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    return sa_step.cool(temp, cfg.schedule, _f32(cfg.q), beta)
+
+
+def _cooling(cfg: SAConfig, beta: torch.Tensor) -> sa_step.Cooling:
+    """The cooling after each temperature step, clamp included."""
+    return sa_step.Cooling(cfg.schedule, _f32(cfg.q), _f32(cfg.t_final),
+                           beta)
 
 
 def make_beta(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
@@ -297,7 +302,7 @@ def _advance(inst, state: SAState, key, pairs, us, cfg: SAConfig,
             resolved_event_width(cfg, n, state.p.device))
     else:
         p, f, best_p, best_f = _candidate_scan(C, M, state, pairs, us, cfg)
-    temp = cool(state.temp, cfg, beta).clamp_min(_f32(cfg.t_final))
+    temp = sa_step.cooled(state.temp, _cooling(cfg, beta))
     return SAState(p=p, f=f, best_p=best_p, best_f=best_f, temp=temp)
 
 
@@ -324,11 +329,31 @@ def temperature_step(C: torch.Tensor, M: torch.Tensor, state: SAState,
                     beta.expand(b), _nv32(n_valid, n, b, state.p.device))
 
 
+def _round_steps(cfg: SAConfig, p: torch.Tensor) -> int:
+    """Temperature steps a K4 launch runs for chains ``p``: the whole
+    round where the fused loop runs on the card at an order K4's
+    shared-memory branch takes, else one."""
+    if resolved_loop(cfg, p.shape[-1]) == "fused" and ops.sa_round_fits(p):
+        return cfg.iters_per_exchange
+    return 1
+
+
 def _chain_round(inst, state: SAState, key: torch.Tensor,
                  cfg: SAConfig, beta, n_valid, nv32) -> SAState:
-    """``iters_per_exchange`` temperature steps for every chain; the
-    host-side draws of the whole round are made in one call."""
+    """``iters_per_exchange`` temperature steps for every chain from round
+    keys ``key (B, 2)``: one K4 launch where :func:`_round_steps` says so,
+    else a loop of :func:`_advance` whose host-side draws of the whole
+    round are made in one call.  Both give the same bits."""
     n = state.p.shape[-1]
+    if _round_steps(cfg, state.p) > 1:
+        temp = torch.empty_like(state.temp)
+        p, f, best_p, best_f = ops.qap_sa_step(
+            inst[0], inst[1], state.p, state.f, state.best_p, state.best_f,
+            state.temp, key, nv32, max_neighbors=cfg.max_neighbors,
+            max_success=cfg.max_success, steps=cfg.iters_per_exchange,
+            cooling=_cooling(cfg, beta.expand_as(temp).contiguous()),
+            temp_out=temp)
+        return SAState(p=p, f=f, best_p=best_p, best_f=best_f, temp=temp)
     step_keys = keys.split(key, cfg.iters_per_exchange)          # (B, I, 2)
     pairs = us = None
     if resolved_loop(cfg, n) != "fused":
@@ -467,12 +492,16 @@ def anneal_chains(C: torch.Tensor, M: torch.Tensor, key: torch.Tensor,
         nv32 = _nv32(nv_c, n, b0 * r, dev)
         flat = SAState(*(x.reshape((b0 * r,) + x.shape[2:]) for x in state))
         round_keys = keys.split(krun, cfg.num_exchanges)              # (B0, E, 2)
+        # every round's chain keys in one split, before the rounds: a split
+        # on the card copies its constants up and so waits for the card
+        rkeys = keys.split(round_keys, r).transpose(0, 1).reshape(
+            cfg.num_exchanges, b0 * r, 2)                           # (E, B, 2)
+        steps = _round_steps(cfg, flat.p)
     history = []
     rows = torch.arange(b0, device=dev)
     for e in range(cfg.num_exchanges):
-        with spans.span("solver.round", e=e):
-            ck = keys.split(round_keys[:, e], r).reshape(b0 * r, 2)
-            flat = _chain_round(inst, flat, ck, cfg, beta_c, nv_c, nv32)
+        with spans.span("solver.round", e=e, steps=steps):
+            flat = _chain_round(inst, flat, rkeys[e], cfg, beta_c, nv_c, nv32)
             best_f = flat.best_f.view(b0, r)
             best_p = flat.best_p.view(b0, r, n)
             i = qap.first_argmin(best_f)

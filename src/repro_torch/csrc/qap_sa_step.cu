@@ -1,4 +1,5 @@
-// K4: one whole SA temperature step per chain, fused, on Hopper.
+// K4: one whole SA temperature step per chain, fused, on Hopper; on the
+// shared-memory branch also a whole exchange round of steps per launch.
 //
 // Replaces the TPU kernel repro/kernels/qap_sa_step.py
 // qap_sa_step_pallas_batch (body _sa_step_kernel).  For each chain: draw
@@ -6,9 +7,15 @@
 // counter stream (csrc/threefry.cuh, kernel K3), then scan them in order:
 // the O(N) swap delta of K1, accept if d < 0 or u < exp(-d / max(T,
 // 1e-9)) while fewer than max_success swaps landed, and track the best
-// permutation seen.  Returns (p, f, best_p, best_f); cooling stays with
-// the caller.  Rejected candidates never change the state, so this scan
-// gives the same result as the acceptance-event loop of the plain version
+// permutation seen.  Returns (p, f, best_p, best_f); a single step leaves
+// cooling to the caller.  A round (qap_sa_step_launch with steps >= 1,
+// orders up to kSmemMaxN) runs `steps` such steps in one launch: step t
+// keyed by threefry(round key, (0, t)), which is core/keys.py split(key,
+// steps)[t], and the temperature cooled after each step in the host's
+// roundings (cool_step), so a round gives the bits of `steps` single-step
+// launches with the host's cooling between them.  Rejected candidates
+// never change the state, so this scan gives the same result as the
+// acceptance-event loop of the plain version
 // (repro_torch/kernels/qap_sa_step.py) on integer-valued instances.
 //
 // Two branches, chosen on the host by the order (qap_dense_smem.cuh):
@@ -26,11 +33,20 @@
 //   every lane takes the same accept decision; the loop has no block
 //   barrier, only __syncwarp around lane 0's swap.  The split: at most
 //   floor(SMs / (2 B0)) blocks per instance, each with ceil(chains /
-//   blocks) warps (within the shared memory left after the instance), so a
-//   wave of 32 instances x 16 chains at the 128 bucket is 64 blocks of 8
-//   warps: two chains on each of an SM's four schedulers, which hide each
-//   other's latency, and half the staging of one block per SM.  Warps past
-//   an instance's last chain exit after staging.
+//   blocks) warps, at most smem_max_warps (within the shared memory left
+//   after the instance), so a wave of 32 instances x 16 chains at the 128
+//   bucket is 64 blocks of 8 warps: two chains on each of an SM's four
+//   schedulers, which hide each other's latency, and half the staging of
+//   one block per SM.  Warps past an instance's last chain exit after
+//   staging.  In a round each warp keeps its chain for every step: p and
+//   best_p in its slice and pr[], f, best f, T in registers, so the block
+//   stages C and M once a round and the launch's tail (the last
+//   block-wave, every block waiting for its slowest chain) falls once a
+//   round, not once a step.  A wave of 128 instances x 250 chains at the
+//   128 bucket is 1024 blocks of 32 warps, one block an SM (C and M fill
+//   132 KB): on an H100 its round of 100 steps took 58.2 ms in a CUDA
+//   graph against 65.9 ms at 16 warps a block, whose 8 chains a scheduler
+//   hid less of each other's latency.
 //
 // * L2, larger orders (the engine's exact-size requests of 170-255
 //   processes, Table 1's fused PSA on tai175/343/729, up to the fused
@@ -79,7 +95,18 @@ using repro_torch::kRowsPerCandidate;
 using repro_torch::smem_stride;
 using repro_torch::warp_sum;
 
-constexpr int kSmemMaxWarps = 16;  // shared-memory branch: chains per block
+// Shared-memory branch: chains (warps) a block at most, and the kernel's
+// launch bound, by ITERS.  At the 128 bucket and above an instance's C
+// and M fill over half an SM's shared memory, so a block has the SM alone
+// and 32 warps hide each other's latency (order 169's round: 59 ms in a
+// CUDA graph on an H100 against 75 at 16).  At the 32 and 64 buckets two
+// blocks of 16 share an SM and a smaller block frees its SM sooner (a
+// step: 0.085 and 0.108 ms against 0.090 and 0.115 at 32; rounds the
+// same).  The cut falls between ITERS 3 and 4: orders 97-127 are no
+// bucket of the engine and were not timed.
+__host__ __device__ constexpr int smem_max_warps(int iters) {
+  return iters <= 3 ? 16 : 32;
+}
 constexpr unsigned kFull = 0xffffffffu;
 
 // One flag word per instantiation of the shared-memory kernel, one for the
@@ -118,8 +145,31 @@ constexpr size_t l2_block_words(int n) {
          16;
 }
 
+// The cooling schedules of a round (kernels/qap_sa_step.py COOL_CODES).
+constexpr int kCoolLinear = 0;
+constexpr int kCoolCauchy = 1;
+
+// One cooling, then the clamp at t_final, in the host's roundings
+// (kernels/qap_sa_step.py cool): linear T q; Cauchy T / (1 + beta T) with
+// 1 + beta T rounded once in f64 (the f64 product of two f32 is exact),
+// then to f32.  The clamp lets NaN through, as torch's clamp_min does.
+__device__ __forceinline__ float cool_step(float t, int schedule, float beta,
+                                           float q, float t_final) {
+  const float x =
+      schedule == kCoolCauchy
+          ? __fdiv_rn(t, __double2float_rn(__dadd_rn(
+                             __dmul_rn(static_cast<double>(beta),
+                                       static_cast<double>(t)),
+                             1.0)))
+          : __fmul_rn(t, q);
+  return isnan(x) ? x : fmaxf(x, t_final);
+}
+
+// steps == 0: one temperature step keyed by `keys` as given, no cooling
+// (temp_out and beta unread).  steps >= 1: a round of that many steps
+// from round keys, the final temperature into temp_out.
 template <int ITERS>
-__global__ void __launch_bounds__(kSmemMaxWarps * 32)
+__global__ void __launch_bounds__(smem_max_warps(ITERS) * 32)
 qap_sa_step_smem_kernel(const float* __restrict__ C,
                         const float* __restrict__ M,
                         const int* __restrict__ p_in,
@@ -129,10 +179,13 @@ qap_sa_step_smem_kernel(const float* __restrict__ C,
                         const float* __restrict__ temp,
                         const long long* __restrict__ keys,
                         const int* __restrict__ n_valid,
+                        const float* __restrict__ beta,
                         int* __restrict__ p_out, float* __restrict__ f_out,
                         int* __restrict__ bp_out, float* __restrict__ bf_out,
-                        int N, int rows_per_inst, int K, int max_success,
-                        int blocks_per_inst) {
+                        float* __restrict__ temp_out, int N,
+                        int rows_per_inst, int K, int max_success,
+                        int blocks_per_inst, int steps, int schedule, float q,
+                        float t_final) {
   extern __shared__ float smem[];
   const int s = smem_stride(N);
   float* c = smem;
@@ -165,70 +218,81 @@ qap_sa_step_smem_kernel(const float* __restrict__ C,
   __syncwarp();
 
   // uint32 key words held in int64: the low 32 bits are the word.
-  const uint32_t k0 = static_cast<uint32_t>(keys[2 * r]);
-  const uint32_t k1 = static_cast<uint32_t>(keys[2 * r + 1]);
+  const uint32_t rk0 = static_cast<uint32_t>(keys[2 * r]);
+  const uint32_t rk1 = static_cast<uint32_t>(keys[2 * r + 1]);
   const int nv = n_valid[r];
   float f = f_in[r];
   float bf = bf_in[r];
-  const float tsafe = fmaxf(temp[r], 1e-9f);
-  int successes = 0;
-  for (int base = 0; base < K && successes < max_success; base += 32) {
-    int la = 0, lb = 0;
-    float lu = 0.f;
-    if (base + lane < K) {
-      repro_torch::sa_draw(k0, k1, static_cast<uint32_t>(base + lane), nv, la,
-                           lb, lu);
+  float t_now = temp[r];
+  const float chain_beta =
+      steps > 0 && schedule == kCoolCauchy ? beta[r] : 0.f;
+  for (int step = 0; step < max(steps, 1); ++step) {
+    uint32_t k0 = rk0, k1 = rk1;  // the step's key: split(round key)[step]
+    if (steps > 0) {
+      repro_torch::threefry2x32(rk0, rk1, 0u, static_cast<uint32_t>(step), k0,
+                                k1);
     }
-    const int count = min(32, K - base);
-    for (int t = 0; t < count && successes < max_success; ++t) {
-      const int a = __shfl_sync(kFull, la, t);
-      const int b = __shfl_sync(kFull, lb, t);
-      const float ut = __shfl_sync(kFull, lu, t);
-      const int u = p[a], v = p[b];
-      const float* ca = c + a * s;
-      const float* cb = c + b * s;
-      const float* mu = m + u * s;
-      const float* mv = m + v * s;
-      float col = 0.f, row = 0.f;
-#pragma unroll
-      for (int j = 0; j < ITERS; ++j) {
-        const int i = lane + 32 * j;
-        if (i < N && i != a && i != b) {
-          const float* ci = c + i * s;
-          const float* mp = m + pr[j] * s;
-          col += (ci[a] - ci[b]) * (mp[v] - mp[u]);
-          row += (ca[i] - cb[i]) * (mv[pr[j]] - mu[pr[j]]);
-        }
+    const float tsafe = fmaxf(t_now, 1e-9f);
+    int successes = 0;
+    for (int base = 0; base < K && successes < max_success; base += 32) {
+      int la = 0, lb = 0;
+      float lu = 0.f;
+      if (base + lane < K) {
+        repro_torch::sa_draw(k0, k1, static_cast<uint32_t>(base + lane), nv,
+                             la, lb, lu);
       }
-      col = warp_sum(col);
-      row = warp_sum(row);
-      const float corner = (ca[a] - cb[b]) * (mv[v] - mu[u]) +
-                           ca[b] * (mv[u] - mu[v]) + cb[a] * (mu[v] - mv[u]);
-      const float d = col + row + corner;
-      if ((d < 0.f) || (ut < expf(-d / tsafe))) {  // the same in every lane
-        __syncwarp();  // every lane has read p[a] and p[b]
-        if (lane == 0) {
-          p[a] = v;
-          p[b] = u;
-        }
+      const int count = min(32, K - base);
+      for (int t = 0; t < count && successes < max_success; ++t) {
+        const int a = __shfl_sync(kFull, la, t);
+        const int b = __shfl_sync(kFull, lb, t);
+        const float ut = __shfl_sync(kFull, lu, t);
+        const int u = p[a], v = p[b];
+        const float* ca = c + a * s;
+        const float* cb = c + b * s;
+        const float* mu = m + u * s;
+        const float* mv = m + v * s;
+        float col = 0.f, row = 0.f;
 #pragma unroll
         for (int j = 0; j < ITERS; ++j) {
           const int i = lane + 32 * j;
-          pr[j] = i == a ? v : (i == b ? u : pr[j]);
+          if (i < N && i != a && i != b) {
+            const float* ci = c + i * s;
+            const float* mp = m + pr[j] * s;
+            col += (ci[a] - ci[b]) * (mp[v] - mp[u]);
+            row += (ca[i] - cb[i]) * (mv[pr[j]] - mu[pr[j]]);
+          }
         }
-        __syncwarp();
-        f = f + d;
-        ++successes;
-        if (f < bf) {
-          bf = f;
+        col = warp_sum(col);
+        row = warp_sum(row);
+        const float corner = (ca[a] - cb[b]) * (mv[v] - mu[u]) +
+                             ca[b] * (mv[u] - mu[v]) + cb[a] * (mu[v] - mv[u]);
+        const float d = col + row + corner;
+        if ((d < 0.f) || (ut < expf(-d / tsafe))) {  // the same in every lane
+          __syncwarp();  // every lane has read p[a] and p[b]
+          if (lane == 0) {
+            p[a] = v;
+            p[b] = u;
+          }
 #pragma unroll
           for (int j = 0; j < ITERS; ++j) {
             const int i = lane + 32 * j;
-            if (i < N) bp[i] = pr[j];
+            pr[j] = i == a ? v : (i == b ? u : pr[j]);
+          }
+          __syncwarp();
+          f = f + d;
+          ++successes;
+          if (f < bf) {
+            bf = f;
+#pragma unroll
+            for (int j = 0; j < ITERS; ++j) {
+              const int i = lane + 32 * j;
+              if (i < N) bp[i] = pr[j];
+            }
           }
         }
       }
     }
+    if (steps > 0) t_now = cool_step(t_now, schedule, chain_beta, q, t_final);
   }
 
   __syncwarp();
@@ -243,6 +307,7 @@ qap_sa_step_smem_kernel(const float* __restrict__ C,
   if (lane == 0) {
     f_out[r] = f;
     bf_out[r] = bf;
+    if (steps > 0) temp_out[r] = t_now;
   }
 }
 
@@ -508,48 +573,78 @@ qap_sa_step_l2_kernel(const float* __restrict__ C,
 
 }  // namespace
 
+// The shared-memory branch's launch: one step (steps 0) or a round.
+static cudaError_t smem_launch(const float* C, const float* M,
+                               const int* p_in, const float* f_in,
+                               const int* bp_in, const float* bf_in,
+                               const float* temp, const long long* keys,
+                               const int* n_valid, const float* beta,
+                               int* p_out, float* f_out, int* bp_out,
+                               float* bf_out, float* temp_out, int B, int N,
+                               int rows_per_inst, int K, int max_success,
+                               int steps, int schedule, float q,
+                               float t_final, cudaStream_t st) {
+  int sms = 0;
+  return repro_torch::with_iters(N, [&](auto iters) {
+    constexpr int I = decltype(iters)::value;
+    const cudaError_t err = repro_torch::smem_launch_setup(
+        reinterpret_cast<const void*>(qap_sa_step_smem_kernel<I>),
+        g_smem_granted[I], sms);
+    if (err != cudaSuccess) return err;
+    const int b0 = B / rows_per_inst;
+    const size_t inst_bytes = repro_torch::smem_instance_bytes(N);
+    const int fit = static_cast<int>(
+        (repro_torch::kSmemBlockLimit - inst_bytes) / chain_state_bytes(N));
+    // At most half an SM per instance: two chains on each of an SM's
+    // four schedulers hide each other's latency, and half the blocks
+    // stage half the bytes.
+    const int spread = std::max(1, sms / (2 * b0));
+    const int want = (rows_per_inst + spread - 1) / spread;
+    const int warps =
+        std::max(1, std::min({want, fit, smem_max_warps(I)}));
+    const int per = (rows_per_inst + warps - 1) / warps;
+    qap_sa_step_smem_kernel<I>
+        <<<static_cast<unsigned>(b0) * per, warps * 32,
+           inst_bytes + warps * chain_state_bytes(N), st>>>(
+            C, M, p_in, f_in, bp_in, bf_in, temp, keys, n_valid, beta, p_out,
+            f_out, bp_out, bf_out, temp_out, N, rows_per_inst, K,
+            max_success, per, steps, schedule, q, t_final);
+    return cudaGetLastError();
+  });
+}
+
 // CT and MT are read only above kSmemMaxN and may be null below it; keys
 // are the uint32 words held in int64.  The L2 branch takes orders up to
-// 32 kMaxRegIters (kernels/qap_sa_step.py l2_plan).
-extern "C" int qap_sa_step_launch(const float* C, const float* CT,
-                                  const float* M, const float* MT,
-                                  const int* p_in, const float* f_in,
-                                  const int* bp_in, const float* bf_in,
-                                  const float* temp, const long long* keys,
-                                  const int* n_valid, int* p_out, float* f_out,
-                                  int* bp_out, float* bf_out, int B, int N,
-                                  int rows_per_inst, int K, int max_success,
-                                  int device, void* stream) {
+// 32 kMaxRegIters (kernels/qap_sa_step.py l2_plan).  steps 0: one
+// temperature step keyed by `keys`, no cooling (beta and temp_out
+// unread).  steps >= 1, on the shared-memory branch alone (N <=
+// kSmemMaxN): a round of that many steps from each chain's round key in
+// `keys`, cooled by `schedule` (kCoolLinear, kCoolCauchy) with `q`,
+// `beta` (per chain, read under kCoolCauchy) and `t_final`, the
+// temperature after the round into temp_out.
+extern "C" int qap_sa_step_launch(
+    const float* C, const float* CT, const float* M, const float* MT,
+    const int* p_in, const float* f_in, const int* bp_in, const float* bf_in,
+    const float* temp, const long long* keys, const int* n_valid,
+    const float* beta, int* p_out, float* f_out, int* bp_out, float* bf_out,
+    float* temp_out, int B, int N, int rows_per_inst, int K, int max_success,
+    int steps, int schedule, float q, float t_final, int device,
+    void* stream) {
+  if (steps < 0 || (steps > 0 && (N > repro_torch::kSmemMaxN ||
+                                  (schedule != kCoolLinear &&
+                                   schedule != kCoolCauchy)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   repro_torch::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int sms = 0;
   if (N <= repro_torch::kSmemMaxN) {
-    return static_cast<int>(repro_torch::with_iters(N, [&](auto iters) {
-      constexpr int I = decltype(iters)::value;
-      const cudaError_t err = repro_torch::smem_launch_setup(
-          reinterpret_cast<const void*>(qap_sa_step_smem_kernel<I>),
-          g_smem_granted[I], sms);
-      if (err != cudaSuccess) return err;
-      const int b0 = B / rows_per_inst;
-      const size_t inst_bytes = repro_torch::smem_instance_bytes(N);
-      const int fit = static_cast<int>(
-          (repro_torch::kSmemBlockLimit - inst_bytes) / chain_state_bytes(N));
-      // At most half an SM per instance: two chains on each of an SM's
-      // four schedulers hide each other's latency, and half the blocks
-      // stage half the bytes.
-      const int spread = std::max(1, sms / (2 * b0));
-      const int want = (rows_per_inst + spread - 1) / spread;
-      const int warps = std::max(1, std::min({want, fit, kSmemMaxWarps}));
-      const int per = (rows_per_inst + warps - 1) / warps;
-      qap_sa_step_smem_kernel<I>
-          <<<static_cast<unsigned>(b0) * per, warps * 32,
-             inst_bytes + warps * chain_state_bytes(N), st>>>(
-              C, M, p_in, f_in, bp_in, bf_in, temp, keys, n_valid, p_out,
-              f_out, bp_out, bf_out, N, rows_per_inst, K, max_success, per);
-      return cudaGetLastError();
-    }));
+    return static_cast<int>(smem_launch(
+        C, M, p_in, f_in, bp_in, bf_in, temp, keys, n_valid, beta, p_out,
+        f_out, bp_out, bf_out, temp_out, B, N, rows_per_inst, K, max_success,
+        steps, schedule, q, t_final, st));
   }
+  int sms = 0;
   const size_t bytes = sizeof(float) * l2_block_words(N);
   if (CT == nullptr || MT == nullptr || N > 32 * kMaxRegIters ||
       bytes > static_cast<size_t>(repro_torch::kSmemBlockLimit)) {

@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "qap_delta": {"qap_delta_launch": "i:pppppppiiiiiiip",
                   "qap_delta_smem_max_n": "i:"},
     "qap_objective": {"qap_objective_launch": "i:pppppqiqiiiiip"},
-    "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppiiiiiip"},
+    "qap_sa_step": {"qap_sa_step_launch": "i:pppppppppppppppppiiiiiiiffip"},
     "qap_ga_step": {"qap_ga_step_launch": "i:pppppppppiiiiiiffiiiiiiip",
                     "qap_ga_step_smem_warps": "i:iiii"},
     "qap_objective_sparse": {"qap_objective_sparse_launch": "i:pppppqiiiqip"},
@@ -82,10 +82,12 @@ def row_slot_words(n: int) -> int:
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 # The branches of the kernels with two, by the order (K1, K2, K4; K5 by
 # what fits): shared memory and L2.  K1's L2 branch counts the orders
-# whose rows it cannot stage ("l2_unstaged", N >= 11618) apart.
+# whose rows it cannot stage ("l2_unstaged", N >= 11618) apart, K4's
+# shared-memory branch its launches of a whole exchange round
+# ("smem_round") apart from those of one temperature step.
 BRANCHES = {"qap_delta": ("smem", "l2", "l2_unstaged"),
-            "qap_sa_step": ("smem", "l2"), "qap_objective": ("smem", "l2"),
-            "qap_ga_step": ("smem", "l2")}
+            "qap_sa_step": ("smem", "l2", "smem_round"),
+            "qap_objective": ("smem", "l2"), "qap_ga_step": ("smem", "l2")}
 # Launches by branch ("qap_delta/smem", "qap_delta/l2", ...); cleared
 # with LAUNCHES.
 BRANCH_LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -27,7 +27,7 @@ from . import build
 from .qap_delta import qap_delta_cuda, qap_delta_plain
 from .qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
 from .qap_objective import qap_objective_cuda, qap_objective_plain
-from .qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
+from .qap_sa_step import Cooling, qap_sa_step_cuda, qap_sa_step_plain
 from .qap_sparse import (qap_delta_sparse_cuda, qap_delta_sparse_plain,
                          qap_objective_sparse_cuda, qap_objective_sparse_plain)
 from .selective_scan import SelectiveScan
@@ -139,23 +139,35 @@ def fused_step_fits(n: int) -> bool:
     return ((max(n, LANE) + LANE - 1) // LANE) * LANE <= MAX_FUSED_N
 
 
+def sa_round_fits(p: torch.Tensor) -> bool:
+    """Does K4 run a whole exchange round of ``p``'s chains in one launch?
+    On the card, at orders its shared-memory branch takes."""
+    return _route(p) and p.shape[-1] <= build.dense_smem_max_n()
+
+
 def qap_sa_step(C, M, p, f, best_p, best_f, temp, keys, n_valid, *,
                 max_neighbors: int, max_success: int, event_width=None,
                 CT: Optional[torch.Tensor] = None,
-                MT: Optional[torch.Tensor] = None):
+                MT: Optional[torch.Tensor] = None,
+                steps: Optional[int] = None,
+                cooling: Optional[Cooling] = None,
+                temp_out: Optional[torch.Tensor] = None):
     """One whole SA temperature step for ``B`` chains: ``(p, f, best_p,
     best_f)``; candidates and uniforms come from each chain's key words.
     Callers guard orders with :func:`fused_step_fits`.  ``event_width``
     shapes the plain version's event windows; K4, like the reference's
     Pallas kernel, scans the candidates one by one and ignores it (every
-    width gives the same states)."""
+    width gives the same states).  With ``steps``, a whole round of that
+    many steps from round keys, each followed by ``cooling``, the final
+    temperatures into ``temp_out`` (one launch on the card; callers guard
+    it with :func:`sa_round_fits`)."""
+    kw = dict(max_neighbors=max_neighbors, max_success=max_success,
+              steps=steps, cooling=cooling, temp_out=temp_out)
     if _route(p):
         return qap_sa_step_cuda(C, M, p, f, best_p, best_f, temp, keys,
-                                n_valid, max_neighbors=max_neighbors,
-                                max_success=max_success, CT=CT, MT=MT)
+                                n_valid, CT=CT, MT=MT, **kw)
     return qap_sa_step_plain(C, M, p, f, best_p, best_f, temp, keys, n_valid,
-                             max_neighbors=max_neighbors,
-                             max_success=max_success, event_width=event_width)
+                             event_width=event_width, **kw)
 
 
 def qap_ga_step(C, M, pop, fit, keys, n_valid, *, n_off: int, tournament: int,

@@ -49,7 +49,7 @@ def test_branch_counts_start_at_zero_and_reset():
     assert ops.branch_counts() == {
         "qap_delta/smem": 0, "qap_delta/l2": 0, "qap_delta/l2_unstaged": 0,
         "qap_sa_step/smem": 0, "qap_sa_step/l2": 0,
-        "qap_objective/smem": 0, "qap_objective/l2": 0,
+        "qap_sa_step/smem_round": 0, "qap_objective/smem": 0, "qap_objective/l2": 0,
         "qap_ga_step/smem": 0, "qap_ga_step/l2": 0}
     for key in ops.branch_counts():
         build.BRANCH_LAUNCHES[key] += 2

@@ -14,11 +14,13 @@ import torch
 
 from repro_torch.core import (annealing, exact, genetic, instances,
                               multilevel, sparse)
+from repro_torch.core.keys import split as split_key
+from repro_torch.core.qap import mask_flows
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.qap_delta import qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_plain, smem_branch
 from repro_torch.kernels.qap_objective import qap_objective_plain
-from repro_torch.kernels.qap_sa_step import qap_sa_step_plain
+from repro_torch.kernels.qap_sa_step import Cooling, qap_sa_step_plain
 from repro_torch.kernels.qap_sparse import (objective_sparse_launch,
                                             qap_delta_sparse_plain,
                                             qap_objective_sparse_cuda,
@@ -303,6 +305,168 @@ def test_qap_sa_step_l2_kernel_is_deterministic(cuda):
     for a, b in zip(first, ops.qap_sa_step(*args, **kw)):
         assert torch.equal(a, b)
     assert not torch.equal(first[0], p)
+
+
+# K4's round, (n, nv, schedule, max_neighbors, max_success): the dense
+# buckets, the cell's order 125 padded into 128, the branch's last order;
+# then the acceptance cap at 0 and 1 and no candidate at all.
+ROUND_STEPS, ROUND_CHAINS = 100, 250      # 250: an instance's last block
+ROUND_CASES = ([(n, nv, schedule, 50, 10)
+                for n, nv in ((32, 32), (64, 64), (128, 125), (128, 128),
+                              (169, 169))
+                for schedule in ("cauchy", "linear")]
+               + [(128, 125, schedule, k, cap)
+                  for schedule in ("cauchy", "linear")
+                  for k, cap in ((50, 0), (50, 1), (0, 10))])
+
+
+def _round_inputs(n, nv, schedule, seed, device):
+    """Two integer instances of 250 chains each, at 5 to 500 degrees,
+    Cauchy betas from 1e-4 to 0.05 and round keys; a cooling whose
+    ``t_final`` some chains reach within the round and others do not."""
+    C, M, p, _, f, temp, keys, nv_t = _inputs(n, nv, False, seed, device,
+                                              ROUND_CHAINS, 1, insts=2)
+    g = torch.Generator(device=device).manual_seed(seed)
+    beta = 1e-4 + 0.05 * torch.rand(p.shape[0], generator=g, device=device)
+    q = annealing._f32(0.95)
+    return (C, M, p, f, temp, keys, nv_t,
+            Cooling(schedule, q, annealing._f32(1.0), beta))
+
+
+@pytest.mark.parametrize("n,nv,schedule,k,max_success", ROUND_CASES)
+def test_qap_sa_step_round_is_single_steps_with_the_hosts_cooling(
+        cuda, n, nv, schedule, k, max_success):
+    """One round launch against 100 single-step launches with the step
+    keys split and the temperature cooled and clamped on the host between
+    them: p, f, best_p, best_f and the temperature, bit for bit."""
+    C, M, p, f, temp, keys, nv_t, cooling = _round_inputs(n, nv, schedule,
+                                                          n + k, cuda)
+    kw = dict(max_neighbors=k, max_success=max_success)
+    branches = ops.branch_counts()
+    t_round = torch.empty_like(temp)
+    got = ops.qap_sa_step(C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t,
+                          steps=ROUND_STEPS, cooling=cooling,
+                          temp_out=t_round, **kw)
+    moved = {key: v - branches[key] for key, v in ops.branch_counts().items()
+             if v != branches[key]}
+    assert moved == {"qap_sa_step/smem_round": 1}
+    step_keys = split_key(keys, ROUND_STEPS)
+    state, t = (p, f, p.clone(), f.clone()), temp
+    for step in range(ROUND_STEPS):
+        state = ops.qap_sa_step(C, M, *state, t,
+                                step_keys[:, step].contiguous(), nv_t, **kw)
+        if schedule == "linear":
+            t = t * cooling.q
+        else:
+            t = t / (cooling.beta.double() * t.double() + 1.0).float()
+        t = t.clamp_min(cooling.t_final)
+    for g, w in zip((*got, t_round), (*state, t)):
+        assert torch.equal(g, w)
+    assert (t_round == cooling.t_final).any() and \
+        (t_round > cooling.t_final).any()
+    if k and max_success:
+        assert not torch.equal(got[0], p)
+
+
+def test_qap_sa_step_round_is_the_plain_round(cuda):
+    """The round launch against its plain version on integer instances,
+    and its refusal of an order past the shared-memory branch."""
+    C, M, p, f, temp, keys, nv_t, cooling = _round_inputs(128, 125, "cauchy",
+                                                          3, cuda)
+    kw = dict(max_neighbors=50, max_success=10, steps=20)
+    t_card = torch.empty_like(temp)
+    got = ops.qap_sa_step(C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t,
+                          cooling=cooling, temp_out=t_card, **kw)
+    args = [x.cpu() for x in (C, M, p, f, p, f, temp, keys, nv_t)]
+    t_cpu = torch.empty_like(args[6])
+    want = qap_sa_step_plain(*args, cooling=cooling._replace(
+        beta=cooling.beta.cpu()), temp_out=t_cpu, **kw)
+    for g, w in zip((*got, t_card), (*want, t_cpu)):
+        assert torch.equal(g.cpu(), w)
+    C, M, p, _, f, temp, keys, nv_t = _inputs(200, 193, False, 1, cuda)
+    with pytest.raises(ValueError, match="shared-memory branch"):
+        ops.qap_sa_step(C, M, p, f, p.clone(), f.clone(), temp, keys, nv_t,
+                        cooling=cooling._replace(beta=temp.clone()),
+                        temp_out=torch.empty_like(temp), **kw)
+
+
+def _round_wave(n, nv, device):
+    """Three padded integer instances and their keys, for
+    ``anneal_chains``."""
+    C, M, *_ = _inputs(n, nv, False, n, device, insts=3)
+    C = mask_flows(C, torch.full((3,), nv, device=device))
+    key = torch.as_tensor([[0, 11], [0, 12], [0, 13]], dtype=torch.int64,
+                          device=device)
+    return C, M, key, torch.full((3,), nv, dtype=torch.int64, device=device)
+
+
+ROUND_CFG = annealing.SAConfig(max_neighbors=50, iters_per_exchange=20,
+                               num_exchanges=3, solvers=25, loop="fused")
+
+
+def test_fused_anneal_chains_is_its_loop_of_single_steps(cuda, monkeypatch):
+    """PSA's body with a round a launch against the same body stepping
+    each temperature level with its own launch (the loop ``_chain_round``
+    keeps for the L2 branch): every chain's state and the history, bit
+    for bit, at the cell's order 125 in the 128 bucket."""
+    C, M, key, nv = _round_wave(128, 125, cuda)
+    out = {}
+    for steps in ("round", "single"):
+        if steps == "single":
+            monkeypatch.setattr(annealing, "_round_steps",
+                                lambda cfg, p: 1)
+        before = ops.branch_counts()
+        out[steps] = annealing.anneal_chains(C, M, key, ROUND_CFG, 2, True,
+                                             nv)
+        moved = {k: v - before[k] for k, v in ops.branch_counts().items()
+                 if v != before[k]}
+        e, i = ROUND_CFG.num_exchanges, ROUND_CFG.iters_per_exchange
+        assert moved == ({"qap_sa_step/smem_round": e} if steps == "round"
+                         else {"qap_sa_step/smem": e * i})
+    (state, hist), (state1, hist1) = out["round"], out["single"]
+    for g, w in zip((*state, hist), (*state1, hist1)):
+        assert torch.equal(g, w)
+
+
+def test_round_counts_one_launch_an_exchange_and_tags_its_span(cuda):
+    """A fused PSA solve at order 125 makes ``num_exchanges`` round
+    launches and no other K4 launch; each ``solver.round`` span says
+    ``steps=iters_per_exchange``."""
+    from repro_torch import spans
+    C, M, key, nv = _round_wave(128, 125, cuda)
+    ops.reset_launch_counts()
+    spans.enable()
+    try:
+        annealing.run_psa_batch(C, M, key, ROUND_CFG, 2, n_valid=nv,
+                                device="cuda")
+    finally:
+        records = spans.drain()
+        spans.disable()
+    branches = ops.branch_counts()
+    assert branches["qap_sa_step/smem_round"] == ROUND_CFG.num_exchanges
+    assert ops.launch_counts()["qap_sa_step"] == ROUND_CFG.num_exchanges
+    assert [s.attrs["steps"] for s in records if s.name == "solver.round"] \
+        == [ROUND_CFG.iters_per_exchange] * ROUND_CFG.num_exchanges
+
+
+def test_l2_orders_and_temperature_step_launch_a_step_at_a_time(cuda):
+    """Order 200 (K4's L2 branch) runs a launch a temperature level, and
+    so does ``temperature_step`` at order 128."""
+    C, M, key, nv = _round_wave(200, 193, cuda)
+    ops.reset_launch_counts()
+    annealing.run_psa_batch(C, M, key, ROUND_CFG, 1, n_valid=nv,
+                            device="cuda")
+    e, i = ROUND_CFG.num_exchanges, ROUND_CFG.iters_per_exchange
+    branches = ops.branch_counts()
+    assert branches["qap_sa_step/l2"] == e * i
+    assert branches["qap_sa_step/smem_round"] == 0
+    C, M, p, _, f, temp, keys, nv_t = _inputs(128, 125, False, 2, cuda)
+    state = annealing.SAState(p, f, p.clone(), f.clone(), temp)
+    ops.reset_launch_counts()
+    annealing.temperature_step(C, M, state, keys, ROUND_CFG, 1e-3,
+                               nv_t.long())
+    assert ops.branch_counts()["qap_sa_step/smem"] == 1
+    assert ops.launch_counts()["qap_sa_step"] == 1
 
 
 def test_qap_delta_unstaged_l2_kernel_matches_plain(cuda):

@@ -19,7 +19,8 @@ from repro_torch.kernels.qap_delta import qap_delta_cuda, qap_delta_plain
 from repro_torch.kernels.qap_ga_step import qap_ga_step_cuda, qap_ga_step_plain
 from repro_torch.kernels.qap_objective import (qap_objective_cuda,
                                                qap_objective_plain)
-from repro_torch.kernels.qap_sa_step import qap_sa_step_cuda, qap_sa_step_plain
+from repro_torch.kernels.qap_sa_step import (Cooling, qap_sa_step_cuda,
+                                             qap_sa_step_plain)
 from repro_torch.kernels.qap_sparse import (qap_delta_sparse_cuda,
                                             qap_delta_sparse_plain,
                                             qap_objective_sparse_plain)
@@ -383,6 +384,8 @@ def _malformed_calls():
     keys = keys.long()
     sa = (Cs, Ms, sps, fs, sps, fs, temps, keys, nvs)
     sa_kw = dict(max_neighbors=K, max_success=4)
+    cool = Cooling("cauchy", 0.95, 1e-3, torch.ones_like(temps))
+    rnd = dict(sa_kw, steps=3, cooling=cool, temp_out=torch.empty_like(temps))
     iC, iM, pops, fits, ikeys, invs = (_t(x) for x in
                                        _islands(16, 12, False, seed=7))
     ga = (iC, iM, pops, fits, ikeys.long(), invs)
@@ -425,6 +428,13 @@ def _malformed_calls():
                               "pairs"),
         "sa-keys-int32": (lambda: qap_sa_step_cuda(*sa[:7], keys.int(), nvs,
                                                    **sa_kw), "keys"),
+        "sa-round-steps-0": (lambda: qap_sa_step_cuda(
+            *sa, **dict(rnd, steps=0)), "steps >= 1"),
+        "sa-round-schedule": (lambda: qap_sa_step_cuda(
+            *sa, **dict(rnd, cooling=cool._replace(schedule="geometric"))),
+            "schedule"),
+        "sa-round-temp_out-shape": (lambda: qap_sa_step_cuda(
+            *sa, **dict(rnd, temp_out=temps[:1].clone())), "temp_out"),
         "objective-perms-int64": (lambda: qap_objective_cuda(iC, iM, pops.long()),
                                   "int32"),
         "objective-C-strided": (lambda: qap_objective_cuda(
